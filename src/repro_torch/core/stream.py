@@ -1,0 +1,295 @@
+"""STStream — the stream-triggered deferred execution queue (paper §2, §4).
+
+The host *enqueues* operations (post / start / put / complete / wait /
+kernel launches) and returns immediately; nothing executes until
+``synchronize``. Execution is a three-stage pipeline over the
+triggered-op IR (repro_torch.core.triggered):
+
+    enqueue API --(1) lower.py--> TriggeredProgram DAG
+                --(2) schedule.py passes--> scheduled DAG (+dep edges)
+                --(3) backends.py / engine.py / throttle.py--> one of
+                      four emitters
+
+Stage-3 emitters all consume the SAME scheduled DAG:
+
+  * mode="st"   (Fig. 9b): the WHOLE queue (all iterations) is enqueued
+    on the device stream with no host round-trip; ``synchronize`` is the
+    single host sync at the end.
+
+  * mode="host" (Fig. 9a): one dispatch per descriptor with the host
+    blocking at every epoch boundary — the CPU-orchestrated standard
+    active-RMA baseline.
+
+  * mode="fused": the progress engine (core/engine.py) — the schedule
+    is planned into per-stream segments, emitted segment by segment and
+    counted as one dispatch unit per segment, not per descriptor (the
+    ops of a segment are still launched one by one).
+
+  * the cost simulator (core/throttle.py) walks the identical schedule.
+
+Every rank of the process grid lives on one device (``device``), in
+state tensors with a leading rank dim; ``device=None`` (with an explicit
+``grid_shape``) builds a device-free stream whose programs can be
+lowered, scheduled, and simulated but not executed.
+"""
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import backends, engine
+from repro_torch.core.compat import block, resolve_device
+from repro_torch.core.lower import lower_segment, split_segments
+from repro_torch.core.schedule import schedule
+from repro_torch.core.triggered import TriggeredProgram
+from repro_torch.core.window import STWindow
+
+
+@dataclass
+class _Op:
+    """Raw enqueue-API record; lowered onto the triggered-op IR."""
+    kind: str
+    window: Optional[STWindow] = None
+    fn: Optional[Callable] = None
+    # monotonic per-stream identity of fn, assigned at launch(): id(fn)
+    # can be reused by a fresh closure after the old one is collected,
+    # which would silently hit a stale _sched_cache entry
+    fn_token: int = -1
+    reads: Tuple[str, ...] = ()
+    writes: Tuple[str, ...] = ()
+    put: Optional[dict] = None
+    phase: int = 0            # ping/pong parity (double-buffered windows)
+    label: str = ""
+
+    def cache_key(self):
+        put = (tuple(sorted(self.put.items())) if self.put else None)
+        return (self.kind, self.fn_token, self.reads, self.writes, put,
+                self.window.name if self.window else None, self.phase,
+                self.label)
+
+
+class STStream:
+    """Deferred op queue over a process grid held on one device.
+
+    ``device`` is ``"cuda"`` (the default; raises when no card is
+    available), ``"cpu"`` (the plain PyTorch path, for tests), or
+    ``None`` for a device-free stream. ``grid_shape`` gives the process
+    grid over ``grid_axes``.
+    """
+
+    def __init__(self, device="cuda", grid_axes: Sequence[str] = ("x", "y",
+                                                                 "z"),
+                 periodic: bool = True,
+                 grid_shape: Optional[Sequence[int]] = None):
+        self.device = resolve_device(device)
+        self.grid_axes = tuple(grid_axes)
+        if grid_shape is None:
+            raise ValueError("grid_shape is required")
+        self.grid_shape = tuple(int(g) for g in grid_shape)
+        if len(self.grid_shape) != len(self.grid_axes):
+            raise ValueError(f"grid_shape {self.grid_shape} does not match "
+                             f"grid_axes {self.grid_axes}")
+        self.num_ranks = int(np.prod(self.grid_shape))
+        self.periodic = periodic
+        self.pattern = ""          # set by pattern constructors; flows into
+        #                            program meta
+        self.program: List[_Op] = []
+        self.windows: Dict[str, STWindow] = {}
+        self.dispatches = 0        # the simulator's dispatch units the
+        #                            executors counted (see backends /
+        #                            engine); not device launches
+        self._perm_cache: Dict[tuple, list] = {}
+        self._sched_cache: Dict[tuple, List[TriggeredProgram]] = {}
+        self._device_tables: Dict[tuple, object] = {}
+        # fn identity tokens: keyed by the function OBJECT (a strong ref,
+        # so a collected closure can never alias a live token) and drawn
+        # from a never-reset monotonic counter
+        self._fn_tokens: Dict[Callable, int] = {}
+        self._fn_token_counter = itertools.count()
+
+    # -- window management --------------------------------------------------
+    def create_window(self, name, buffers, group, topology=None,
+                      double_buffer=False, db_names=()) -> STWindow:
+        win = STWindow(name=name, buffers=buffers, group=list(group),
+                       topology=topology, double_buffer=double_buffer,
+                       db_names=tuple(db_names))
+        self.windows[name] = win
+        return win
+
+    def state_specs(self) -> Dict[str, Tuple[tuple, str]]:
+        """{state key: (global shape, numpy dtype name)} of every window."""
+        specs: Dict[str, Tuple[tuple, str]] = {}
+        for win in self.windows.values():
+            specs.update(win.state_specs(self.num_ranks))
+        return specs
+
+    def allocate(self) -> Dict[str, torch.Tensor]:
+        """Zeroed state of every window on the stream's device. Also
+        builds the device tables emission reads (put index tensors,
+        counter updates), so no host-to-device copy happens later."""
+        if self.device is None:
+            raise ValueError("cannot allocate on a device-free stream "
+                             "(constructed with device=None)")
+        state = {}
+        for win in self.windows.values():
+            state.update(win.allocate(self.num_ranks, self.device))
+        engine.prepare_tables(self)
+        return state
+
+    # -- enqueue API (returns immediately: deferred execution) ---------------
+    def launch(self, fn, reads, writes, label="kernel"):
+        tok = self._fn_tokens.get(fn)
+        if tok is None:
+            tok = self._fn_tokens[fn] = next(self._fn_token_counter)
+        self.program.append(_Op("kernel", fn=fn, fn_token=tok,
+                                reads=tuple(reads), writes=tuple(writes),
+                                label=label))
+
+    def post(self, win: STWindow, phase: int = 0):
+        self.program.append(_Op("post", window=win, phase=phase))
+
+    def start(self, win: STWindow, mode: str = "MPIX_MODE_STREAM",
+              phase: int = 0):
+        self.program.append(_Op("start", window=win, phase=phase,
+                                label=mode))
+
+    def put(self, win: STWindow, src: str, dst: str, direction,
+            phase: int = 0):
+        self.program.append(_Op("put", window=win, phase=phase,
+                                put=dict(src=src, dst=dst,
+                                         direction=tuple(direction))))
+
+    def complete(self, win: STWindow, phase: int = 0):
+        self.program.append(_Op("complete", window=win, phase=phase))
+
+    def wait(self, win: STWindow, phase: int = 0):
+        self.program.append(_Op("wait", window=win, phase=phase))
+
+    def host_sync(self):
+        """Application-level throttling point (paper §5.2.1)."""
+        self.program.append(_Op("hostsync"))
+
+    # -- neighbor permutation -------------------------------------------------
+    def rank_strides(self) -> tuple:
+        """Row-major strides of the grid-coordinate -> linear-rank map.
+        The SINGLE definition of rank linearization."""
+        strides, acc = [], 1
+        for n in reversed(self.grid_shape):
+            strides.append(acc)
+            acc *= n
+        return tuple(reversed(strides))
+
+    def perm_for(self, direction: tuple) -> list:
+        """(src, dst) linear-rank pairs of traffic sent in ``direction``;
+        on a non-periodic grid, pairs leaving the grid are dropped."""
+        if direction in self._perm_cache:
+            return self._perm_cache[direction]
+        dims = self.grid_shape
+        nd = len(dims)
+        d = tuple(direction) + (0,) * (nd - len(direction))
+        strides = self.rank_strides()
+
+        def lin(coord):
+            return sum((c % n) * s
+                       for c, n, s in zip(coord, dims, strides))
+
+        pairs = []
+        for src in np.ndindex(*dims):
+            dst = tuple((src[i] + d[i]) % dims[i] for i in range(nd))
+            if not self.periodic:
+                ok = all(0 <= src[i] + d[i] < dims[i] for i in range(nd))
+                if not ok:
+                    continue
+            pairs.append((lin(src), lin(dst)))
+        self._perm_cache[direction] = pairs
+        return pairs
+
+    # -- compile pipeline: lower (1) + schedule (2) ---------------------------
+    def scheduled_programs(self, *, throttle: str = "adaptive",
+                           resources: int = 64, merged: bool = True,
+                           ordered: bool = False, nstreams: int = 1,
+                           node_aware: bool = False,
+                           coalesce: bool = False,
+                           pack: bool = False,
+                           chunk_bytes: int = 0,
+                           fused: bool = False,
+                           config=None) -> List[TriggeredProgram]:
+        """Lower the op queue and run the schedule passes; one scheduled
+        descriptor DAG per host_sync-delimited segment. Cached per
+        (queue, options) so repeated synchronize calls reuse programs.
+        ``config`` (a tuned schedule config) raises NotImplementedError
+        until the tuner is ported."""
+        if config is not None:
+            from repro_torch.core.patterns import _NO_TUNER
+            raise NotImplementedError(_NO_TUNER)
+        key = (tuple(op.cache_key() for op in self.program),
+               throttle, resources, merged, ordered, nstreams,
+               node_aware, coalesce, pack, chunk_bytes, fused)
+        progs = self._sched_cache.get(key)
+        if progs is None:
+            progs = [
+                schedule(lower_segment(self, seg), throttle=throttle,
+                         resources=resources, merged=merged,
+                         ordered=ordered, nstreams=nstreams,
+                         node_aware=node_aware, coalesce=coalesce,
+                         pack=pack, chunk_bytes=chunk_bytes, fused=fused)
+                for seg in split_segments(self.program)]
+            self._sched_cache[key] = progs
+        return progs
+
+    # -- execution: emit (3) --------------------------------------------------
+    def synchronize(self, state, mode: str = "st", throttle: str = "adaptive",
+                    resources: int = 64, merged: bool = True,
+                    ordered: bool = False, nstreams: int = 1,
+                    node_aware: bool = False, coalesce: bool = False,
+                    pack: bool = False, chunk_bytes: int = 0,
+                    fused: bool = False, config=None):
+        """Execute the enqueued program; returns the new state dict (the
+        one passed in is never modified).
+
+        mode="st": every descriptor enqueued on the device, one host
+        sync (at the end of this call). mode="host": per-descriptor
+        dispatch, blocking at epoch boundaries. mode="fused": the
+        progress engine — one dispatch unit per planned segment
+        (``fused=True`` scheduling is implied). ``pack`` and
+        ``chunk_bytes`` select packed and chunked put descriptors
+        (schedule.pack_puts / schedule.chunk_puts)."""
+        if self.device is None:
+            raise ValueError("cannot execute a device-free stream "
+                             "(constructed with device=None)")
+        if mode not in ("st", "host", "fused"):
+            raise ValueError(f"unknown mode {mode!r}; expected st, host "
+                             "or fused")
+        specs = self.state_specs()
+        if set(state) != set(specs):
+            raise ValueError("state keys differ from the windows': "
+                             f"{sorted(set(state) ^ set(specs))[:6]}")
+        for k, v in state.items():
+            if v.device != self.device:
+                raise ValueError(f"state[{k!r}] is on {v.device}, the "
+                                 f"stream on {self.device}")
+        fused = fused or mode == "fused"
+        for prog in self.scheduled_programs(
+                throttle=throttle, resources=resources, merged=merged,
+                ordered=ordered, nstreams=nstreams, node_aware=node_aware,
+                coalesce=coalesce, pack=pack, chunk_bytes=chunk_bytes,
+                fused=fused, config=config):
+            if mode == "fused":
+                state = engine.run_fused(self, prog, state)
+            elif mode == "st":
+                state = backends.run_compiled(self, prog, state)
+            else:
+                state = backends.run_host(self, prog, state)
+            # application-level sync between segments, and the single
+            # host sync at the end of an ST program
+            block(self.device)
+        return state
+
+
+def counters_expected(niter: int, npeers: int):
+    """After n iterations of post/complete, every signal slot == n."""
+    return niter * np.ones((npeers,), np.int32)

@@ -1,0 +1,181 @@
+"""Wrappers of the merged halo pack/unpack kernels (csrc/halo_pack.cu).
+
+Each wrapper takes its route from the device of the tensor it is given:
+on a CUDA tensor it launches the hand-written kernel (or raises), on a
+CPU tensor it runs the plain version from :mod:`.ref`. There is no
+fallback between the two. All four forms are batched over the leading
+rank dim R and use the same two kernels:
+
+  * :func:`halo_pack_split` — (R, nx, ny, nz) -> 26 contiguous (R, s_d)
+    send buffers, one launch (Faces' merged ``pack_all``);
+  * :func:`halo_pack` — the same kernel into one flat (R, total) buffer;
+  * :func:`halo_unpack_split` — 26 (R, s_d) surfaces -> (R, nx, ny, nz)
+    accumulator, one launch (Faces' merged ``unpack_compare``);
+  * :func:`halo_unpack` — the same kernel from one flat (R, total) buffer.
+
+The kernels address each of the 26 surfaces through its own base
+pointer and rank stride, so the split and flat forms differ only in the
+pointers the wrapper passes, and a surface may be a view whose ranks sit
+at any stride (the parts ``ref.unpack_flat`` splits off a packed put) as
+long as each rank's elements are contiguous.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core.halo import DIRECTIONS, offsets_of, surface_size
+from repro_torch.kernels import _build
+from repro_torch.kernels.halo_pack import ref
+
+NDIR = len(DIRECTIONS)
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry(n):
+    """(surface sizes, surface offsets, total) of a block shape ``n``, in
+    ``DIRECTIONS`` order — host work done once per shape, not per call."""
+    offs, total = offsets_of(n)
+    return (tuple(surface_size(n, d) for d in DIRECTIONS),
+            tuple(offs[d][0] for d in DIRECTIONS), total)
+
+
+def _check_cuda(t: torch.Tensor, what: str, device=None):
+    """Device and dtype of a tensor the kernel reads or writes."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{what}: on {t.device}, expected {device}")
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"{what}: on {t.device}, but the current CUDA "
+                         f"device is {torch.cuda.current_device()}; the "
+                         "kernel launches on the current device")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{what}: the kernel takes float32, got {t.dtype}")
+
+
+def _rows(t: torch.Tensor, R: int, s: int, what: str) -> torch.Tensor:
+    """``t`` viewed as (R, s) rows, one per rank, without a copy: each
+    rank's ``s`` elements must be contiguous, its rank stride is free."""
+    try:
+        rows = t.view(R, s)
+    except RuntimeError:
+        rows = None
+    if rows is None or (s > 1 and rows.stride(1) != 1):
+        raise ValueError(f"{what}: each rank's {s} elements must be "
+                         f"contiguous (shape {tuple(t.shape)}, strides "
+                         f"{t.stride()})")
+    return rows
+
+
+def _check_field(field: torch.Tensor):
+    if field.dim() != 4 or min(field.shape[1:]) < 1:
+        raise ValueError("halo pack: field must be (R, nx, ny, nz), got "
+                         f"{tuple(field.shape)}")
+
+
+def _pointer_table(tensors, strides, base_offsets=None):
+    ptrs = (ctypes.c_uint64 * NDIR)()
+    strd = (ctypes.c_int64 * NDIR)()
+    for k, (t, s) in enumerate(zip(tensors, strides)):
+        off = 0 if base_offsets is None else base_offsets[k]
+        ptrs[k] = t.data_ptr() + off * t.element_size()
+        strd[k] = s
+    return ptrs, strd
+
+
+def _launch_pack(field, dst_tensors, dst_strides, dst_offsets=None):
+    _check_cuda(field, "halo pack: field")
+    if not field.is_contiguous():
+        raise ValueError("halo pack: field must be contiguous")
+    R, nx, ny, nz = field.shape
+    ptrs, strd = _pointer_table(dst_tensors, dst_strides, dst_offsets)
+    rc = _build.load("halo_pack").halo_pack_launch(
+        field.data_ptr(), R, nx, ny, nz, ptrs, strd,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "halo_pack")
+
+
+def _launch_unpack(acc, src_tensors, src_strides, src_offsets=None):
+    R, nx, ny, nz = acc.shape
+    ptrs, strd = _pointer_table(src_tensors, src_strides, src_offsets)
+    rc = _build.load("halo_pack").halo_unpack_launch(
+        acc.data_ptr(), R, nx, ny, nz, ptrs, strd,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "halo_unpack")
+
+
+def halo_pack_split(field):
+    """(R, nx, ny, nz) float32 -> tuple of the 26 surfaces, each a new
+    contiguous (R, s_d) tensor, in ``DIRECTIONS`` order."""
+    _check_field(field)
+    if field.device.type == "cpu":
+        return ref.halo_pack_split_ref(field)
+    sizes, _, _ = _geometry(tuple(field.shape[1:]))
+    R = field.shape[0]
+    outs = tuple(torch.empty((R, s), dtype=field.dtype, device=field.device)
+                 for s in sizes)
+    if R:
+        _launch_pack(field, outs, sizes)
+    return outs
+
+
+def halo_pack(field):
+    """(R, nx, ny, nz) float32 -> flat (R, total) merged surface buffer
+    at ``offsets_of`` offsets."""
+    _check_field(field)
+    if field.device.type == "cpu":
+        return ref.halo_pack_ref(field)
+    _, offs, total = _geometry(tuple(field.shape[1:]))
+    R = field.shape[0]
+    out = torch.empty((R, total), dtype=field.dtype, device=field.device)
+    if R:
+        _launch_pack(field, [out] * NDIR, [total] * NDIR, offs)
+    return out
+
+
+def halo_unpack_split(recvs, n):
+    """26 surfaces (each (R, s_d), ``DIRECTIONS`` order) -> new
+    (R, nx, ny, nz) accumulator: every cell is 0.0 plus, in
+    ``DIRECTIONS`` order, each surface that contains it."""
+    n = tuple(int(x) for x in n)
+    if len(recvs) != NDIR:
+        raise ValueError(f"halo unpack: expected {NDIR} surfaces, got "
+                         f"{len(recvs)}")
+    R = recvs[0].shape[0]
+    sizes, _, _ = _geometry(n)
+    for d, s, r in zip(DIRECTIONS, sizes, recvs):
+        if r.numel() != R * s or r.shape[0] != R:
+            raise ValueError(f"halo unpack: surface {d} has shape "
+                             f"{tuple(r.shape)}, expected ({R}, {s})")
+    if recvs[0].device.type == "cpu":
+        return ref.halo_unpack_split_ref(recvs, n)
+    rows = []
+    for d, s, r in zip(DIRECTIONS, sizes, recvs):
+        _check_cuda(r, f"halo unpack: surface {d}", recvs[0].device)
+        rows.append(_rows(r, R, s, f"halo unpack: surface {d}"))
+    acc = torch.empty((R,) + n, dtype=torch.float32,
+                      device=recvs[0].device)
+    if R:
+        _launch_unpack(acc, rows, [r.stride(0) for r in rows])
+    return acc
+
+
+def halo_unpack(flat, n):
+    """flat (R, total) float32 -> new (R, nx, ny, nz) accumulator."""
+    n = tuple(int(x) for x in n)
+    _, offs, total = _geometry(n)
+    if flat.dim() != 2 or flat.shape[1] != total:
+        raise ValueError(f"halo unpack: flat must be (R, {total}), got "
+                         f"{tuple(flat.shape)}")
+    if flat.device.type == "cpu":
+        return ref.halo_unpack_ref(flat, n)
+    _check_cuda(flat, "halo unpack: flat")
+    R = flat.shape[0]
+    flat = _rows(flat, R, total, "halo unpack: flat")
+    acc = torch.empty((R,) + n, dtype=torch.float32, device=flat.device)
+    if R:
+        _launch_unpack(acc, [flat] * NDIR, [flat.stride(0)] * NDIR, offs)
+    return acc

@@ -1,0 +1,134 @@
+"""The port's halo pack/unpack and counter-bump modules on the CPU.
+
+The plain versions (what the wrappers run for a CPU tensor) must equal
+the JAX package's Pallas kernels — run in interpret mode, as
+``tests/test_kernels.py`` runs them — bit for bit, per rank of a batch,
+and the generic packed/chunked put helpers must equal their jnp
+counterparts. The CUDA kernels themselves are held against these plain
+versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:                       # degrade to example-based sweeps
+    from _hypothesis_fallback import given, settings, strategies as st
+
+import jax.numpy as jnp
+
+from repro.kernels.halo_pack import ref as jref
+from repro.kernels.halo_pack.ops import halo_pack as jax_halo_pack
+from repro.kernels.halo_pack.ops import halo_unpack as jax_halo_unpack
+from repro_torch.core.halo import DIRECTIONS, offsets_of, surface_size
+from repro_torch.kernels import _build
+from repro_torch.kernels.counter_bump import counter_bump
+from repro_torch.kernels.halo_pack import (halo_pack, halo_pack_split,
+                                           halo_unpack, halo_unpack_split)
+from repro_torch.kernels.halo_pack import ref as tref
+
+R = 3
+
+
+def _field(rng, n):
+    return rng.standard_normal((R,) + tuple(n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [(4, 4, 4), (6, 5, 4), (8, 8, 8)])
+def test_pack_unpack_match_pallas_per_rank(n, rng):
+    f = _field(rng, n)
+    flat = halo_pack(torch.from_numpy(f)).numpy()
+    assert flat.shape == (R, offsets_of(n)[1])
+    for r in range(R):
+        want = np.asarray(jax_halo_pack(jnp.asarray(f[r]), interpret=True))
+        np.testing.assert_array_equal(flat[r], want)
+    # unpack a received buffer that is NOT a packed field, so every
+    # surface carries independent values into the shared cells
+    recv = rng.standard_normal(flat.shape).astype(np.float32)
+    acc = halo_unpack(torch.from_numpy(recv), n).numpy()
+    assert acc.shape == (R,) + n
+    for r in range(R):
+        want = np.asarray(jax_halo_unpack(jnp.asarray(recv[r]), n,
+                                          interpret=True))
+        np.testing.assert_array_equal(acc[r], want)
+
+
+@pytest.mark.parametrize("n", [(4, 4, 4), (6, 5, 4)])
+def test_split_forms_equal_flat_forms(n, rng):
+    f = torch.from_numpy(_field(rng, n))
+    parts = halo_pack_split(f)
+    assert len(parts) == 26
+    for d, p in zip(DIRECTIONS, parts):
+        assert tuple(p.shape) == (R, surface_size(n, d))
+    flat = halo_pack(f)
+    assert torch.equal(torch.cat(parts, dim=1), flat)
+    recv = torch.from_numpy(
+        rng.standard_normal(tuple(flat.shape)).astype(np.float32))
+    offs, _ = offsets_of(n)
+    split = [recv[:, o:o + s] for o, s in (offs[d] for d in DIRECTIONS)]
+    assert torch.equal(halo_unpack_split(split, n), halo_unpack(recv, n))
+
+
+@settings(max_examples=10, deadline=None)
+@given(nx=st.integers(3, 8), ny=st.integers(3, 8), nz=st.integers(3, 8))
+def test_unpack_of_pack_counts_surface_multiplicity(nx, ny, nz):
+    """Every cell of unpack(pack(ones)) counts the surfaces containing
+    it: interior 0, face 1, edge 3, corner 7 (3 faces + 3 edges + 1)."""
+    n = (nx, ny, nz)
+    up = halo_unpack(halo_pack(torch.ones((2,) + n)), n).numpy()
+    assert up[:, 1:-1, 1:-1, 1:-1].sum() == 0
+    assert (up[:, 0, 0, 0] == 7).all() and (up[:, -1, -1, -1] == 7).all()
+    assert (up[:, 0, 0, 1:-1] == 3).all()
+    assert (up[:, 0, 1:-1, 1:-1] == 1).all()
+
+
+def test_generic_put_helpers_match_reference(rng):
+    shapes = [(R, 5), (R, 2, 3), (R, 7)]
+    parts = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    tparts = [torch.from_numpy(p) for p in parts]
+    jparts = [jnp.asarray(p) for p in parts]
+    flat = tref.pack_flat(tparts)
+    np.testing.assert_array_equal(flat.numpy(),
+                                  np.asarray(jref.pack_flat(jparts)))
+    for got, want in zip(tref.unpack_flat(flat, tparts),
+                         jref.unpack_flat(jnp.asarray(flat.numpy()),
+                                          jparts)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for offset, count in [(0, 4), (3, 6), (4, 9), (12, 6)]:
+        g = tref.chunk_gather(tparts, offset, count)
+        np.testing.assert_array_equal(
+            g.numpy(), np.asarray(jref.chunk_gather(jparts, offset, count)))
+        got = tref.chunk_scatter(g * 2, tparts, offset, count)
+        want = jref.chunk_scatter(jnp.asarray(g.numpy() * 2), jparts,
+                                  offset, count)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    # the helpers never write into their inputs
+    for t, p in zip(tparts, parts):
+        np.testing.assert_array_equal(t.numpy(), p)
+
+
+def test_cpu_wrappers_launch_no_kernel(rng):
+    _build.reset_launches()
+    f = torch.from_numpy(_field(rng, (4, 3, 5)))
+    halo_unpack_split(halo_pack_split(f), (4, 3, 5))
+    halo_unpack(halo_pack(f), (4, 3, 5))
+    sig = torch.arange(12, dtype=torch.int32).reshape(3, 4)
+    assert torch.equal(counter_bump(sig, sig), sig * 2)
+    assert set(_build.LAUNCHES.values()) == {0}
+
+
+def test_wrappers_reject_bad_inputs():
+    with pytest.raises(ValueError):
+        halo_pack(torch.zeros(4, 4, 4))                # no rank dim
+    with pytest.raises(ValueError):
+        halo_unpack(torch.zeros(2, 10), (4, 4, 4))     # wrong total
+    with pytest.raises(ValueError):
+        halo_unpack_split([torch.zeros(2, 1)] * 25, (4, 4, 4))
+    with pytest.raises(TypeError):
+        counter_bump(torch.zeros(2, 3), torch.zeros(2, 3))
+    with pytest.raises(ValueError):
+        counter_bump(torch.zeros(2, 3, dtype=torch.int32),
+                     torch.zeros(3, 2, dtype=torch.int32))
