@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's main path — the Faces 26-neighbour halo exchange
-through ``repro_torch``'s ST, host and fused executors — and its three
-hand-written CUDA kernels (merged halo pack, merged halo unpack, counter
-bump). Run from the repository root, with no arguments:
+Drives the port's two main paths and the five hand-written CUDA kernels
+they run: the Faces 26-neighbour halo exchange through ``repro_torch``'s
+ST, host and fused executors (merged halo pack, merged halo unpack,
+counter bump), and granite-3-2b at full width served by the port's
+continuous-batching engine (flash attention for prefill, flash-decode).
+Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
@@ -12,8 +14,13 @@ Phases (each prints JSON lines; any failure exits non-zero):
 
   1. build    — nvcc builds every kernel library from ``src/repro_torch/
                  csrc`` into ``build/repro_torch/`` (seconds, ptxas report);
-  2. kernels  — each kernel against its plain PyTorch version on the card,
-                 exact equality, at n=(64,64,64) and n=(6,5,4), R=64;
+  2. kernels  — each kernel against its plain PyTorch version on the card:
+                 the Faces kernels exactly, at n=(64,64,64) and n=(6,5,4),
+                 R=64; the attention kernels in bf16 and float32 at
+                 granite's shapes (H=32, KV=8, hd=64), a G=1 case, an
+                 hd=128 case, a ragged Sq of 1000 and kv_valid_len < Skv,
+                 on unit-normal q, k, v: within 2e-5 (float32) and within
+                 2e-2 of the largest |output| (bf16);
   3. parity   — grid (2,2,2), n=(4,4,4), 3 iterations: ST x {adaptive,
                  static, none} x {merged, unmerged}, host x {merged,
                  unmerged}, fused, and packed (+ chunked) put schedules
@@ -34,7 +41,30 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  simulator's dispatch units; each kernel's device time
                  (CUDA-graph replay) and eager call time beside its
                  bound, its plain version and the one-call PyTorch
-                 yardstick (index_select, index_add, add).
+                 yardstick (index_select, index_add, add);
+  6. serve    — granite-3-2b at full width (40 layers, d_model 2048, 32
+                 heads, 8 KV heads, d_ff 8192, vocab 49155; random bf16
+                 params from a seed, ~2.5 B), 8 slots, max_len 4096, 16
+                 requests of seeded prompt lengths in {128, 256, 512,
+                 1000}, 32 new tokens each, through ``ServingEngine``:
+                 tokens/s, prefill ms per dispatch, decode ms per step,
+                 each attention kernel's launches (must be 40 per prefill
+                 dispatch and 40 per decode step), the device idle share
+                 during decode (profiler). The attention kernels'
+                 kernels-line rows follow (time at the serving shapes,
+                 bound, plain version, and SDPA on the valid keys as the
+                 yardstick);
+  7. replay   — the served tokens replayed teacher-forced through the
+                 kernel path and the plain path on the card, in bf16 and
+                 (the same weights, upcast) in float32: last-position
+                 logits within the stated bf16 tolerance and within 1e-3
+                 in float32; for every request, the bf16 kernel path no
+                 farther from the float32 plain path than 1.25x the bf16
+                 plain path (RMS over its steps and vocab); the greedy
+                 ids equal the plain path's wherever its top-2 margin
+                 exceeds twice the tolerance, and the served ids equal
+                 the float32 plain path's wherever its margin exceeds
+                 twice the bf16 plain path's largest distance from it.
 
 The last three lines are the kernels JSON, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -52,11 +82,40 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores (same)
 GRID_SMALL, N_SMALL, NITER_SMALL = (2, 2, 2), (4, 4, 4), 3
 GRID_FULL, N_FULL, NITER_FULL = (4, 4, 4), (64, 64, 64), 20
 AXES = ("x", "y", "z")
 MODES = ("st", "host", "fused")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")     # long outputs (profiles)
+# serving cell: granite-3-2b at full width
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_NEW = 8, 4096, 16, 32
+SERVE_LENGTHS = (128, 256, 512, 1000)
+DECODE_PROFILE_STEPS = 8
+# attention kernels against their plain versions, on unit-normal q, k, v
+# (outputs up to ~3): the tolerances of tests/test_kernels.py, 2e-5
+# absolute in float32 and, in bf16, 2e-2 of the largest |output|. A
+# correct bf16 kernel sits at ~0.5 % of it: the plain version rounds its
+# scores and weights to bf16, the kernel keeps them float32. A wrong load,
+# stride or head mapping in the bf16 instantiation moves outputs by O(1);
+# the masks and the loop, shared by both instantiations, are held to the
+# float32 tolerance.
+ATTN_ATOL_F32 = 2e-5
+ATTN_RTOL_BF16 = 2e-2
+# kernel path against plain path, last-position logits of the full
+# model (|logit| up to ~5, std ~0.9). In bf16 the two round attention at
+# different points (the plain versions round scores and weights to bf16,
+# the kernels keep float32) in each of 40 layers of random weights,
+# which carry a difference forward: the tolerance is 32 bf16 spacings at
+# |logit| in [2, 4) (2^-6 each). It is loose, since bf16 rounding alone
+# moves either path ~0.2 from the float32 path: the bf16 check with power
+# is REPLAY_DIST_RATIO below. In float32 both paths agree per call to
+# ~1e-7, and 1e-3 bounds the same carrying with a wide margin.
+LOGITS_ATOL = 0.5
+LOGITS_ATOL_F32 = 1e-3
+# per request, the bf16 kernel path's RMS distance from the float32 plain
+# path over the bf16 plain path's own (both ~0.2 at most per logit)
+REPLAY_DIST_RATIO = 1.25
 
 
 def emit(obj):
@@ -317,8 +376,9 @@ def phase_full(core, _build, dev):
         if mode == "st":
             check(stream.dispatches == sum(len(p.nodes) for p in progs),
                   "st dispatches != descriptor count")
-        for k, v in _build.LAUNCHES.items():
-            check(v > 0, f"{mode}: kernel {k} was not launched")
+        for k in ("halo_pack", "halo_unpack", "counter_bump"):
+            check(_build.LAUNCHES[k] > 0,
+                  f"{mode}: kernel {k} was not launched")
         for c in ("faces.post_sig", "faces.comp_sig"):
             check(bool((out[c] == NITER_FULL).all()), f"{mode}: {c} != niter")
         outs[mode] = out
@@ -454,6 +514,8 @@ def phase_timing(core, hp, hp_ref, bump, bump_ref, dev, launches,
             "replaces": replaces,
             "launches": sum(launches[m][name] for m in launches),
             "launches_by_mode": {m: launches[m][name] for m in launches},
+            "launches_per": {"per_iteration": launches["st"][name]
+                             / NITER_FULL},
             "max_abs_err": errs[name], "ms": graph_ms(kern),
             "plain_ms": graph_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -464,6 +526,452 @@ def phase_timing(core, hp, hp_ref, bump, bump_ref, dev, launches,
             "plain_call_ms": event_ms(plain, inner=20),
             "library_call_ms": event_ms(lib, inner=20)})
     return kernels
+
+
+# ---------------------------------------------------------------------------
+# attention kernels and the serving path
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Skv, H, KV, hd, kv_valid_len per sequence, q offset)
+FLASH_CASES = [
+    (2, 1000, SERVE_MAX_LEN, 32, 8, 64, (1000, 1000), 0),  # granite prefill
+    (2, 1000, 1000, 32, 8, 64, (700, 1000), 0),   # ragged Sq, kvl < Skv
+    (1, 256, 256, 8, 8, 64, None, 0),             # G = 1
+    (1, 200, 333, 8, 2, 128, (333,), 133),        # hd 128
+]
+# (B, S, H, KV, hd, positions); valid length position + 1 < S
+DECODE_CASES = [
+    (8, SERVE_MAX_LEN, 32, 8, 64, (1016, 144, 528, 1016, 272, 1016, 528,
+                                   144)),          # granite decode
+    (2, 512, 8, 8, 64, (100, 511)),               # G = 1
+    (3, 1024, 8, 2, 128, (5, 700, 1023)),         # hd 128
+]
+
+
+def attn_inputs(dev, dtype, B, Sq, Skv, H, KV, hd, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    return mk(B, Sq, H, hd), mk(B, Skv, KV, hd), mk(B, Skv, KV, hd)
+
+
+def attn_limit(dtype, ref):
+    """The largest error allowed against ``ref`` (see ATTN_ATOL_F32)."""
+    if dtype == torch.float32:
+        return ATTN_ATOL_F32
+    return ATTN_RTOL_BF16 * ref.float().abs().max().item()
+
+
+def phase_attention(dev, fa, fa_ref, da, da_ref):
+    """Each attention kernel against its plain version on the card, bf16
+    and float32 (comparison launches, made before the counted runs)."""
+    errs = {"flash_attention": {}, "decode_attention": {}}
+    for n, (B, Sq, Skv, H, KV, hd, kvl, off) in enumerate(FLASH_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = attn_inputs(dev, dtype, B, Sq, Skv, H, KV, hd, n)
+            pos = (off + torch.arange(Sq, device=dev,
+                                      dtype=torch.int32)).expand(B, Sq)
+            kv_len = None if kvl is None else torch.tensor(
+                kvl, device=dev, dtype=torch.int32)
+            out = fa(q, k, v, q_positions=pos, kv_valid_len=kv_len)
+            ref = fa_ref(q, k, v, q_offset=pos[:, 0], kv_valid_len=kv_len)
+            err = (out.float() - ref.float()).abs().max().item()
+            limit = attn_limit(dtype, ref)
+            check(out.shape == ref.shape and out.dtype == dtype,
+                  f"flash attention: shape/dtype {out.shape} {out.dtype}")
+            check(err <= limit, f"flash attention case {n} {dtype}: max "
+                  f"abs err {err} > {limit}")
+            d = errs["flash_attention"]
+            d[str(dtype)] = max(d.get(str(dtype), 0.0), err)
+            emit({"phase": "kernels", "kernel": "flash_attention",
+                  "shape": [B, Sq, Skv, H, KV, hd], "kv_valid_len": kvl,
+                  "q_offset": off, "dtype": str(dtype), "max_abs_err": err,
+                  "ref_abs_max": ref.float().abs().max().item(),
+                  "limit": limit})
+    for n, (B, S, H, KV, hd, positions) in enumerate(DECODE_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = attn_inputs(dev, dtype, B, 1, S, H, KV, hd, 10 + n)
+            pos = torch.tensor(positions, device=dev,
+                               dtype=torch.int32)[:, None]
+            kvl = pos[:, 0] + 1
+            out = da(q, k, v, q_positions=pos, kv_valid_len=kvl)
+            ref = da_ref(q, k, v, q_positions=pos, kv_valid_len=kvl)
+            err = (out.float() - ref.float()).abs().max().item()
+            limit = attn_limit(dtype, ref)
+            check(out.shape == ref.shape and out.dtype == dtype,
+                  f"decode attention: shape/dtype {out.shape} {out.dtype}")
+            check(err <= limit, f"decode attention case {n} {dtype}: max "
+                  f"abs err {err} > {limit}")
+            d = errs["decode_attention"]
+            d[str(dtype)] = max(d.get(str(dtype), 0.0), err)
+            emit({"phase": "kernels", "kernel": "decode_attention",
+                  "shape": [B, S, H, KV, hd], "positions": positions,
+                  "dtype": str(dtype), "max_abs_err": err,
+                  "ref_abs_max": ref.float().abs().max().item(),
+                  "limit": limit})
+    return errs
+
+
+def replay_logits(serving, cfg, params, dev, reqs):
+    """The engine's tokens fed back teacher-forced through ``cfg``'s
+    attention route, with a cache in the compute dtype: each prompt prefilled alone into its own cache row,
+    then one batched decode step per generated token at ragged
+    positions. Returns (R, T, V) float32 last-position logits, where
+    step t predicts token t of each request's output."""
+    models = serving["models"]
+    R, T = len(reqs), len(reqs[0].out_tokens)
+    max_len = max(len(r.prompt) for r in reqs) + T
+    cache = models.zeros_from_specs(models.cache_specs(
+        cfg, R, max_len, getattr(torch, cfg.compute_dtype)), dev)
+    out = torch.empty((R, T, cfg.padded_vocab), device=dev)
+    for i, r in enumerate(reqs):
+        L = len(r.prompt)
+        view = {"layers": [{k: c[k][i:i + 1] for k in c}
+                           for c in cache["layers"]]}
+        batch = {"tokens": torch.as_tensor(r.prompt[None], device=dev),
+                 "positions": torch.arange(L, device=dev,
+                                           dtype=torch.int32)[None]}
+        x, _, _ = models.forward(cfg, params, batch, cache=view)
+        out[i, 0] = models.logits_from_hidden(cfg, params, x,
+                                              last_only=True)[0, 0].float()
+    lens = torch.tensor([len(r.prompt) for r in reqs], device=dev,
+                        dtype=torch.int32)
+    for t in range(1, T):
+        toks = torch.tensor([[r.out_tokens[t - 1]] for r in reqs],
+                            device=dev, dtype=torch.int32)
+        batch = {"tokens": toks, "positions": (lens + t - 1)[:, None]}
+        x, _, _ = models.forward(cfg, params, batch, cache=cache)
+        out[:, t] = models.logits_from_hidden(cfg, params, x,
+                                              last_only=True)[:, 0].float()
+    return out
+
+
+def phase_serve(dev, _build, serving):
+    """granite-3-2b at full width through the port's ServingEngine."""
+    import dataclasses
+    cfgs, models, eng_mod = (serving["configs"], serving["models"],
+                             serving["serving"])
+    cfg = cfgs.get_config("granite-3-2b")
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.d_ff, cfg.vocab_size) == (40, 2048, 32, 8, 8192, 49155),
+          "granite-3-2b is not at full width")
+    t0 = time.perf_counter()
+    specs = models.model_specs(cfg)
+    params = models.init_params(specs, torch.Generator(device=dev)
+                                .manual_seed(0), dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = eng_mod.ServingEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                                max_len=SERVE_MAX_LEN, device=dev)
+    rng = np.random.RandomState(0)
+    Request = eng_mod.Request
+
+    def requests(n, lengths=None, new=SERVE_NEW):
+        lengths = (rng.choice(SERVE_LENGTHS, n) if lengths is None
+                   else lengths)
+        return [Request(prompt=rng.randint(1, cfg.vocab_size, int(L))
+                        .astype(np.int32), max_new_tokens=new)
+                for L in lengths]
+
+    # warm-up (cuBLAS handles, kernel libraries loaded), not counted
+    for r in requests(2, (SERVE_LENGTHS[0], SERVE_LENGTHS[-1]), 3):
+        eng.submit(r)
+    eng.run_until_drained()
+    before = eng.stats()
+    reqs = requests(SERVE_REQUESTS)
+    check(len({len(r.prompt) for r in reqs}) > 1, "one prompt length only")
+    torch.cuda.synchronize()
+    _build.reset_launches()                 # the counted main-path run
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    steps = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    st = eng.stats()
+    d = {k: st[k] - before[k] for k in ("prefill_dispatches", "decode_steps",
+                                         "tokens_generated", "prefill_seconds",
+                                         "decode_seconds")}
+    check(all(len(r.out_tokens) == SERVE_NEW for r in reqs),
+          "a request did not get its 32 tokens")
+    check(launches["flash_attention"] == cfg.num_layers
+          * d["prefill_dispatches"],
+          f"flash attention launched {launches['flash_attention']} times "
+          f"for {d['prefill_dispatches']} prefill dispatches")
+    check(launches["decode_attention"] == cfg.num_layers * d["decode_steps"],
+          f"decode attention launched {launches['decode_attention']} times "
+          f"for {d['decode_steps']} decode steps")
+    # the prefill dispatches of the run: (rows, prompt length) per group
+    groups = {}
+    for r in reqs:
+        key = (r.admitted_at, len(r.prompt))
+        groups[key] = groups.get(key, 0) + 1
+    check(len(groups) == d["prefill_dispatches"], "dispatch groups differ")
+    lat = [r.done_at - r.submitted_at for r in reqs]
+    ttft = [r.first_token_at - r.submitted_at for r in reqs]
+    emit({"phase": "serve", "arch": cfg.name, "params": models.param_count(
+              specs), "init_s": init_s, "slots": SERVE_SLOTS,
+          "max_len": SERVE_MAX_LEN, "requests": SERVE_REQUESTS,
+          "new_tokens": SERVE_NEW,
+          "prompt_lengths": [len(r.prompt) for r in reqs],
+          "prefill_groups": sorted([n, L] for (_, L), n in groups.items()),
+          "engine_steps": steps, "wall_s": wall,
+          "tokens_per_s": d["tokens_generated"] / wall,
+          "prefill_dispatches": d["prefill_dispatches"],
+          "prefill_ms_per_dispatch": 1e3 * d["prefill_seconds"]
+          / d["prefill_dispatches"],
+          "decode_steps": d["decode_steps"],
+          "decode_ms_per_step": 1e3 * d["decode_seconds"] / d["decode_steps"],
+          "ttft_ms_p50": 1e3 * float(np.percentile(ttft, 50)),
+          "latency_ms_p50": 1e3 * float(np.percentile(lat, 50)),
+          "latency_ms_max": 1e3 * max(lat),
+          "launches": {k: launches[k] for k in ("flash_attention",
+                                                "decode_attention")},
+          "launches_per_prefill_dispatch": launches["flash_attention"]
+          / d["prefill_dispatches"],
+          "launches_per_decode_step": launches["decode_attention"]
+          / d["decode_steps"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    # decode in steady state: 8 slots at the run's prompt lengths
+    for r in requests(SERVE_SLOTS, [len(r.prompt) for r in reqs[:8]],
+                      2 + 2 * DECODE_PROFILE_STEPS):
+        eng.submit(r)
+    eng.step()                                   # admission + one decode
+    t0 = time.perf_counter()
+    for _ in range(DECODE_PROFILE_STEPS):
+        eng.step()
+    step_ms = 1e3 * (time.perf_counter() - t0) / DECODE_PROFILE_STEPS
+
+    def decode_steps():
+        for _ in range(DECODE_PROFILE_STEPS):
+            eng.step()
+    prof = device_profile(decode_steps,
+                          os.path.join(OUT_DIR, "profile_serve_decode.txt"))
+    eng.run_until_drained()
+    busy = (None if prof["busy_ms"] is None
+            else prof["busy_ms"] / DECODE_PROFILE_STEPS)
+    # one prefill dispatch alone: 8 prompts of the longest length, one
+    # token each (they complete at admission, so no decode step runs)
+    for r in requests(SERVE_SLOTS, [SERVE_LENGTHS[-1]] * SERVE_SLOTS, 1):
+        eng.submit(r)
+    pprof = device_profile(eng.step, os.path.join(
+        OUT_DIR, "profile_serve_prefill.txt"))
+    emit({"phase": "serve", "decode_ms_per_step_steady": step_ms,
+          "decode_device_busy_ms_per_step": busy,
+          "decode_device_idle_share": None if busy is None
+          else 1 - busy / step_ms,
+          "decode_device_ops_per_step": prof["device_ops"]
+          / DECODE_PROFILE_STEPS,
+          "decode_top_device_ms": [[round(t / DECODE_PROFILE_STEPS, 4), k,
+                                    c] for t, k, c in prof["top"]],
+          "prefill_profiled": [SERVE_SLOTS, SERVE_LENGTHS[-1]],
+          "prefill_device_busy_ms": pprof["busy_ms"],
+          "prefill_top_device_ms": [[round(t, 4), k, c]
+                                    for t, k, c in pprof["top"]]})
+
+    eng.run_until_drained()
+    del eng
+    torch.cuda.empty_cache()
+    return cfg, launches, d, groups, params, reqs
+
+
+def phase_replay(dev, serving, cfg, params, reqs):
+    """The served tokens replayed teacher-forced through the kernel path
+    and the plain path on the card (run last, so that every measurement
+    is out before its checks), in bf16 and in float32 (the same weights,
+    upcast, with a float32 cache). The float32 plain path is the yardstick
+    of the bf16 paths' rounding: the bf16 kernel path must stay as close
+    to it as the bf16 plain path does."""
+    import dataclasses
+    tree_map = serving["models"].params.tree_map
+    plain = dict(attn_impl="plain")
+    V = cfg.vocab_size
+    lk = replay_logits(serving, cfg, params, dev, reqs)[..., :V]
+    lp = replay_logits(serving, dataclasses.replace(cfg, **plain), params,
+                       dev, reqs)[..., :V]
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    lk32 = replay_logits(serving, cfg32, p32, dev, reqs)[..., :V]
+    lp32 = replay_logits(serving, dataclasses.replace(cfg32, **plain), p32,
+                         dev, reqs)[..., :V]
+    del p32
+    check(all(bool(torch.isfinite(t).all()) for t in (lk, lp, lk32, lp32)),
+          "non-finite logits")
+    err = (lk - lp).abs().amax(dim=-1)                 # (R, T)
+    err32 = (lk32 - lp32).abs().max().item()
+    # per request: RMS distance from the float32 plain path
+    dist_k = (lk - lp32).square().mean(dim=(1, 2)).sqrt()
+    dist_p = (lp - lp32).square().mean(dim=(1, 2)).sqrt()
+    ratio = (dist_k / dist_p).cpu().numpy()
+    bf16_moved = (lp - lp32).abs().max().item()
+
+    def decided(logits, tol):
+        top2 = logits.topk(2, dim=-1).values
+        return (top2[..., 0] - top2[..., 1] > 2 * tol).cpu().numpy()
+    served = np.asarray([r.out_tokens for r in reqs])
+    plain_ids = lp.argmax(dim=-1).cpu().numpy()
+    ids32 = lp32.argmax(dim=-1).cpu().numpy()
+    dec = decided(lp, LOGITS_ATOL)
+    mismatched = int(((plain_ids != served) & dec).sum())
+    dec32 = decided(lp32, LOGITS_ATOL_F32)
+    mismatched32 = int(((lk32.argmax(dim=-1).cpu().numpy() != ids32)
+                        & dec32).sum())
+    # the served (bf16 kernel) ids against the float32 plain path's, where
+    # its margin exceeds twice what bf16 rounding moved the plain path
+    dec16 = decided(lp32, bf16_moved)
+    mismatched16 = int(((served != ids32) & dec16).sum())
+    emit({"phase": "serve", "replay": "teacher-forced",
+          "requests": len(reqs), "steps": served.shape[1],
+          "logits_max_abs_err": err.max().item(),
+          "logits_err_p50": err.median().item(),
+          "logits_abs_max": lp.abs().max().item(),
+          "logits_std": lp.std().item(),
+          "logits_atol": LOGITS_ATOL,
+          "ids_compared": int(dec.sum()), "ids_total": dec.size,
+          "ids_mismatched": mismatched,
+          "ids_equal_all": int((plain_ids == served).sum()),
+          "f32_logits_max_abs_err": err32,
+          "f32_logits_atol": LOGITS_ATOL_F32,
+          "f32_ids_compared": int(dec32.sum()),
+          "f32_ids_mismatched": mismatched32,
+          "bf16_kernel_vs_f32_rms": dist_k.tolist(),
+          "bf16_plain_vs_f32_rms": dist_p.tolist(),
+          "rms_ratio_max": float(ratio.max()),
+          "rms_ratio_limit": REPLAY_DIST_RATIO,
+          "bf16_kernel_vs_f32_max": (lk - lp32).abs().max().item(),
+          "bf16_plain_vs_f32_max": bf16_moved,
+          "served_vs_f32_ids_compared": int(dec16.sum()),
+          "served_vs_f32_ids_mismatched": mismatched16})
+    check(err.max().item() <= LOGITS_ATOL,
+          f"kernel path logits differ from the plain path by "
+          f"{err.max().item()} > {LOGITS_ATOL} (bf16)")
+    check(err32 <= LOGITS_ATOL_F32,
+          f"kernel path logits differ from the plain path by {err32} > "
+          f"{LOGITS_ATOL_F32} (float32)")
+    check(bool((ratio <= REPLAY_DIST_RATIO).all()),
+          f"bf16 kernel path farther from the float32 plain path than "
+          f"{REPLAY_DIST_RATIO}x the bf16 plain path: ratios {ratio}")
+    check(mismatched == 0, f"{mismatched} greedy ids differ from the plain "
+          "path where its top-2 margin exceeds twice the tolerance")
+    check(mismatched32 == 0, f"{mismatched32} float32 greedy ids differ "
+          "from the plain path where its top-2 margin exceeds twice the "
+          "tolerance")
+    check(dec16.sum() > 0 and mismatched16 == 0,
+          f"{mismatched16} of {int(dec16.sum())} served ids differ from the "
+          "float32 plain path where its margin exceeds twice the bf16 "
+          "plain path's largest distance from it")
+
+
+def flash_bound(B, Sq, H, KV, hd, kvl, nbytes_el):
+    """(bytes, flops) a causal prefill needs: q read, out written, the
+    valid K/V rows read once; two products over each query's valid keys
+    (hd == hdv)."""
+    keys = sum(min(L, i + 1) for L in kvl for i in range(Sq))
+    flops = H * keys * 2 * (hd + hd)
+    nbytes = nbytes_el * (2 * B * Sq * H * hd + sum(kvl) * KV * 2 * hd)
+    return nbytes, flops
+
+
+def attention_rows(dev, fa, fa_ref, da, da_ref, cfg, launches, d, groups,
+                   errs):
+    """The two attention kernels' kernels-line rows, at the serving
+    shapes: the run's largest prefill dispatch, and 8 slots decoding."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    dt, H, KV, hd = (torch.bfloat16, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.head_dim)
+    (n, L) = max(((n, L) for (_, L), n in groups.items()),
+                 key=lambda t: t[0] * t[1] * t[1])
+    q, k, v = attn_inputs(dev, dt, n, L, SERVE_MAX_LEN, H, KV, hd, 99)
+    pos = torch.arange(L, device=dev, dtype=torch.int32).expand(n, L)
+    kvl = torch.full((n,), L, device=dev, dtype=torch.int32)
+    # the library computes the same function on the valid keys alone:
+    # keys past kv_valid_len = L get weight 0, so a causal SDPA over the
+    # cache's first L rows is exact (and may take its flash backend)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :L], v[:, :L]))
+
+    def fa_sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def fa_flash():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return fa_sdpa()
+    try:                                    # the fastest backend if it runs
+        fa_flash()
+        fa_lib, fa_lib_name = fa_flash, "flash backend"
+    except RuntimeError:
+        fa_lib, fa_lib_name = fa_sdpa, "default backend"
+    fa_err = (fa_lib().transpose(1, 2).float()
+              - fa(q, k, v, q_positions=pos, kv_valid_len=kvl).float()
+              ).abs().max().item()
+    fbytes, fflops = flash_bound(n, L, H, KV, hd, [L] * n, 2)
+
+    B, S = SERVE_SLOTS, SERVE_MAX_LEN
+    dq, dk, dv = attn_inputs(dev, dt, B, 1, S, H, KV, hd, 98)
+    dpos = torch.tensor(DECODE_CASES[0][5], device=dev,
+                        dtype=torch.int32)[:, None]
+    dkvl = dpos[:, 0] + 1
+    # valid lengths differ per row: a boolean mask over the longest one
+    smax = int(dkvl.max().item())
+    dmask = (torch.arange(smax, device=dev)[None, :]
+             < dkvl[:, None])[:, None, None, :]
+    dqt, dkt, dvt = (t.transpose(1, 2) for t in (dq, dk[:, :smax],
+                                                 dv[:, :smax]))
+
+    def da_lib():
+        return F.scaled_dot_product_attention(dqt, dkt, dvt, attn_mask=dmask,
+                                              enable_gqa=True)
+    da_err = (da_lib().transpose(1, 2).float()
+              - da(dq, dk, dv, q_positions=dpos, kv_valid_len=dkvl).float()
+              ).abs().max().item()
+    valid = int(dkvl.sum().item())
+    dbytes = 2 * (2 * B * H * hd + valid * KV * 2 * hd)
+    dflops = valid * H * 2 * (hd + hd)
+    rows = []
+    for (name, source, replaces, kern, plain, lib, lib_name, lerr, nbytes,
+         flops, per, shape) in (
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:73",
+             lambda: fa(q, k, v, q_positions=pos, kv_valid_len=kvl),
+             lambda: fa_ref(q, k, v, q_offset=pos[:, 0], kv_valid_len=kvl),
+             fa_lib, "causal, first kv_valid_len keys, enable_gqa, "
+             + fa_lib_name, fa_err, fbytes, fflops,
+             {"per_prefill_dispatch": launches["flash_attention"]
+              / d["prefill_dispatches"]},
+             {"B": n, "Sq": L, "Skv": SERVE_MAX_LEN, "kv_valid_len": L,
+              "H": H, "KV": KV, "hd": hd, "dtype": "bfloat16"}),
+            ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention/kernel.py:61",
+             lambda: da(dq, dk, dv, q_positions=dpos, kv_valid_len=dkvl),
+             lambda: da_ref(dq, dk, dv, q_positions=dpos, kv_valid_len=dkvl),
+             da_lib, "bool mask over the longest valid length, enable_gqa",
+             da_err, dbytes, dflops,
+             {"per_decode_step": launches["decode_attention"]
+              / d["decode_steps"]},
+             {"B": B, "S": S, "positions": list(DECODE_CASES[0][5]),
+              "H": H, "KV": KV, "hd": hd, "dtype": "bfloat16"})):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_flops = flops / BF16_FLOPS_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "launches_per": per, "shape": shape,
+            "max_abs_err": max(errs[name].values()),
+            "max_abs_err_by_dtype": errs[name],
+            "ms": graph_ms(kern, inner=5), "plain_ms": graph_ms(plain, inner=5),
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "library_ms": graph_ms(lib, inner=5),
+            "library": "torch.nn.functional.scaled_dot_product_attention "
+                       f"({lib_name})",
+            "library_max_abs_err": lerr,
+            "call_ms": event_ms(kern, inner=5)})
+    return rows
 
 
 def main():
@@ -478,6 +986,13 @@ def main():
                                                   counter_bump_ref)
     from repro_torch.kernels.halo_pack import ops as hp
     from repro_torch.kernels.halo_pack import ref as hp_ref
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    import repro_torch.configs as cfgs
+    import repro_torch.models as models
+    import repro_torch.serving as serving_mod
 
     dev = torch.device("cuda", 0)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -486,10 +1001,21 @@ def main():
           "device": torch.cuda.get_device_name(0)})
     phase_build(_build)
     errs = phase_kernels(dev, hp, hp_ref, counter_bump)
+    attn = (flash_attention, flash_attention_ref, decode_attention,
+            decode_attention_ref)
+    attn_errs = phase_attention(dev, *attn)
     phase_parity(core, dev)
     launches, dispatches = phase_full(core, _build, dev)
     kernels = phase_timing(core, hp, hp_ref, counter_bump, counter_bump_ref,
                            dev, launches, dispatches, errs)
+    serving = {"configs": cfgs, "models": models, "serving": serving_mod}
+    cfg, serve_launches, counts, groups, params, reqs = phase_serve(
+        dev, _build, serving)
+    kernels += attention_rows(dev, *attn, cfg, serve_launches, counts,
+                              groups, attn_errs)
+    for row in kernels:
+        emit(dict(row, phase="kernel_row"))
+    phase_replay(dev, serving, cfg, params, reqs)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,0 +1,18 @@
+"""Arch registry of the port (see base.py)."""
+from repro_torch.configs.base import (
+    ARCH_IDS,
+    LayerGroups,
+    MLAConfig,
+    MambaConfig,
+    ModelConfig,
+    MoEConfig,
+    RWKVConfig,
+    VisionStub,
+    get_config,
+    group_layers,
+)
+
+__all__ = [
+    "ARCH_IDS", "LayerGroups", "MLAConfig", "MambaConfig", "ModelConfig",
+    "MoEConfig", "RWKVConfig", "VisionStub", "get_config", "group_layers",
+]

@@ -43,12 +43,27 @@ LIBRARIES = {
     "counter_bump": {
         "counter_bump_launch": (_PTR, _PTR, _PTR, _I64, _PTR),
     },
+    # (dtype, q, k, v, out, q_offset, kv_len, B, Sq, Skv, H, KV, hd, hdv,
+    #  strides[12], causal, stream)
+    "flash_attention": {
+        "flash_attention_launch": (_INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                                   _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                                   _STRIDES, _INT, _PTR),
+    },
+    # (dtype, q, k, v, out, positions, kv_len, B, S, H, KV, hd, hdv,
+    #  strides[12], stream)
+    "decode_attention": {
+        "decode_attention_launch": (_INT, _PTR, _PTR, _PTR, _PTR, _PTR,
+                                    _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
+                                    _STRIDES, _PTR),
+    },
 }
 
 # launches per kernel since the last reset_launches(); a wrapper adds
 # one only after its kernel was launched without error
 LAUNCHES: Dict[str, int] = {"halo_pack": 0, "halo_unpack": 0,
-                            "counter_bump": 0}
+                            "counter_bump": 0, "flash_attention": 0,
+                            "decode_attention": 0}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

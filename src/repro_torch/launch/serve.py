@@ -1,0 +1,69 @@
+"""Serving launcher: batched prefill/decode with slot recycling, on the
+card by default.
+
+  python -m repro_torch.launch.serve --arch granite-3-2b
+  python -m repro_torch.launch.serve --arch granite-3-2b --reduced \\
+      --device cpu --requests 8 --slots 4 --max-new 16
+
+Params are random (seed 0), in the config's compute dtype. The
+reference's ``--st-*`` flags (ST-routed decode) are not ported yet
+(ROADMAP Queue 1 item 8b).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a card) or 'cpu'")
+    args = ap.parse_args()
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.compat import resolve_device
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(model_specs(cfg), gen, device,
+                         getattr(torch, cfg.compute_dtype))
+    eng = ServingEngine(cfg, params, batch_slots=args.slots,
+                        max_len=args.max_len, device=device)
+
+    rng = np.random.RandomState(0)
+    t0 = time.time()
+    for _ in range(args.requests):
+        L = rng.randint(4, 16)
+        eng.submit(Request(prompt=rng.randint(1, cfg.vocab_size, L)
+                           .astype(np.int32),
+                           max_new_tokens=args.max_new))
+    steps = eng.run_until_drained()
+    dt = time.time() - t0
+    new_toks = sum(len(r.out_tokens) for r in eng.completed)
+    lat = [r.done_at - r.submitted_at for r in eng.completed]
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"served {len(eng.completed)} requests, {new_toks} tokens in "
+          f"{dt:.2f}s over {steps} engine steps "
+          f"({new_toks/max(dt,1e-9):.1f} tok/s) on {name}")
+    print(f"latency p50={np.percentile(lat,50)*1e3:.0f}ms "
+          f"p99={np.percentile(lat,99)*1e3:.0f}ms")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,12 @@
+"""Models of the port (dense attention blocks so far)."""
+from repro_torch.models.model import (cache_specs, forward,
+                                      logits_from_hidden, model_specs)
+from repro_torch.models.params import (ParamSpec, from_reference,
+                                       init_params, param_count,
+                                       stack_specs, zeros_from_specs)
+
+__all__ = [
+    "model_specs", "cache_specs", "forward", "logits_from_hidden",
+    "ParamSpec", "from_reference", "init_params", "param_count",
+    "stack_specs", "zeros_from_specs",
+]

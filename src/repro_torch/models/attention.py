@@ -1,0 +1,157 @@
+"""GQA attention with a KV cache and RoPE, following the JAX package's
+``models/attention.py`` (self-attention blocks of dense models; qk-norm
+included; cross attention is not ported yet).
+
+The attention core dispatches as the reference's Pallas route does
+(``attention.py`` ``attention_core``): one query token goes to the
+flash-decode kernel, anything else to the flash attention kernel. Each
+kernel wrapper takes its route from the tensors' device — the
+hand-written CUDA kernel on the card, its plain PyTorch version on the
+CPU — and ``cfg.attn_impl == "plain"`` asks for the plain versions on
+any device (the reference a run on the card is held against). The
+reference's chunked ``attention_core_xla`` is not ported: it computes
+the same function as the plain versions, and the CPU tests compare the
+port against it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_ref)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
+from repro_torch.models.layers import apply_rope, rmsnorm_nl, rope_table
+from repro_torch.models.params import ParamSpec
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+
+def attn_specs(cfg) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = {
+        "wq": ParamSpec((d, H, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, KV, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, KV, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((H, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = ParamSpec((hd,), (None,), init="ones")
+        s["k_norm"] = ParamSpec((hd,), (None,), init="ones")
+    return s
+
+
+# ---------------------------------------------------------------------------
+# Attention core
+# ---------------------------------------------------------------------------
+
+def attention_core(cfg, q, k, v, *, q_positions, kv_valid_len=None,
+                   causal=True):
+    """q (B,Sq,H,hd), k/v (B,Skv,KV,hd[v]), q_positions (B,Sq) absolute
+    -> (B,Sq,H,hdv)."""
+    plain = cfg.attn_impl == "plain"
+    if cfg.attn_impl not in ("kernel", "plain"):
+        raise ValueError(f"attn_impl {cfg.attn_impl!r}: the port has "
+                         "'kernel' and 'plain'")
+    if q.shape[1] == 1:
+        if plain:
+            return decode_attention_ref(q, k, v, q_positions=q_positions,
+                                        kv_valid_len=kv_valid_len)
+        return decode_attention(q, k, v, q_positions=q_positions,
+                                kv_valid_len=kv_valid_len)
+    if plain:
+        return flash_attention_ref(q, k, v, q_offset=q_positions[:, 0],
+                                   kv_valid_len=kv_valid_len, causal=causal)
+    return flash_attention(q, k, v, q_positions=q_positions,
+                           kv_valid_len=kv_valid_len, causal=causal)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+def attn_cache_specs(cfg, batch: int, max_len: int):
+    """Returns {name: (shape, logical_axes)} for this layer's cache."""
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": ((batch, max_len, KV, hd),
+              ("batch", "kv_seq", "kv_heads", "head_dim")),
+        "v": ((batch, max_len, KV, hd),
+              ("batch", "kv_seq", "kv_heads", "head_dim")),
+    }
+
+
+def cache_index(positions):
+    """(rows, cols) indexing the cache rows a step writes: sequence b's
+    rows ``positions[b, 0] .. positions[b, 0] + S - 1``."""
+    B, S = positions.shape
+    rows = torch.arange(B, device=positions.device)[:, None]
+    cols = positions[:, :1].long() + torch.arange(S, device=positions.device)
+    return rows, cols
+
+
+def _update_cache(cache_k, k_new, index):
+    """Write ``k_new`` (B, S_new, KV, hd) into ``cache_k`` (B, S, KV, hd)
+    at the rows ``index`` (:func:`cache_index` of the step's positions),
+    IN PLACE (the reference returns a new cache). A prefill writes its
+    prompt's rows, a decode step one row per sequence; nothing else of
+    the cache is touched, and no value goes to the host. Returns
+    ``cache_k``."""
+    cache_k[index] = k_new.to(cache_k.dtype)
+    return cache_k
+
+
+def shared_inputs(cfg, positions) -> dict:
+    """What every attention layer of one forward pass derives from the
+    positions alone — the RoPE table, the cache rows written, the valid
+    KV length — made once per pass instead of once per layer."""
+    return {"rope": rope_table(positions, cfg.head_dim, cfg.rope_theta),
+            "cache_index": cache_index(positions),
+            "kv_valid_len": positions[:, -1] + 1}
+
+
+# ---------------------------------------------------------------------------
+# Block apply
+# ---------------------------------------------------------------------------
+
+def attention(cfg, params, x, *, positions, cache=None, shared=None):
+    """Pre-norm'd x -> (attention output, cache).
+
+    x: (B, S, D); positions: (B, S) absolute positions. cache: this
+    layer's {"k", "v"} (B, max_len, KV, hd) buffers, updated in place
+    (the returned cache is the same dict), or None (no cache: attend
+    within x only). shared: :func:`shared_inputs` of the positions, if
+    the caller made it once for all layers.
+    """
+    if shared is None:
+        shared = shared_inputs(cfg, positions)
+    dt = x.dtype
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def proj(w, n):                     # (B,S,D) @ (D,n,hd) -> (B,S,n,hd)
+        return torch.matmul(x, w.to(dt).reshape(w.shape[0], -1)).view(
+            B, S, n, hd)
+
+    q, k, v = proj(params["wq"], H), proj(params["wk"], KV), \
+        proj(params["wv"], KV)
+    if cfg.qk_norm:
+        q = rmsnorm_nl(q, cfg.norm_eps) * params["q_norm"].to(dt)
+        k = rmsnorm_nl(k, cfg.norm_eps) * params["k_norm"].to(dt)
+    q = apply_rope(q, shared["rope"])
+    k = apply_rope(k, shared["rope"])
+
+    kv_valid_len = None
+    if cache is not None:
+        _update_cache(cache["k"], k, shared["cache_index"])
+        _update_cache(cache["v"], v, shared["cache_index"])
+        k, v = cache["k"].to(dt), cache["v"].to(dt)
+        kv_valid_len = shared["kv_valid_len"]
+
+    out = attention_core(cfg, q, k, v, q_positions=positions,
+                         kv_valid_len=kv_valid_len, causal=True)
+    out = torch.matmul(out.reshape(B, S, H * hd),
+                       params["wo"].to(dt).reshape(H * hd, -1))
+    return out, cache

@@ -1,0 +1,229 @@
+"""Continuously-batched prefill/decode serving engine (the baseline,
+following the JAX package's ``serving/engine.py`` with ``st_mode=None``).
+
+Requests queue up (FIFO deque); the engine fills a fixed batch of decode
+slots and recycles a slot as soon as its sequence finishes (EOS, max
+tokens or a full cache), keeping the decode batch full under churn.
+Admission is continuous and batched: every engine step takes as many
+queued requests as there are free slots, groups them by prompt length,
+and prefills each length group in ONE dispatch. Sampling is device-side
+— the steps return (B,) greedy token ids, so a decode step moves B int32
+ids to the host instead of the logits. Per-slot positions support ragged
+sequence lengths inside one batch.
+
+Differences from the reference, neither visible in the tokens:
+
+  * a prefill runs on the group's rows only (the reference runs all B
+    slots, mostly padding) and writes their KV rows into the slots'
+    cache rows IN PLACE: the slots' rows of every layer's cache as one
+    view when the slots are consecutive, else gathered (their first L
+    rows) and written back after the dispatch. The reference builds a
+    whole new (B, max_len) cache and merges the group's rows;
+  * the decode step updates the cache in place (the reference donates
+    it to a jitted step).
+
+ST-routed decode (``st_mode`` "st" / "host" / "fused") is not ported
+yet: ROADMAP Queue 1 item 8b.
+
+Requests carry the timestamps: ``submitted_at`` (queue entry),
+``admitted_at`` (prefill dispatch), ``first_token_at`` (TTFT),
+``done_at`` (completion). ``stats()`` adds the host seconds spent in
+prefill and decode dispatches, each ending when its ids reach the host.
+"""
+from __future__ import annotations
+
+import itertools
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.compat import resolve_device
+from repro_torch.models import cache_specs
+from repro_torch.models.params import zeros_from_specs
+from repro_torch.train.steps import (make_decode_sample_step,
+                                     make_prefill_sample_step)
+
+_req_ids = itertools.count()
+
+
+@dataclass
+class Request:
+    prompt: np.ndarray                  # (prompt_len,) int32
+    max_new_tokens: int = 16
+    eos_id: int = -1                    # -1: never stop early
+    req_id: int = field(default_factory=lambda: next(_req_ids))
+    out_tokens: List[int] = field(default_factory=list)
+    submitted_at: float = field(default_factory=time.monotonic)
+    admitted_at: Optional[float] = None
+    first_token_at: Optional[float] = None
+    done_at: Optional[float] = None
+
+
+class ServingEngine:
+    """``params``: the port's param tree (``init_params`` /
+    ``from_reference``) on ``device``. ``device`` defaults to CUDA and
+    raises without a card; pass ``"cpu"`` for the plain path on the
+    CPU."""
+
+    def __init__(self, cfg, params, *, batch_slots: int = 4,
+                 max_len: int = 256, st_mode: Optional[str] = None,
+                 device="cuda"):
+        if st_mode is not None:
+            raise NotImplementedError(
+                f"st_mode={st_mode!r}: ST-routed decode is not ported yet "
+                "(ROADMAP Queue 1 item 8b); the baseline is st_mode=None")
+        self.device = resolve_device(device)
+        if self.device is None:
+            raise ValueError("ServingEngine needs a device ('cuda' or "
+                             "'cpu')")
+        self.cfg = cfg
+        self.params = params
+        self.B = batch_slots
+        self.max_len = max_len
+        self._prefill_sample = make_prefill_sample_step(cfg, max_len=max_len)
+        self._decode_sample = make_decode_sample_step(cfg)
+        self.cache = zeros_from_specs(cache_specs(cfg, batch_slots, max_len),
+                                      self.device)
+        self.slot_req: List[Optional[Request]] = [None] * batch_slots
+        self.slot_pos = np.zeros(batch_slots, np.int32)
+        self.queue: Deque[Request] = deque()
+        self.completed: List[Request] = []
+        self.prefill_dispatches = 0
+        self.decode_steps = 0
+        self.tokens_generated = 0
+        self.prefill_seconds = 0.0
+        self.decode_seconds = 0.0
+        self.st_mode = st_mode
+
+    # -- admission ------------------------------------------------------------
+    def submit(self, req: Request):
+        """Queue a request; its prompt must leave the cache room for at
+        least one generated token (an out-of-range cache row would fault
+        on the card instead of raising)."""
+        if not 0 < len(req.prompt) < self.max_len:
+            raise ValueError(f"prompt of {len(req.prompt)} tokens; the "
+                             f"engine takes 1 to {self.max_len - 1}")
+        self.queue.append(req)
+
+    def _free_slots(self):
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def _prefill_group(self, slots: List[int], toks: np.ndarray):
+        """One prefill dispatch of (len(slots), L) prompt tokens into the
+        cache rows ``slots``; returns the first token ids on the host."""
+        n, L = toks.shape
+        batch = {"tokens": torch.as_tensor(toks, device=self.device),
+                 "positions": torch.arange(L, dtype=torch.int32,
+                                           device=self.device).expand(n, L)}
+        s0 = slots[0]
+        if slots == list(range(s0, s0 + n)):        # one view, in place
+            view = {"layers": [{k: c[k][s0:s0 + n] for k in c}
+                               for c in self.cache["layers"]]}
+            ids, _ = self._prefill_sample(self.params, batch, view)
+        else:                                       # gather, write back
+            idx = torch.as_tensor(slots, device=self.device)
+            view = {"layers": [{k: c[k][idx, :L] for k in c}
+                               for c in self.cache["layers"]]}
+            ids, _ = self._prefill_sample(self.params, batch, view)
+            for c, vc in zip(self.cache["layers"], view["layers"]):
+                for k in c:
+                    c[k][idx, :L] = vc[k]
+        return ids.cpu().numpy()
+
+    def _admit(self):
+        """Fill free slots from the queue: take requests FIFO, group by
+        prompt length, and prefill each length group in ONE dispatch."""
+        free = self._free_slots()
+        if not free or not self.queue:
+            return
+        take: List[Request] = []
+        while self.queue and len(take) < len(free):
+            take.append(self.queue.popleft())
+        groups: Dict[int, List[Request]] = {}
+        for req in take:
+            groups.setdefault(len(req.prompt), []).append(req)
+        free_iter = iter(free)
+        for L in sorted(groups):
+            reqs = groups[L]
+            slots = [next(free_iter) for _ in reqs]
+            toks = np.stack([np.asarray(r.prompt, np.int32) for r in reqs])
+            t0 = time.perf_counter()
+            ids_np = self._prefill_group(slots, toks)
+            self.prefill_seconds += time.perf_counter() - t0
+            self.prefill_dispatches += 1
+            now = time.monotonic()
+            for row, (slot, req) in enumerate(zip(slots, reqs)):
+                req.out_tokens.append(int(ids_np[row]))
+                req.admitted_at = now
+                req.first_token_at = now
+                self.slot_req[slot] = req
+                self.slot_pos[slot] = L
+                self.tokens_generated += 1
+                # a one-token (or instant-EOS) request completes at
+                # admission — don't hold a decode slot for it
+                if (len(req.out_tokens) >= req.max_new_tokens
+                        or req.out_tokens[-1] == req.eos_id
+                        or self.slot_pos[slot] >= self.max_len - 1):
+                    req.done_at = now
+                    self.completed.append(req)
+                    self.slot_req[slot] = None
+
+    # -- decode loop ----------------------------------------------------------
+    def _active(self):
+        return [i for i, r in enumerate(self.slot_req) if r is not None]
+
+    def step(self):
+        """One engine step: admit, batched decode, recycle finished slots."""
+        self._admit()
+        active = self._active()
+        if not active:
+            return 0
+        toks = np.zeros((self.B, 1), np.int32)
+        for i in active:
+            toks[i, 0] = self.slot_req[i].out_tokens[-1]
+        batch = {"tokens": torch.as_tensor(toks, device=self.device),
+                 "positions": torch.as_tensor(self.slot_pos[:, None],
+                                              device=self.device)}
+        t0 = time.perf_counter()
+        ids, self.cache = self._decode_sample(self.params, batch,
+                                                 self.cache)
+        ids_np = ids.cpu().numpy()
+        self.decode_seconds += time.perf_counter() - t0
+        self.decode_steps += 1
+        for i in active:
+            req = self.slot_req[i]
+            nxt = int(ids_np[i])
+            req.out_tokens.append(nxt)
+            self.tokens_generated += 1
+            self.slot_pos[i] += 1
+            done = (len(req.out_tokens) >= req.max_new_tokens
+                    or nxt == req.eos_id
+                    or self.slot_pos[i] >= self.max_len - 1)
+            if done:
+                req.done_at = time.monotonic()
+                self.completed.append(req)
+                self.slot_req[i] = None
+        return len(active)
+
+    def run_until_drained(self, max_steps: int = 10_000):
+        steps = 0
+        while (self.queue or self._active()) and steps < max_steps:
+            self.step()
+            steps += 1
+        return steps
+
+    # -- reporting ------------------------------------------------------------
+    def stats(self) -> dict:
+        return {"batch_slots": self.B, "max_len": self.max_len,
+                "queued": len(self.queue), "active": len(self._active()),
+                "completed": len(self.completed),
+                "prefill_dispatches": self.prefill_dispatches,
+                "decode_steps": self.decode_steps,
+                "tokens_generated": self.tokens_generated,
+                "prefill_seconds": self.prefill_seconds,
+                "decode_seconds": self.decode_seconds,
+                "st_mode": self.st_mode}

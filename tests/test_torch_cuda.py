@@ -5,8 +5,13 @@ CPU mode), run on the card with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Each kernel must equal its plain PyTorch version exactly, and Faces on
-the card must equal Faces on the CPU bit for bit in every mode.
+The Faces kernels must equal their plain PyTorch versions exactly, and
+Faces on the card must equal Faces on the CPU bit for bit in every mode.
+The attention kernels accumulate in float32 where their plain versions
+round to the input dtype, so on unit-normal inputs they are held to the
+tolerances of ``tests/test_kernels.py``: 2e-5 in float32 and, in bf16,
+2e-2 of the largest |output|. The serving engine on the card must serve
+the CPU's greedy tokens.
 """
 import numpy as np
 import pytest
@@ -113,3 +118,172 @@ def test_faces_on_the_card_equals_the_cpu(dev, mode, merged, sched):
     cpu, gpu = outs["cpu"], outs[str(dev)]
     for k in cpu:
         assert torch.equal(cpu[k], gpu[k].cpu()), k
+
+
+# ---------------------------------------------------------------------------
+# attention kernels and the serving path
+# ---------------------------------------------------------------------------
+
+# the plain versions' float32 products must stay float32 on the card
+# (PyTorch's default; TF32 would keep ~3 digits)
+ATOL_F32, RTOL_BF16 = 2e-5, 2e-2
+
+
+def _attn_inputs(dev, dtype, B, Sq, Skv, H, KV, hd, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+    return mk(B, Sq, H, hd), mk(B, Skv, KV, hd), mk(B, Skv, KV, hd)
+
+
+def _assert_attn_close(out, ref):
+    """Outputs of unit-normal inputs reach ~3, where one bf16 spacing is
+    2^-6: the bf16 tolerance is relative to the largest |output|."""
+    atol = (ATOL_F32 if ref.dtype == torch.float32
+            else RTOL_BF16 * ref.float().abs().max().item())
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,kvl,off,causal", [
+    (2, 1000, 4096, 32, 8, 64, (1000, 1000), 0, True),   # granite prefill
+    (1, 256, 256, 8, 8, 64, None, 0, True),              # G = 1
+    (1, 200, 333, 4, 1, 128, (333,), 133, True),         # hd 128, ragged
+    (2, 130, 512, 4, 2, 32, (90, 512), 0, True),         # kvl < Sq
+    (2, 77, 300, 8, 4, 64, (300, 150), 0, False),        # not causal
+])
+def test_flash_attention_kernel_equals_plain(dev, dtype, B, Sq, Skv, H, KV,
+                                             hd, kvl, off, causal):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    q, k, v = _attn_inputs(dev, dtype, B, Sq, Skv, H, KV, hd)
+    pos = (off + torch.arange(Sq, device=dev, dtype=torch.int32)).expand(
+        B, Sq)
+    kv_len = None if kvl is None else torch.tensor(kvl, device=dev,
+                                                   dtype=torch.int32)
+    _build.reset_launches()
+    out = flash_attention(q, k, v, q_positions=pos, kv_valid_len=kv_len,
+                          causal=causal)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == 1
+    ref = flash_attention_ref(q, k, v, q_offset=pos[:, 0],
+                              kv_valid_len=kv_len, causal=causal)
+    assert out.shape == ref.shape and out.dtype == dtype
+    _assert_attn_close(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,pos", [
+    (8, 4096, 32, 8, 64, (1000, 128, 4095, 0, 600, 257, 3000, 64)),
+    (2, 512, 8, 8, 64, (100, 511)),                      # G = 1
+    (3, 1024, 4, 1, 128, (5, 700, 1023)),                # hd 128
+    (2, 200, 16, 2, 32, (199, 13)),                      # ragged S
+])
+def test_decode_attention_kernel_equals_plain(dev, dtype, B, S, H, KV, hd,
+                                              pos):
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    q, k, v = _attn_inputs(dev, dtype, B, 1, S, H, KV, hd)
+    p = torch.tensor(pos, device=dev, dtype=torch.int32)[:, None]
+    for kvl in (p[:, 0] + 1, torch.full((B,), S // 2, device=dev,
+                                        dtype=torch.int32)):
+        _build.reset_launches()
+        out = decode_attention(q, k, v, q_positions=p, kv_valid_len=kvl)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["decode_attention"] == 1
+        ref = decode_attention_ref(q, k, v, q_positions=p, kv_valid_len=kvl)
+        assert out.shape == ref.shape and out.dtype == dtype
+        _assert_attn_close(out, ref)
+
+
+def test_attention_kernels_with_no_valid_key_average_uniformly(dev):
+    """A sequence with no valid key gets the reference's uniform average
+    over every key (the kernels walk the whole range then)."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    q, k, v = _attn_inputs(dev, torch.float32, 2, 1, 200, 4, 2, 64)
+    kvl = torch.tensor([0, 50], device=dev, dtype=torch.int32)
+    p = torch.tensor([[10], [60]], device=dev, dtype=torch.int32)
+    torch.testing.assert_close(
+        decode_attention(q, k, v, q_positions=p, kv_valid_len=kvl),
+        decode_attention_ref(q, k, v, q_positions=p, kv_valid_len=kvl),
+        rtol=0, atol=2e-5)
+    q2, k2, v2 = _attn_inputs(dev, torch.float32, 2, 70, 200, 4, 2, 64)
+    p2 = torch.arange(70, device=dev, dtype=torch.int32).expand(2, 70)
+    torch.testing.assert_close(
+        flash_attention(q2, k2, v2, q_positions=p2, kv_valid_len=kvl),
+        flash_attention_ref(q2, k2, v2, q_offset=p2[:, 0],
+                            kv_valid_len=kvl), rtol=0, atol=2e-5)
+
+
+def test_attention_kernels_read_strided_views_and_refuse_what_they_cannot(
+        dev):
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    # the serving prefill's view: some slots' rows of the whole cache,
+    # and q's heads as a slice of a wider projection
+    q_all, cache_k, cache_v = _attn_inputs(dev, torch.bfloat16, 6, 40, 256,
+                                           16, 4, 64)
+    q, k, v = (q_all[1:3, :, 4:12], cache_k[2:4, :, 1:3],
+               cache_v[2:4, :, 1:3])
+    assert not q.is_contiguous() and not k.is_contiguous()
+    pos = torch.arange(40, device=dev, dtype=torch.int32).expand(2, 40)
+    kvl = torch.tensor([40, 40], device=dev, dtype=torch.int32)
+    _assert_attn_close(
+        flash_attention(q, k, v, q_positions=pos, kv_valid_len=kvl),
+        flash_attention_ref(q, k, v, q_offset=pos[:, 0], kv_valid_len=kvl))
+    _assert_attn_close(
+        decode_attention(q[:, :1], k, v, q_positions=pos[:, -1:]),
+        decode_attention_ref(q[:, :1], k, v, q_positions=pos[:, -1:]))
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(*(t[..., :48] for t in (q, k, v)))
+    with pytest.raises(ValueError, match="aligned"):
+        odd = torch.zeros((2, 40, 8, 65), device=dev,
+                          dtype=torch.bfloat16)[..., 1:]
+        flash_attention(odd, k, v)
+    with pytest.raises(TypeError, match="one dtype"):
+        decode_attention(q[:, :1].half(), k.half(), v.half())
+    assert _build.LAUNCHES["flash_attention"] == 0
+    assert _build.LAUNCHES["decode_attention"] == 0
+
+
+def test_engine_on_the_card_equals_the_cpu_and_launches_the_kernels(dev):
+    """The serving path on the card: every attention call goes through
+    the two kernels (one launch per layer per prefill dispatch and per
+    decode step), and the greedy tokens equal the plain path's on the
+    CPU (float32 compute)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Request, ServingEngine
+    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(),
+                              num_kv_heads=2, compute_dtype="float32")
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         "cpu", torch.float32)
+    rng = np.random.RandomState(0)
+    specs = [(rng.randint(1, cfg.vocab_size, L).astype(np.int32), m)
+             for L, m in ((5, 6), (9, 4), (5, 3), (17, 5), (9, 2))]
+    tokens = {}
+    for device in ("cpu", dev):
+        eng = ServingEngine(cfg, tree_map(lambda t: t.to(device), params),
+                            batch_slots=3, max_len=64,
+                            device=device)
+        reqs = [Request(prompt=pr, max_new_tokens=m) for pr, m in specs]
+        for r in reqs:
+            eng.submit(r)
+        _build.reset_launches()
+        eng.run_until_drained()
+        tokens[str(device)] = [r.out_tokens for r in reqs]
+        if device != "cpu":
+            n = cfg.num_layers
+            assert _build.LAUNCHES["flash_attention"] == \
+                n * eng.prefill_dispatches
+            assert _build.LAUNCHES["decode_attention"] == \
+                n * eng.decode_steps
+    assert tokens[str(dev)] == tokens["cpu"]

@@ -1,0 +1,261 @@
+"""The port's dense model on the CPU against the JAX package's.
+
+The same weights (the reference's ``init_params``, handed over as numpy
+through ``from_reference``) and the same numpy tokens go through the
+JAX ``forward`` — with ``attn_impl="xla"`` and ``"pallas_interpret"``
+(its Pallas kernels in interpret mode) — and through the port's
+``forward`` (plain attention on the CPU): without a cache, and as a
+prefill plus ragged decode steps through a KV cache. granite-3-2b's
+``reduced()`` config has G = 1 (4 heads, 4 KV heads); the ``kv2``
+variant has G = 2.
+
+Tolerances, those of ``tests/test_kernels.py``: float32 compute, 2e-5
+absolute on hidden states of magnitude ~4 and logits of magnitude ~1
+(XLA and PyTorch sum in other orders; measured differences ~3e-6);
+bf16 compute, 2e-2 absolute on logits (bf16 keeps 8 bits, 4e-3
+relative, and the two frameworks round at other points; measured
+~9e-3).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_config as jax_config
+from repro.models import cache_specs as j_cache_specs
+from repro.models import forward as j_forward
+from repro.models import init_params as j_init
+from repro.models import logits_from_hidden as j_logits
+from repro.models import model_specs as j_specs
+from repro.models.params import is_spec, param_count as j_param_count
+from repro.sharding.rules import make_rules
+from repro.train.steps import (make_decode_sample_step as j_decode_step,
+                               make_prefill_sample_step as j_prefill_step)
+from repro_torch.configs import MoEConfig, get_config
+from repro_torch.models import (cache_specs, forward, from_reference,
+                                init_params, logits_from_hidden,
+                                model_specs, param_count, stack_specs,
+                                zeros_from_specs)
+from repro_torch.train.steps import (make_decode_sample_step,
+                                     make_prefill_sample_step)
+
+F32_TOL = 2e-5
+BF16_TOL = 2e-2
+
+
+def _configs(variant, dtype="float32"):
+    kw = dict(compute_dtype=dtype)
+    if variant == "kv2":
+        kw["num_kv_heads"] = 2
+    jc = dataclasses.replace(jax_config("granite-3-2b").reduced(), **kw)
+    tc = dataclasses.replace(get_config("granite-3-2b").reduced(), **kw)
+    return jc, tc
+
+
+@pytest.fixture(scope="module")
+def models():
+    """variant -> (jax cfg, port cfg, jax params, port params)."""
+    out = {}
+    for variant in ("g1", "kv2"):
+        jc, tc = _configs(variant)
+        jp = j_init(j_specs(jc), jax.random.PRNGKey(0))
+        out[variant] = (jc, tc, jp, from_reference(
+            tc, jax.tree.map(np.asarray, jp), "cpu"))
+    return out
+
+
+def _tokens(cfg, B, S, seed=0):
+    return np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _close(port, ref, tol):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref, np.float32), atol=tol)
+
+
+def test_reduced_config_is_g1_and_variant_g2(models):
+    for variant, g in (("g1", 1), ("kv2", 2)):
+        tc = models[variant][1]
+        assert tc.num_heads // tc.num_kv_heads == g
+        assert tc.num_layers == 2
+
+
+def test_from_reference_unstacks_the_layer_axis(models):
+    jc, tc, jp, tp = models["kv2"]
+    groups = jc.layer_groups()
+    assert len(tp["layers"]) == jc.num_layers
+    for i in range(groups.repeats):
+        for j in range(len(groups.unit)):
+            layer = tp["layers"][len(groups.prefix) + i * len(groups.unit)
+                                 + j]
+            ref = jp["unit"][j]
+            np.testing.assert_array_equal(
+                layer["mixer"]["wq"].numpy(),
+                np.asarray(ref["mixer"]["wq"][i]))
+            np.testing.assert_array_equal(
+                layer["ffn"]["w_down"].numpy(),
+                np.asarray(ref["ffn"]["w_down"][i]))
+    np.testing.assert_array_equal(tp["embed"]["tok"].numpy(),
+                                  np.asarray(jp["embed"]["tok"]))
+    assert param_count(model_specs(tc)) == j_param_count(j_specs(jc))
+    # stacking the port's per-layer specs gives the reference's unit
+    stacked = stack_specs(model_specs(tc)["layers"][0], groups.repeats)
+    ref_unit = j_specs(jc)["unit"][0]
+    assert stacked["mixer"]["wq"].shape == ref_unit["mixer"]["wq"].shape
+    assert stacked["ffn"]["w_up"].axes == ref_unit["ffn"]["w_up"].axes
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("variant", ["g1", "kv2"])
+def test_forward_matches_jax(models, variant, impl):
+    jc, tc, jp, tp = models[variant]
+    jc = dataclasses.replace(jc, attn_impl=impl)
+    rules = make_rules(jc, None, None)
+    B, S = 2, 32
+    toks = _tokens(jc, B, S)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    jx, _, _ = j_forward(jc, jp, {"tokens": jnp.asarray(toks),
+                                  "positions": jnp.asarray(pos)},
+                         rules=rules)
+    tx, _, aux = forward(tc, tp, {"tokens": torch.from_numpy(toks),
+                                  "positions": torch.from_numpy(pos)})
+    _close(tx, jx, F32_TOL)
+    _close(logits_from_hidden(tc, tp, tx), j_logits(jc, jp, jx, rules),
+           F32_TOL)
+    assert float(aux) == 0.0
+
+
+def _prefill_decode(jc, tc, jp, tp, cache_dt):
+    """Prefill 12 tokens, then 3 decode steps with ragged positions (row
+    1 rewinds to 9, overwriting its cache rows); last-position logits of
+    every step from both frameworks."""
+    rules = make_rules(jc, None, None)
+    B, P, max_len = 2, 12, 32
+    toks = _tokens(jc, B, P + 3, seed=1)
+    jcache = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
+                          j_cache_specs(jc, B, max_len, cache_dt[0]),
+                          is_leaf=is_spec)
+    tcache = zeros_from_specs(cache_specs(tc, B, max_len, cache_dt[1]),
+                              "cpu")
+    pos = np.broadcast_to(np.arange(P, dtype=np.int32), (B, P)).copy()
+    steps = [(toks[:, :P], pos)]
+    for t in range(3):
+        steps.append((toks[:, P + t:P + t + 1],
+                      np.asarray([[P + t], [9 + t]], np.int32)))
+    outs = []
+    for tk, ps in steps:
+        jx, jcache, _ = j_forward(jc, jp, {"tokens": jnp.asarray(tk),
+                                           "positions": jnp.asarray(ps)},
+                                  rules=rules, cache=jcache)
+        tx, tcache, _ = forward(tc, tp, {"tokens": torch.from_numpy(tk),
+                                         "positions": torch.from_numpy(ps)},
+                                cache=tcache)
+        outs.append((logits_from_hidden(tc, tp, tx, last_only=True),
+                     j_logits(jc, jp, jx, rules, last_only=True)))
+    return outs, tcache, jcache
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("variant", ["g1", "kv2"])
+def test_prefill_and_decode_match_jax(models, variant, impl):
+    jc, tc, jp, tp = models[variant]
+    jc = dataclasses.replace(jc, attn_impl=impl)
+    outs, tcache, jcache = _prefill_decode(
+        jc, tc, jp, tp, (jnp.float32, torch.float32))
+    for port, ref in outs:
+        _close(port, ref, F32_TOL)
+    for layer in range(tc.num_layers):          # the caches agree too
+        for name in ("k", "v"):
+            _close(tcache["layers"][layer][name],
+                   jcache["unit"][0][name][layer], F32_TOL)
+
+
+def test_prefill_and_decode_match_jax_in_bf16():
+    jc, tc = _configs("kv2", "bfloat16")
+    jp = j_init(j_specs(jc), jax.random.PRNGKey(1))
+    tp = from_reference(tc, jax.tree.map(np.asarray, jp), "cpu",
+                        dtype=torch.bfloat16)
+    assert tp["layers"][0]["mixer"]["wq"].dtype == torch.bfloat16
+    assert tp["layers"][0]["norm1"]["scale"].dtype == torch.float32
+    outs, _, _ = _prefill_decode(jc, tc, jp, tp,
+                                 (jnp.bfloat16, torch.bfloat16))
+    for port, ref in outs:
+        _close(port, ref, BF16_TOL)
+
+
+@pytest.mark.parametrize("variant", ["g1", "kv2"])
+def test_sample_steps_match_jax_greedy_ids(models, variant):
+    """The serving steps (default bf16 cache): greedy ids of a prefill
+    and two decode steps equal the reference's."""
+    jc, tc, jp, tp = models[variant]
+    rules = make_rules(jc, None, None)
+    B, P, max_len = 3, 8, 16
+    toks = _tokens(jc, B, P, seed=2)
+    pos = np.broadcast_to(np.arange(P, dtype=np.int32), (B, P)).copy()
+    jids, jcache = jax.jit(j_prefill_step(jc, rules, max_len=max_len))(
+        jp, {"tokens": jnp.asarray(toks), "positions": jnp.asarray(pos)})
+    tids, tcache = make_prefill_sample_step(tc, max_len=max_len)(
+        tp, {"tokens": torch.from_numpy(toks),
+             "positions": torch.from_numpy(pos)})
+    assert tcache["layers"][0]["k"].shape == (B, max_len, tc.num_kv_heads,
+                                              tc.head_dim)
+    assert tids.dtype == torch.int32
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    jstep, tstep = jax.jit(j_decode_step(jc, rules)), \
+        make_decode_sample_step(tc)
+    for t in range(2):
+        p = np.full((B, 1), P + t, np.int32)
+        tk = np.asarray(tids, np.int32)[:, None]
+        jids, jhid, jcache = jstep(jp, {"tokens": jnp.asarray(tk),
+                                        "positions": jnp.asarray(p)}, jcache)
+        tids, tcache = tstep(tp, {"tokens": torch.from_numpy(tk),
+                                  "positions": torch.from_numpy(p)}, tcache)
+        np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+        # the bf16 caches after the step: float32 values equal to ~1e-7
+        # may round to neighbouring bf16 values, so a bf16 tolerance
+        for layer in range(tc.num_layers):
+            for name in ("k", "v"):
+                _close(tcache["layers"][layer][name],
+                       jcache["unit"][0][name][layer], BF16_TOL)
+
+
+def test_init_params_is_seeded_and_typed():
+    cfg = get_config("granite-3-2b").reduced()
+    specs = model_specs(cfg)
+
+    def make(seed):
+        return init_params(specs, torch.Generator().manual_seed(seed),
+                           "cpu", torch.bfloat16)
+
+    a, b, c = make(0), make(0), make(1)
+    assert torch.equal(a["layers"][1]["ffn"]["w_up"],
+                       b["layers"][1]["ffn"]["w_up"])
+    assert not torch.equal(a["layers"][1]["ffn"]["w_up"],
+                           c["layers"][1]["ffn"]["w_up"])
+    assert a["embed"]["tok"].shape == (cfg.padded_vocab, cfg.d_model)
+    assert a["embed"]["tok"].dtype == torch.bfloat16
+    assert a["final_norm"]["scale"].dtype == torch.float32
+    assert torch.equal(a["final_norm"]["scale"], torch.ones(cfg.d_model))
+    std = a["layers"][0]["ffn"]["w_up"].float().std().item()   # fan-in d
+    assert abs(std - cfg.d_model ** -0.5) < 0.1 * cfg.d_model ** -0.5
+
+
+def test_full_granite_config_and_unported_kinds():
+    cfg = get_config("granite-3-2b")
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.d_ff, cfg.vocab_size, cfg.padded_vocab) == \
+        (40, 2048, 32, 8, 8192, 49155, 49408)
+    # ~2.5 B params at full width (tied embeddings over the padded vocab)
+    assert 2.4e9 < param_count(model_specs(cfg)) < 2.6e9
+    with pytest.raises(KeyError, match="not ported"):
+        get_config("qwen3-32b")
+    moe = dataclasses.replace(cfg.reduced(), moe=MoEConfig(
+        num_experts=4, top_k=2, expert_ff=64))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        model_specs(moe)

@@ -1,0 +1,255 @@
+"""The port's baseline serving engine on the CPU.
+
+The contract of ``tests/test_serving.py`` (continuous batching: FIFO
+deque admission, one prefill dispatch per length group, batched equal
+to serial admission, slot recycling under churn, EOS, ragged per-slot
+positions and timestamps, deterministic completion order), held on the
+port's engine; its greedy tokens equal the JAX package's engine on the
+same params and requests (float32 compute); and the entry point runs on
+CUDA unless asked for the CPU.
+"""
+import dataclasses
+from collections import deque
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+
+from repro.configs import get_config as jax_config
+from repro.models import init_params as j_init
+from repro.models import model_specs as j_specs
+from repro.serving import Request as JRequest
+from repro.serving import ServingEngine as JServingEngine
+from repro.sharding.rules import make_rules
+from repro_torch.configs import get_config
+from repro_torch.models import from_reference, init_params, model_specs
+from repro_torch.serving import Request, ServingEngine
+
+TINY = dict(num_layers=2, d_model=64, num_heads=2, num_kv_heads=1,
+            d_ff=128, vocab_size=256, head_dim=32)
+
+
+def _tiny_cfg():
+    return dataclasses.replace(get_config("granite-3-2b").reduced(), **TINY)
+
+
+@pytest.fixture(scope="module")
+def tiny_model():
+    cfg = _tiny_cfg()
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         "cpu", getattr(torch, cfg.compute_dtype))
+    return cfg, params
+
+
+def _engine(tiny_model, **kw):
+    cfg, params = tiny_model
+    kw.setdefault("batch_slots", 2)
+    kw.setdefault("max_len", 32)
+    return ServingEngine(cfg, params, device="cpu", **kw)
+
+
+def _prompt(*toks):
+    return np.asarray(toks, np.int32)
+
+
+# ---------------------------------------------------------------------------
+# continuous batching (the contract of tests/test_serving.py)
+# ---------------------------------------------------------------------------
+
+def test_admission_queue_is_fifo_deque(tiny_model):
+    eng = _engine(tiny_model)
+    reqs = [Request(prompt=_prompt(i + 1), max_new_tokens=1)
+            for i in range(5)]
+    for r in reqs:
+        eng.submit(r)
+    assert isinstance(eng.queue, deque)
+    eng.run_until_drained()
+    assert [r.req_id for r in eng.completed] == [r.req_id for r in reqs]
+
+
+def test_batch_prefill_one_dispatch_per_length_group(tiny_model):
+    eng = _engine(tiny_model, batch_slots=4)
+    for i in range(3):                       # same length: ONE dispatch
+        eng.submit(Request(prompt=_prompt(1 + i, 2 + i),
+                           max_new_tokens=1))
+    eng.step()
+    assert eng.prefill_dispatches == 1
+    assert len(eng._active()) + len(eng.completed) == 3
+
+    eng2 = _engine(tiny_model, batch_slots=4)
+    eng2.submit(Request(prompt=_prompt(1, 2), max_new_tokens=1))
+    eng2.submit(Request(prompt=_prompt(3, 4, 5), max_new_tokens=1))
+    eng2.submit(Request(prompt=_prompt(6, 7), max_new_tokens=1))
+    eng2.step()                              # two length groups
+    assert eng2.prefill_dispatches == 2
+
+
+def test_batch_prefill_matches_serial_admission(tiny_model):
+    prompts = [_prompt(5, 6, 7), _prompt(9, 10, 11)]
+    eng = _engine(tiny_model, batch_slots=2)
+    for p in prompts:
+        eng.submit(Request(prompt=p, max_new_tokens=3))
+    eng.run_until_drained()
+    together = [r.out_tokens for r in eng.completed]
+
+    serial = []
+    for p in prompts:                        # fresh engine per request
+        e1 = _engine(tiny_model, batch_slots=2)
+        e1.submit(Request(prompt=p, max_new_tokens=3))
+        e1.run_until_drained()
+        serial.append(e1.completed[0].out_tokens)
+    assert together == serial
+
+
+def test_slot_recycling_under_churn(tiny_model):
+    eng = _engine(tiny_model, batch_slots=2)
+    budgets = [3, 1, 4, 2, 1, 3, 2]
+    for i, b in enumerate(budgets):
+        eng.submit(Request(prompt=_prompt(i + 1), max_new_tokens=b))
+    eng.run_until_drained()
+    assert len(eng.completed) == len(budgets)
+    assert sorted(len(r.out_tokens) for r in eng.completed) == \
+        sorted(budgets)
+    assert eng._free_slots() == [0, 1]
+    assert eng.stats()["queued"] == 0
+
+
+def test_prefill_into_scattered_slots_matches_fresh_engine(tiny_model):
+    """A length group admitted into slots that are not consecutive (the
+    prefill gathers their rows and writes them back) serves the same
+    tokens as an engine where they are."""
+    eng = _engine(tiny_model, batch_slots=3)
+    eng.submit(Request(prompt=_prompt(1, 2, 3), max_new_tokens=4))
+    eng.submit(Request(prompt=_prompt(4), max_new_tokens=1))  # done at once
+    eng.submit(Request(prompt=_prompt(5, 6), max_new_tokens=9))
+    eng.step()                 # slot 0: len-1 (done), 1: len-2, 2: len-3
+    assert eng.slot_req[0] is None and eng._active() == [1, 2]
+    for _ in range(3):
+        eng.step()             # the len-3 request (slot 2) finishes
+    assert eng._free_slots() == [0, 2]
+    late = [Request(prompt=_prompt(7, 8, 9, 10), max_new_tokens=3),
+            Request(prompt=_prompt(11, 12, 13, 14), max_new_tokens=3)]
+    for r in late:
+        eng.submit(r)
+    before = eng.prefill_dispatches
+    eng.run_until_drained()
+    assert eng.prefill_dispatches == before + 1     # one group, slots 0, 2
+
+    fresh = _engine(tiny_model, batch_slots=2)
+    ref = [Request(prompt=r.prompt, max_new_tokens=3) for r in late]
+    for r in ref:
+        fresh.submit(r)
+    fresh.run_until_drained()
+    assert [r.out_tokens for r in late] == [r.out_tokens for r in ref]
+
+
+def test_eos_stops_early(tiny_model):
+    pilot = _engine(tiny_model)
+    pilot.submit(Request(prompt=_prompt(5, 6, 7), max_new_tokens=6))
+    pilot.run_until_drained()
+    toks = pilot.completed[0].out_tokens
+    eos = toks[2]
+    first_hit = toks.index(eos)
+
+    eng = _engine(tiny_model)
+    eng.submit(Request(prompt=_prompt(5, 6, 7), max_new_tokens=6,
+                       eos_id=eos))
+    eng.run_until_drained()
+    assert eng.completed[0].out_tokens == toks[:first_hit + 1]
+
+
+def test_ragged_positions_and_timestamps(tiny_model):
+    eng = _engine(tiny_model, batch_slots=2)
+    ra = Request(prompt=_prompt(1, 2), max_new_tokens=3)
+    rb = Request(prompt=_prompt(3, 4, 5, 6, 7), max_new_tokens=3)
+    eng.submit(ra)
+    eng.submit(rb)
+    eng.step()                               # admit both + one decode
+    assert sorted(eng.slot_pos.tolist()) == [3, 6]
+    eng.run_until_drained()
+    for r in (ra, rb):
+        assert (r.submitted_at <= r.admitted_at <= r.first_token_at
+                <= r.done_at)
+    stats = eng.stats()
+    assert stats["prefill_dispatches"] == 2 and stats["decode_steps"] >= 2
+    assert stats["prefill_seconds"] > 0 and stats["decode_seconds"] > 0
+
+
+def test_deterministic_completion_order(tiny_model):
+    def run():
+        eng = _engine(tiny_model, batch_slots=2)
+        specs = [((2, 9), 3), ((4, 5, 6), 1), ((7,), 2), ((8, 3), 4),
+                 ((1, 1, 2), 2)]
+        reqs = [Request(prompt=_prompt(*p), max_new_tokens=m)
+                for p, m in specs]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        by_id = {id(r): i for i, r in enumerate(reqs)}
+        return ([by_id[id(r)] for r in eng.completed],
+                [r.out_tokens for r in eng.completed])
+
+    assert run() == run()
+
+
+# ---------------------------------------------------------------------------
+# against the JAX package's engine; device selection
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv_heads", [1, 2])
+def test_greedy_tokens_equal_the_jax_engine(kv_heads):
+    """Same params (the reference's init, handed over as numpy), same
+    requests — three prompt lengths, more requests than slots, ragged
+    budgets — float32 compute: every request gets the same tokens."""
+    kw = dict(TINY, num_kv_heads=kv_heads, compute_dtype="float32")
+    jcfg = dataclasses.replace(jax_config("granite-3-2b").reduced(), **kw)
+    tcfg = dataclasses.replace(get_config("granite-3-2b").reduced(), **kw)
+    jparams = j_init(j_specs(jcfg), jax.random.PRNGKey(0))
+    tparams = from_reference(tcfg, jax.tree.map(np.asarray, jparams),
+                             "cpu")
+    jeng = JServingEngine(jcfg, jparams, make_rules(jcfg, None, None),
+                          batch_slots=3, max_len=32)
+    teng = ServingEngine(tcfg, tparams, batch_slots=3, max_len=32,
+                         device="cpu")
+    rng = np.random.RandomState(3)
+    specs = [(rng.randint(1, 256, L).astype(np.int32), m)
+             for L, m in ((3, 5), (5, 4), (3, 6), (7, 2), (5, 5), (3, 3))]
+    jreqs = [JRequest(prompt=p, max_new_tokens=m) for p, m in specs]
+    treqs = [Request(prompt=p, max_new_tokens=m) for p, m in specs]
+    for jr, tr in zip(jreqs, treqs):
+        jeng.submit(jr)
+        teng.submit(tr)
+    jeng.run_until_drained()
+    teng.run_until_drained()
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    for key in ("prefill_dispatches", "decode_steps", "tokens_generated"):
+        assert teng.stats()[key] == jeng.stats()[key], key
+
+
+def test_engine_asks_for_cuda_by_default_and_raises_without_a_card(
+        tiny_model, monkeypatch):
+    cfg, params = tiny_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, params, device="cuda")
+
+
+def test_submit_refuses_prompts_the_cache_cannot_hold(tiny_model):
+    eng = _engine(tiny_model, max_len=8)
+    for n in (0, 8, 9):
+        with pytest.raises(ValueError, match="prompt of"):
+            eng.submit(Request(prompt=np.ones(n, np.int32)))
+    eng.submit(Request(prompt=np.ones(7, np.int32), max_new_tokens=5))
+    eng.run_until_drained()
+    assert len(eng.completed[0].out_tokens) == 1    # the cache is full
+
+
+def test_st_routed_decode_is_not_ported_yet(tiny_model):
+    cfg, params = tiny_model
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        ServingEngine(cfg, params, st_mode="st", device="cpu")
