@@ -9,6 +9,7 @@ import torch
 
 # (hd, hdv) pairs the kernels are compiled for
 HEAD_DIMS = ((32, 32), (64, 64), (128, 128))
+# the dtype code every C entry takes (the WKV6 wrapper's too)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

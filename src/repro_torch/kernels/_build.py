@@ -57,13 +57,19 @@ LIBRARIES = {
                                     _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
                                     _STRIDES, _PTR),
     },
+    # (dtype, r, k, v, logw, u, s0, sT, y, B, S, H, hd, strides[19],
+    #  stream)
+    "wkv6": {
+        "wkv6_launch": (_INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                        _INT, _INT, _INT, _INT, _STRIDES, _PTR),
+    },
 }
 
 # launches per kernel since the last reset_launches(); a wrapper adds
 # one only after its kernel was launched without error
 LAUNCHES: Dict[str, int] = {"halo_pack": 0, "halo_unpack": 0,
                             "counter_bump": 0, "flash_attention": 0,
-                            "decode_attention": 0}
+                            "decode_attention": 0, "wkv6": 0}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

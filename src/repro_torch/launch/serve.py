@@ -2,8 +2,11 @@
 card by default.
 
   python -m repro_torch.launch.serve --arch granite-3-2b
-  python -m repro_torch.launch.serve --arch granite-3-2b --reduced \\
+  python -m repro_torch.launch.serve --arch rwkv6-1.6b
+  python -m repro_torch.launch.serve --arch rwkv6-1.6b --reduced \\
       --device cpu --requests 8 --slots 4 --max-new 16
+
+``--arch`` takes the ported architectures (granite-3-2b, rwkv6-1.6b).
 
 Params are random (seed 0), in the config's compute dtype. The
 reference's ``--st-*`` flags (ST-routed decode) are not ported yet

@@ -1,4 +1,4 @@
-"""Models of the port (dense attention blocks so far)."""
+"""Models of the port (dense attention and rwkv blocks so far)."""
 from repro_torch.models.model import (cache_specs, forward,
                                       logits_from_hidden, model_specs)
 from repro_torch.models.params import (ParamSpec, from_reference,

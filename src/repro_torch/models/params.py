@@ -15,8 +15,11 @@ axis for ``lax.scan``, the port keeps one dict of params per layer in
 
 Dtypes: weights (leaves of two or more dims) are cast to the compute
 dtype once, at load — the reference casts its float32 params at every
-use (``.astype(dt)``), which gives the same values. One-dim leaves (the
-norm scales) stay float32, which is how the reference applies them.
+use (``.astype(dt)``), which gives the same values. One-dim leaves stay
+float32, and each user applies them as the reference does: RMSNorm
+scales in float32, but rwkv's token-shift mixes and ``ln_x`` cast to the
+compute dtype at use (``models/rwkv.py``), its ``w0`` and ``bonus`` in
+float32.
 """
 from __future__ import annotations
 
@@ -72,7 +75,8 @@ def _fan_in(shape) -> int:
 
 def leaf_dtype(shape, dtype: torch.dtype) -> torch.dtype:
     """The dtype a leaf is kept in: ``dtype`` for weights (two or more
-    dims), float32 for scalars and vectors (norm scales)."""
+    dims), float32 for scalars and vectors (norm scales, rwkv's mixes,
+    decay and bonus; their users cast them as the reference does)."""
     return dtype if len(shape) >= 2 else torch.float32
 
 

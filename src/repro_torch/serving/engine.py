@@ -14,11 +14,16 @@ sequence lengths inside one batch.
 Differences from the reference, neither visible in the tokens:
 
   * a prefill runs on the group's rows only (the reference runs all B
-    slots, mostly padding) and writes their KV rows into the slots'
-    cache rows IN PLACE: the slots' rows of every layer's cache as one
-    view when the slots are consecutive, else gathered (their first L
-    rows) and written back after the dispatch. The reference builds a
-    whole new (B, max_len) cache and merges the group's rows;
+    slots, mostly padding) and writes into the slots' cache rows IN
+    PLACE: the slots' rows of every layer's cache as one view when the
+    slots are consecutive, else gathered and written back after the
+    dispatch — the first L rows of a leaf with a sequence axis (KV), a
+    state leaf (rwkv's token shifts and WKV state) whole. The reference
+    builds a whole new zeroed (B, max_len) cache and merges the group's
+    rows. Stale KV rows past the prompt are masked by the valid length,
+    but a recurrent state is read whole, so the group's state leaves are
+    zeroed before the dispatch (a recycled slot would otherwise start
+    from the previous request's state);
   * the decode step updates the cache in place (the reference donates
     it to a jitted step).
 
@@ -86,8 +91,13 @@ class ServingEngine:
         self.max_len = max_len
         self._prefill_sample = make_prefill_sample_step(cfg, max_len=max_len)
         self._decode_sample = make_decode_sample_step(cfg)
-        self.cache = zeros_from_specs(cache_specs(cfg, batch_slots, max_len),
-                                      self.device)
+        specs = cache_specs(cfg, batch_slots, max_len)
+        self.cache = zeros_from_specs(specs, self.device)
+        # per layer, the cache leaves without a sequence axis: a
+        # sequence's state, replaced whole at its prefill
+        self._state_keys = [{k for k, sp in layer.items()
+                             if "kv_seq" not in sp.axes}
+                            for layer in specs["layers"]]
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.slot_pos = np.zeros(batch_slots, np.int32)
         self.queue: Deque[Request] = deque()
@@ -120,18 +130,26 @@ class ServingEngine:
                  "positions": torch.arange(L, dtype=torch.int32,
                                            device=self.device).expand(n, L)}
         s0 = slots[0]
+        layers = list(zip(self.cache["layers"], self._state_keys))
         if slots == list(range(s0, s0 + n)):        # one view, in place
             view = {"layers": [{k: c[k][s0:s0 + n] for k in c}
-                               for c in self.cache["layers"]]}
+                               for c, _ in layers]}
+            for vc, (_, state) in zip(view["layers"], layers):
+                for k in state:
+                    vc[k].zero_()
             ids, _ = self._prefill_sample(self.params, batch, view)
         else:                                       # gather, write back
             idx = torch.as_tensor(slots, device=self.device)
-            view = {"layers": [{k: c[k][idx, :L] for k in c}
-                               for c in self.cache["layers"]]}
+            view = {"layers": [
+                {k: (c[k].new_zeros((n,) + c[k].shape[1:]) if k in state
+                     else c[k][idx, :L]) for k in c} for c, state in layers]}
             ids, _ = self._prefill_sample(self.params, batch, view)
-            for c, vc in zip(self.cache["layers"], view["layers"]):
+            for vc, (c, state) in zip(view["layers"], layers):
                 for k in c:
-                    c[k][idx, :L] = vc[k]
+                    if k in state:
+                        c[k][idx] = vc[k]
+                    else:
+                        c[k][idx, :L] = vc[k]
         return ids.cpu().numpy()
 
     def _admit(self):

@@ -29,8 +29,9 @@ def _greedy_ids(cfg, logits):
 def make_prefill_sample_step(cfg, max_len: Optional[int] = None):
     """prefill_sample_step(params, batch, cache=None) -> (ids (B,), cache):
     prefill plus device-side greedy sampling of each row's first token.
-    With ``cache=None`` a zeroed bf16 cache of (B, max_len or S) is made,
-    as the reference does; a given cache's rows are written in place."""
+    With ``cache=None`` a zeroed cache of (B, max_len or S) is made, as
+    the reference does (bf16 KV rows and token shifts, a float32 rwkv
+    state); a given cache's rows are written in place."""
 
     def prefill_sample_step(params, batch, cache=None):
         if cache is None:

@@ -10,8 +10,9 @@ Faces on the card must equal Faces on the CPU bit for bit in every mode.
 The attention kernels accumulate in float32 where their plain versions
 round to the input dtype, so on unit-normal inputs they are held to the
 tolerances of ``tests/test_kernels.py``: 2e-5 in float32 and, in bf16,
-2e-2 of the largest |output|. The serving engine on the card must serve
-the CPU's greedy tokens.
+2e-2 of the largest |output|. The WKV6 kernel and its plain version both
+compute in float32 on the same values: 1e-5. The serving engine on the
+card must serve the CPU's greedy tokens, granite-3-2b's and rwkv6's.
 """
 import numpy as np
 import pytest
@@ -286,4 +287,123 @@ def test_engine_on_the_card_equals_the_cpu_and_launches_the_kernels(dev):
                 n * eng.prefill_dispatches
             assert _build.LAUNCHES["decode_attention"] == \
                 n * eng.decode_steps
+    assert tokens[str(dev)] == tokens["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# WKV6 kernel and the rwkv serving path
+# ---------------------------------------------------------------------------
+
+# both sides compute in float32 on the same values (bf16 inputs upcast),
+# so only the summation order differs: 1e-5, test_kernels.py's tolerance
+WKV_ATOL = 1e-5
+
+
+def _wkv_inputs(dev, dtype, B, S, H, hd, seed=0):
+    """r, k, v at scale 0.3 in ``dtype``, logw = -exp(N(0,1)), u and s0
+    at scale 0.1 (tests/test_kernels.py's wkv6 inputs)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s, sc=0.3: sc * torch.randn(s, generator=gen, device=dev)
+    r, k, v = (mk(B, S, H, hd).to(dtype) for _ in range(3))
+    logw = -torch.exp(mk(B, S, H, hd, sc=1.0))
+    return r, k, v, logw, mk(H, hd, sc=0.1), mk(B, H, hd, hd, sc=0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd", [
+    (2, 128, 2, 32), (1, 256, 4, 64),         # test_kernels.py's shapes
+    (8, 1, 32, 64),                           # rwkv6-1.6b decode
+    (3, 1000, 32, 64),                        # ragged prefill
+    (2, 37, 4, 32),                           # ragged, hd 32
+])
+def test_wkv6_kernel_equals_plain(dev, dtype, B, S, H, hd):
+    from repro_torch.kernels.rwkv6 import wkv6, wkv6_ref
+    ins = _wkv_inputs(dev, dtype, B, S, H, hd)
+    _build.reset_launches()
+    y, sT = wkv6(*ins)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["wkv6"] == 1
+    yr, sTr = wkv6_ref(*ins)
+    assert y.dtype == sT.dtype == torch.float32 and y.shape == yr.shape
+    torch.testing.assert_close(y, yr, rtol=0, atol=WKV_ATOL)
+    torch.testing.assert_close(sT, sTr, rtol=0, atol=WKV_ATOL)
+
+
+def test_wkv6_kernel_carries_state_writes_in_place_reads_views(dev):
+    """Two launches with the state carried equal one; ``inplace`` writes
+    the final state over s0; r, k, v may be head slices of a wider
+    projection, s0 some slots' rows of a cache."""
+    from repro_torch.kernels.rwkv6 import wkv6, wkv6_ref
+    r, k, v, logw, u, s0 = _wkv_inputs(dev, torch.bfloat16, 2, 300, 4, 64)
+    y, sT = wkv6(r, k, v, logw, u, s0)
+    y1, s1 = wkv6(r[:, :123], k[:, :123], v[:, :123], logw[:, :123], u, s0)
+    y2, s2 = wkv6(r[:, 123:], k[:, 123:], v[:, 123:], logw[:, 123:], u, s1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, rtol=0,
+                               atol=WKV_ATOL)
+    torch.testing.assert_close(s2, sT, rtol=0, atol=WKV_ATOL)
+    cache = torch.zeros((5, 4, 64, 64), device=dev)
+    cache[1:3] = s0
+    wide = torch.cat([r, r], dim=2)[:, :, 2:6]          # heads 2..5
+    assert not wide.is_contiguous()
+    _, out = wkv6(wide, k, v, logw, u, cache[1:3], inplace=True)
+    assert out.data_ptr() == cache[1:3].data_ptr()
+    torch.testing.assert_close(cache[1:3],
+                               wkv6_ref(wide, k, v, logw, u, s0)[1],
+                               rtol=0, atol=WKV_ATOL)
+    assert not cache[0].any() and not cache[3:].any()
+
+
+def test_wkv6_kernel_refuses_what_it_cannot_take(dev):
+    from repro_torch.kernels.rwkv6 import wkv6
+    r, k, v, logw, u, s0 = _wkv_inputs(dev, torch.float32, 2, 5, 2, 32)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="head size"):
+        wkv6(*(t[..., :16] for t in (r, k, v, logw)), u[:, :16],
+             s0[..., :16, :16].contiguous())
+    with pytest.raises(TypeError, match="one dtype"):
+        wkv6(r.half(), k.half(), v.half(), logw, u, s0)
+    with pytest.raises(TypeError, match="float32"):
+        wkv6(r, k, v, logw.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="state"):
+        wkv6(r, k, v, logw, u, torch.zeros((2, 2, 32, 64),
+                                           device=dev)[..., :32])
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6(r, k, v, logw, u.cpu(), s0)
+    assert _build.LAUNCHES["wkv6"] == 0
+
+
+def test_rwkv_engine_on_the_card_equals_the_cpu_and_launches_the_kernel(
+        dev):
+    """The rwkv serving path on the card: every WKV recurrence goes
+    through the kernel (one launch per layer per prefill dispatch and
+    per decode step), and the greedy tokens equal the plain path's on
+    the CPU (float32 compute), with slots recycled."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Request, ServingEngine
+    from _rwkv_draws import redraw_rwkv_torch
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b").reduced(),
+                              compute_dtype="float32")
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         "cpu", torch.float32)
+    redraw_rwkv_torch(params, torch.Generator().manual_seed(1))
+    rng = np.random.RandomState(0)
+    specs = [(rng.randint(1, cfg.vocab_size, L).astype(np.int32), m)
+             for L, m in ((5, 6), (9, 4), (5, 3), (17, 5), (9, 2),
+                          (70, 3))]
+    tokens = {}
+    for device in ("cpu", dev):
+        eng = ServingEngine(cfg, tree_map(lambda t: t.to(device), params),
+                            batch_slots=3, max_len=128, device=device)
+        reqs = [Request(prompt=pr, max_new_tokens=m) for pr, m in specs]
+        for r in reqs:
+            eng.submit(r)
+        _build.reset_launches()
+        eng.run_until_drained()
+        tokens[str(device)] = [r.out_tokens for r in reqs]
+        if device != "cpu":
+            assert _build.LAUNCHES["wkv6"] == cfg.num_layers * (
+                eng.prefill_dispatches + eng.decode_steps)
     assert tokens[str(dev)] == tokens["cpu"]

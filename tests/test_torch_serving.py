@@ -24,6 +24,7 @@ from repro.models import model_specs as j_specs
 from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JServingEngine
 from repro.sharding.rules import make_rules
+from _rwkv_draws import redraw_rwkv
 from repro_torch.configs import get_config
 from repro_torch.models import from_reference, init_params, model_specs
 from repro_torch.serving import Request, ServingEngine
@@ -253,3 +254,107 @@ def test_st_routed_decode_is_not_ported_yet(tiny_model):
     cfg, params = tiny_model
     with pytest.raises(NotImplementedError, match="item 8b"):
         ServingEngine(cfg, params, st_mode="st", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# rwkv6: recurrent state in the cache
+# ---------------------------------------------------------------------------
+
+def _rwkv_models():
+    """The reduced rwkv6-1.6b in float32 for both frameworks, the same
+    weights: the reference's init with the leaves it leaves constant
+    redrawn by ``tests/_rwkv_draws.py`` (the init's constants would leave
+    the token shift and the bonus inert)."""
+    jcfg = dataclasses.replace(jax_config("rwkv6-1.6b").reduced(),
+                               compute_dtype="float32")
+    tcfg = dataclasses.replace(get_config("rwkv6-1.6b").reduced(),
+                               compute_dtype="float32")
+    params = redraw_rwkv(j_init(j_specs(jcfg), jax.random.PRNGKey(0)),
+                         np.random.RandomState(0))
+    return (jcfg, tcfg, jax.tree.map(jax.numpy.asarray, params),
+            from_reference(tcfg, params, "cpu"))
+
+
+# (prompt length, budget): slots 0 and 2 finish at admission while slot 1
+# decodes, so the next length group (two prompts of 4) lands in the
+# scattered slots [0, 2], each holding its previous request's state
+RWKV_SPECS = ((1, 1), (2, 9), (3, 1), (4, 3), (4, 3), (2, 5), (3, 2),
+              (6, 4))
+
+
+def _recording(eng):
+    """Record the slots of every prefill dispatch of ``eng``."""
+    seen, inner = [], eng._prefill_group
+
+    def prefill_group(slots, toks):
+        seen.append(list(slots))
+        return inner(slots, toks)
+    eng._prefill_group = prefill_group
+    return seen
+
+
+def test_rwkv_greedy_tokens_equal_the_jax_engine():
+    """More requests than slots, slots recycled, one length group
+    admitted into non-consecutive slots: every request gets the JAX
+    engine's tokens (float32 compute, the default bf16 cache). A slot
+    that kept its previous request's state, or a state leaf cut to the
+    prompt length, changes them."""
+    jcfg, tcfg, jparams, tparams = _rwkv_models()
+    jeng = JServingEngine(jcfg, jparams, make_rules(jcfg, None, None),
+                          batch_slots=3, max_len=32)
+    teng = ServingEngine(tcfg, tparams, batch_slots=3, max_len=32,
+                         device="cpu")
+    dispatched = _recording(teng)
+    rng = np.random.RandomState(4)
+    specs = [(rng.randint(1, tcfg.vocab_size, L).astype(np.int32), m)
+             for L, m in RWKV_SPECS]
+    jreqs = [JRequest(prompt=p, max_new_tokens=m) for p, m in specs]
+    treqs = [Request(prompt=p, max_new_tokens=m) for p, m in specs]
+    for jr, tr in zip(jreqs, treqs):
+        jeng.submit(jr)
+        teng.submit(tr)
+    jeng.run_until_drained()
+    teng.run_until_drained()
+    assert [0, 2] in dispatched                     # scattered admission
+    assert len(dispatched) > 3                      # slots recycled
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    for key in ("prefill_dispatches", "decode_steps", "tokens_generated"):
+        assert teng.stats()[key] == jeng.stats()[key], key
+    shift = teng.cache["layers"][0]["shift_t"]
+    assert shift.shape == (3, tcfg.d_model) and shift.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("scattered", [False, True])
+def test_rwkv_recycled_slot_serves_a_fresh_engines_tokens(scattered):
+    """A request admitted into a slot whose state a finished request
+    left behind — consecutive slots (prefilled through one view) or not
+    (gathered and written back) — gets the tokens of a fresh engine."""
+    _, tcfg, _, tparams = _rwkv_models()
+    rng = np.random.RandomState(5)
+    prompt = lambda n: rng.randint(1, tcfg.vocab_size, n).astype(np.int32)
+    eng = ServingEngine(tcfg, tparams, batch_slots=3, max_len=32,
+                        device="cpu")
+    dispatched = _recording(eng)
+    # slots 0, 1, 2 by prompt length; scattered: slots 0 and 2 finish
+    # after one decode step while slot 1 goes on decoding
+    budgets = (2, 8, 2) if scattered else (4, 4, 4)
+    for n, m in zip((2, 3, 5), budgets):
+        eng.submit(Request(prompt=prompt(n), max_new_tokens=m))
+    if scattered:
+        eng.step()
+        assert eng._free_slots() == [0, 2]
+    else:
+        eng.run_until_drained()
+    late = [Request(prompt=prompt(4), max_new_tokens=5)
+            for _ in range(2)]
+    for r in late:
+        eng.submit(r)
+    eng.run_until_drained()
+    assert dispatched[-1] == ([0, 2] if scattered else [0, 1])
+    fresh = ServingEngine(tcfg, tparams, batch_slots=3, max_len=32,
+                          device="cpu")
+    ref = [Request(prompt=r.prompt, max_new_tokens=5) for r in late]
+    for r in ref:
+        fresh.submit(r)
+    fresh.run_until_drained()
+    assert [r.out_tokens for r in late] == [r.out_tokens for r in ref]
