@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's three main paths and the six hand-written CUDA
+Drives the port's four main paths and the seven hand-written CUDA
 kernels they run: the Faces 26-neighbour halo exchange through
 ``repro_torch``'s ST, host and fused executors (merged halo pack, merged
 halo unpack, counter bump), granite-3-2b at full width served by the
 port's continuous-batching engine (flash attention for prefill,
-flash-decode), and rwkv6-1.6b at full width served by the same engine
-(the WKV6 recurrence).
+flash-decode), rwkv6-1.6b at full width served by the same engine (the
+WKV6 recurrence), and jamba-1.5-large-398b at full width cut to 4
+layers served by the same engine (the Mamba selective scan, flash
+attention and flash-decode).
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
@@ -27,7 +29,14 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  (1,256,4,64), (8,1,32,64) (decode) and (3,1000,32,64)
                  (ragged prefill) with a nonzero s0, two 500-step
                  launches with the state carried against one of 1000,
-                 and the state written in place: within 1e-5;
+                 and the state written in place: within 1e-5; the
+                 selective-scan kernel in float32 and bf16 at (B, S, di,
+                 ds) = (2,128,64,8), (1,64,128,16), (4,1000,16384,16)
+                 (jamba prefill) and (8,1,16384,16) (decode), b and c
+                 strided column slices (equal to contiguous copies), 500
+                 + 500 steps carried against 1000, the state in place:
+                 within 1e-5 of max(1, |value|) for the state and a
+                 float32 y, 2e-2 for a bf16 y;
   3. parity   — grid (2,2,2), n=(4,4,4), 3 iterations: ST x {adaptive,
                  static, none} x {merged, unmerged}, host x {merged,
                  unmerged}, fused, and packed (+ chunked) put schedules
@@ -83,12 +92,30 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  decode step; the wkv6 kernels-line row (time at the run's
                  largest prefill dispatch and at 8 slots decoding, bound,
                  plain version; no library call computes WKV6); then the
-                 replay of phase 7 on rwkv's served tokens.
+                 replay of phase 7 on rwkv's served tokens;
+  9. jamba    — rwkv's weights freed, jamba-1.5-large-398b at full width
+                 (d_model 8192, 64 heads, 8 KV heads of 128, d_ff 24576,
+                 16 experts of 24576 top-2, d_state 16, expand 2) cut to
+                 4 layers, (attn, dense), (mamba, moe), (mamba, dense),
+                 (mamba, moe) (random bf16 params from a seed, the mamba
+                 leaves redrawn, 23.0 B) served as in phase 6 with the
+                 dense MoE: exactly 1 flash_attention and 3 mamba_scan
+                 launches in every prefill dispatch, 1 decode_attention
+                 and 3 mamba_scan in every decode step; its prefill
+                 profiled at 4 x 1000; the mamba_scan kernels-line row;
+                 the bf16 replay of phase 7 with every scan launch held
+                 to the plain version (its float32 copy, 92 GB, does not
+                 fit); then phase 7 in bf16 and float32 on a no-expert
+                 cut, (attn, dense), (mamba, dense), (mamba, dense) at
+                 full width with its own seeded weights, over the served
+                 token sequences.
 
-The last three lines are the kernels JSON, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``. Without a CUDA card the
-script exits non-zero before printing any result.
+The last three lines are the kernels JSON (one row per kernel), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Without a CUDA card the script exits non-zero before printing any
+result.
 """
+import dataclasses
 import json
 import os
 import statistics
@@ -156,10 +183,30 @@ WKV_ATOL = 1e-5
 # their ratio scatters around 1: 3 leaves 2.7x over the measured 1.11
 # and still fails a wiring fault that moves the logits by ~2e-2. Each
 # WKV6 launch of both kernel-path replays is also held to the plain
-# version on its own inputs (WKV_ATOL), and the launches are counted;
+# version on its own inputs (1e-5 of max(1, |value|), SCAN_RTOL), and
+# the launches are counted;
 # the float32 greedy ids are compared where the margin exceeds twice
 # the spread.
 RWKV_F32_SPREAD = 3
+# selective-scan kernel against its plain version: both run the
+# recurrence in float32 on the same values (bf16 inputs upcast), so the
+# state and a float32 y differ only by the order of the sums and the exp
+# (the kernel's exp2f, 2 ulp): 1e-5 of max(1, the largest |value|),
+# tests/test_kernels.py's tolerance. A bf16 y is that float32 value
+# rounded once, where one rounding may land a spacing apart: 2e-2 of it.
+SCAN_RTOL = 1e-5
+SCAN_RTOL_BF16 = 2e-2
+# the special-function units' rate of exp2 on an H100 SXM: 16 per clock
+# per SM (NVIDIA's Hopper tuning guide), 132 SMs at the 1.98 GHz boost
+# clock; the scan does one per (step, channel, state entry)
+SFU_EXPS_PER_S = 16 * 132 * 1.98e9
+# jamba-1.5-large-398b cut to 4 layers in depth (full width): (attn,
+# dense), (mamba, moe), (mamba, dense), (mamba, moe), 23.0 B params, 46
+# GB in bf16. Its standalone prefill profile takes 4 x 1000 tokens: the
+# dense MoE's (16, tokens, 24576) bf16 intermediates are ~3.1 GB each
+# there, and 8 x 1000 would put ~25 GB of them beside the weights.
+JAMBA_LAYERS = 4
+JAMBA_PROFILE_ROWS = 4
 
 
 def emit(obj):
@@ -796,6 +843,184 @@ def wkv6_row(dev, wkv, wkv_ref, cfg, d, per, groups, errs):
                 "recurrence")
 
 
+# (B, S, di, ds): test_kernels.py's shapes, jamba's 4 x 1000 prefill
+# (S no multiple of the Pallas kernel's chunk) and its decode step
+SCAN_CASES = [(2, 128, 64, 8), (1, 64, 128, 16), (4, 1000, 16384, 16),
+              (8, 1, 16384, 16)]
+
+
+def scan_inputs(dev, dtype, B, S, di, ds, seed, extra=32):
+    """Mamba's init ranges (mamba_redraw): a_log = log U(1, 16), dt
+    log-uniform in [1e-3, 1e-1]; unit-normal x, b, c and h0 at scale
+    0.1. b and c are strided column slices of one (B, S, extra + 2 ds)
+    tensor, as in the model (the x_proj output, extra = dt_rank)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+    a_log = torch.log(1 + 15 * u(di, ds))
+    dt = torch.exp(np.log(1e-3) + np.log(100.0) * u(B, S, di)).to(dtype)
+    x = torch.randn((B, S, di), generator=gen, device=dev).to(dtype)
+    xdb = torch.randn((B, S, extra + 2 * ds), generator=gen,
+                      device=dev).to(dtype)
+    h0 = 0.1 * torch.randn((B, di, ds), generator=gen, device=dev)
+    return (a_log, dt, xdb[..., extra:extra + ds], xdb[..., extra + ds:], x,
+            h0)
+
+
+def scan_errs(y, hT, yr, hTr):
+    """(error of y, error of the state), each relative to max(1, the
+    plain version's largest |value|)."""
+    return tuple((a.float() - b.float()).abs().max().item()
+                 / max(1.0, b.float().abs().max().item())
+                 for a, b in ((y, yr), (hT, hTr)))
+
+
+def scan_limit(dtype):
+    return SCAN_RTOL if dtype == torch.float32 else SCAN_RTOL_BF16
+
+
+def phase_mamba_scan(dev, scan, scan_ref):
+    """The selective-scan kernel against its plain version on the card,
+    float32 and bf16 inputs (comparison launches, made before the counted
+    runs): every case with strided b and c, the same launch with them
+    contiguous (equal), two 500-step launches with the state carried
+    against one of 1000, and the state written in place over a cache's
+    rows. Tolerances SCAN_RTOL / SCAN_RTOL_BF16."""
+    errs = {}
+
+    def held(what, dtype, got, want):
+        ey, es = scan_errs(*got, *want)
+        check(ey <= scan_limit(dtype) and es <= SCAN_RTOL,
+              f"mamba_scan {what} {dtype}: relative errors y {ey}, state "
+              f"{es} > {scan_limit(dtype)}, {SCAN_RTOL}")
+        d = errs.setdefault(str(dtype), {"y": 0.0, "state": 0.0,
+                                         "abs": 0.0})
+        d["y"], d["state"] = max(d["y"], ey), max(d["state"], es)
+        d["abs"] = max([d["abs"]] + [(a.float() - b.float()).abs().max()
+                                     .item() for a, b in zip(got, want)])
+        return {"y": ey, "state": es}
+
+    for n, (B, S, di, ds) in enumerate(SCAN_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            ins = scan_inputs(dev, dtype, B, S, di, ds, 50 + n)
+            y, hT = scan(*ins)
+            yr, hTr = scan_ref(*ins)
+            check(y.shape == yr.shape and y.dtype == dtype
+                  and hT.dtype == torch.float32 and hT.shape == hTr.shape,
+                  "mamba_scan: shape/dtype")
+            yc, hc = scan(*ins[:2], ins[2].contiguous(), ins[3].contiguous(),
+                          *ins[4:])
+            check(torch.equal(yc, y) and torch.equal(hc, hT),
+                  "mamba_scan: strided b, c differ from contiguous copies")
+            emit({"phase": "kernels", "kernel": "mamba_scan",
+                  "shape": [B, S, di, ds], "dtype": str(dtype),
+                  "max_rel_err": held(f"case {n}", dtype, (y, hT),
+                                      (yr, hTr)),
+                  "y_abs_max": yr.float().abs().max().item(),
+                  "limit": {"y": scan_limit(dtype), "state": SCAN_RTOL}})
+    B, S, di, ds = SCAN_CASES[2]
+    for dtype in (torch.bfloat16, torch.float32):
+        a, dt, b, c, x, h0 = scan_inputs(dev, dtype, B, S, di, ds, 60)
+        y, hT = scan(a, dt, b, c, x, h0)
+        h = S // 2
+        y1, h1 = scan(a, dt[:, :h], b[:, :h], c[:, :h], x[:, :h], h0)
+        y2, h2 = scan(a, dt[:, h:], b[:, h:], c[:, h:], x[:, h:], h1)
+        cache = torch.zeros((B + 2, di, ds), device=dev)
+        cache[1:B + 1] = h0
+        yi, hi = scan(a, dt, b, c, x, cache[1:B + 1], inplace=True)
+        check(hi.data_ptr() == cache[1].data_ptr()
+              and not cache[0].any() and not cache[B + 1:].any(),
+              "mamba_scan: in-place state not written over h0 alone")
+        emit({"phase": "kernels", "kernel": "mamba_scan", "dtype": str(dtype),
+              "carried": f"{h} + {S - h} steps against {S}",
+              "carried_max_rel_err": held("carried", dtype,
+                                          (torch.cat([y1, y2], 1), h2),
+                                          (y, hT)),
+              "in_place_max_rel_err": held("in place", dtype,
+                                           (yi, cache[1:B + 1]), (y, hT))})
+    return errs
+
+
+def mamba_redraw(params, gen):
+    """Redraw the mamba leaves the init leaves constant (a_log 0: every
+    A = -1, so every state channel decays alike; dt_bias 0: dt ~ 0.69,
+    the state forgets in about two steps; d_skip 1, conv_b 0) from
+    Mamba's init ranges (arXiv:2312.00752): a_log = log U(1, 16) (the
+    S4D-real A_n = -(n+1)), dt_bias = softplus^-1(dt) with dt
+    log-uniform in [1e-3, 1e-1] (dt_min, dt_max), d_skip U(0.5, 1.5),
+    conv_b U(-0.1, 0.1); from the generator that drew the params. The
+    ranges of tests/_mamba_draws.py, which the script cannot import."""
+    for layer in params["layers"]:
+        m = layer["mixer"]
+        if "a_log" not in m:
+            continue
+        m["a_log"].uniform_(1, 16, generator=gen).log_()
+        dt = m["dt_bias"].uniform_(np.log(1e-3), np.log(1e-1),
+                                   generator=gen).exp_()
+        dt.add_(torch.log(-torch.expm1(-dt)))           # softplus^-1
+        m["d_skip"].uniform_(0.5, 1.5, generator=gen)
+        m["conv_b"].uniform_(-0.1, 0.1, generator=gen)
+
+
+def mamba_scan_bound(B, S, di, ds, nbytes_el):
+    """(bytes, flops, exps) of one launch: dt and x read and y written
+    (``nbytes_el`` each), b and c read, a_log read, the state read and
+    written once as float32; per (b, t, d, state entry) ~6 float32
+    flops (dt A, the update's multiply-add, dt x b, the output's
+    multiply-add) and one exp."""
+    nbytes = (3 * B * S * di * nbytes_el + 2 * B * S * ds * nbytes_el
+              + di * ds * 4 + 2 * B * di * ds * 4)
+    return nbytes, 6 * B * S * di * ds, B * S * di * ds
+
+
+def mamba_scan_row(dev, scan, scan_ref, cfg, d, per, groups, errs):
+    """The selective-scan kernel's kernels-line row at the serving shapes
+    (bf16 inputs, b and c strided as in the model): the run's largest
+    prefill dispatch (its ``ms``) and 8 slots decoding (``at_decode``).
+    Its operations are float32, so the bound takes them at the float32
+    rate (F32_FLOPS_PER_S); ``exp_ms`` is its exps at the special-
+    function rate, a second floor beside the bound. No single PyTorch
+    call computes a selective scan, so the library time is null."""
+    mb = cfg.mamba
+    di, ds = mb.expand * cfg.d_model, mb.d_state
+    dtr = mb.dt_rank or -(-cfg.d_model // 16)
+    (n, L) = max(((n, L) for (_, L), n in groups.items()),
+                 key=lambda t: t[0] * t[1])
+
+    def timed(B, S, seed):
+        ins = scan_inputs(dev, torch.bfloat16, B, S, di, ds, seed, dtr)
+        nbytes, flops, exps = mamba_scan_bound(B, S, di, ds, 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_flops = flops / F32_FLOPS_PER_S * 1e3
+        return {"shape": {"B": B, "S": S, "di": di, "ds": ds,
+                          "dtype": "bfloat16"},
+                "ms": graph_ms(lambda: scan(*ins), inner=5),
+                "plain_ms": graph_ms(lambda: scan_ref(*ins), inner=1),
+                "bound_ms": max(t_bytes, t_flops),
+                "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+                "bytes": nbytes, "flops": flops, "exps": exps,
+                "exp_ms": exps / SFU_EXPS_PER_S * 1e3,
+                "call_ms": event_ms(lambda: scan(*ins), inner=5)}
+
+    prefill = timed(n, L, 70)
+    launches = {kind: sum(p["mamba_scan"] for p in per[kind])
+                for kind in per}
+    return dict(
+        prefill, name="mamba_scan", route="cuda",
+        source="src/repro_torch/csrc/mamba_scan.cu",
+        replaces="src/repro/kernels/mamba_scan/kernel.py:51",
+        launches=sum(launches.values()),
+        launches_per={"per_prefill_dispatch": launches["prefill"]
+                      / d["prefill_dispatches"],
+                      "per_decode_step": launches["decode"]
+                      / d["decode_steps"]},
+        max_abs_err=max(e["abs"] for e in errs.values()),
+        max_err_by_dtype=errs,
+        at_decode=timed(SERVE_SLOTS, 1, 71), library_ms=None,
+        library="none: no single PyTorch call computes a selective scan")
+
+
 def replay_logits(serving, cfg, params, dev, reqs):
     """The engine's tokens fed back teacher-forced through ``cfg``'s
     kernel route, with a cache in the compute dtype: the prompts of one
@@ -857,18 +1082,21 @@ def count_dispatches(eng, _build):
     return per
 
 
-def phase_serve(dev, _build, serving, arch, dims, kernels, redraw=None):
-    """``arch`` at full width through the port's ServingEngine: ``dims``
-    ({config field: value}) are checked;
-    ``kernels`` = {"prefill": [...], "decode": [...]}: the kernels that
-    must launch once per layer in every prefill dispatch and decode step
-    of the counted run (and no other kernel of that list). ``redraw``
-    (params, generator) may redraw leaves the init leaves constant."""
-    cfgs, models, eng_mod = (serving["configs"], serving["models"],
-                             serving["serving"])
-    cfg = cfgs.get_config(arch)
+def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
+                profile_rows=SERVE_SLOTS):
+    """``cfg`` (a registered config, possibly cut in depth) at full width
+    through the port's ServingEngine: ``dims`` ({config field: value})
+    are checked; ``kernels`` = {"prefill": {kernel: mixer}, "decode":
+    {...}}: each kernel must launch once per layer of its mixer in every
+    prefill dispatch and decode step of the counted run (and no other
+    kernel of those lists). ``redraw`` (params, generator) may redraw
+    leaves the init leaves constant. The standalone prefill profile
+    takes ``profile_rows`` prompts of the longest length."""
+    models, eng_mod = serving["models"], serving["serving"]
+    arch = cfg.name
     check(all(getattr(cfg, k) == v for k, v in dims.items()),
           f"{arch} is not at full width: want {dims}")
+    mixers = [m for m, _ in cfg.layer_specs()]
     t0 = time.perf_counter()
     specs = models.model_specs(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -918,8 +1146,8 @@ def phase_serve(dev, _build, serving, arch, dims, kernels, redraw=None):
                     ("decode", d["decode_steps"])):
         check(len(per[kind]) == n, f"{n} {kind} dispatches, "
               f"{len(per[kind])} counted")
-        want = {k: cfg.num_layers if k in kernels[kind] else 0
-                for k in names}
+        want = {k: mixers.count(kernels[kind][k]) if k in kernels[kind]
+                else 0 for k in names}
         for i, got in enumerate(per[kind]):
             check({k: got[k] for k in names} == want,
                   f"{kind} dispatch {i}: launches {got}, want {want}")
@@ -978,12 +1206,16 @@ def phase_serve(dev, _build, serving, arch, dims, kernels, redraw=None):
     eng.run_until_drained()
     busy = (None if prof["busy_ms"] is None
             else prof["busy_ms"] / DECODE_PROFILE_STEPS)
-    # one prefill dispatch alone: 8 prompts of the longest length, one
-    # token each (they complete at admission, so no decode step runs)
-    for r in requests(SERVE_SLOTS, [SERVE_LENGTHS[-1]] * SERVE_SLOTS, 1):
+    # one prefill dispatch alone: profile_rows prompts of the longest
+    # length, one token each (they complete at admission, so no decode
+    # step runs)
+    for r in requests(profile_rows, [SERVE_LENGTHS[-1]] * profile_rows, 1):
         eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     pprof = device_profile(eng.step, os.path.join(
         OUT_DIR, f"profile_serve{tag}_prefill.txt"))
+    prefill_peak = torch.cuda.max_memory_allocated() / 1e9
     emit({"phase": "serve", "arch": cfg.name,
           "decode_ms_per_step_steady": step_ms,
           "decode_device_busy_ms_per_step": busy,
@@ -993,8 +1225,9 @@ def phase_serve(dev, _build, serving, arch, dims, kernels, redraw=None):
           / DECODE_PROFILE_STEPS,
           "decode_top_device_ms": [[round(t / DECODE_PROFILE_STEPS, 4), k,
                                     c] for t, k, c in prof["top"]],
-          "prefill_profiled": [SERVE_SLOTS, SERVE_LENGTHS[-1]],
+          "prefill_profiled": [profile_rows, SERVE_LENGTHS[-1]],
           "prefill_device_busy_ms": pprof["busy_ms"],
+          "prefill_profile_peak_mem_gb": prefill_peak,
           "prefill_top_device_ms": [[round(t, 4), k, c]
                                     for t, k, c in pprof["top"]]})
 
@@ -1021,25 +1254,26 @@ def wkv6_reordered(r, k, v, logw, u, s0):
     return torch.stack(ys, dim=1), s
 
 
-def shadowed_wkv6(wkv, wkv_ref, seen):
-    """``wkv`` that also runs ``wkv_ref`` on the same inputs (the state
-    copied before the kernel writes it in place), counts its calls in
-    ``seen["calls"]`` and keeps in ``seen["worst"]`` the largest error
-    of y and sT relative to max(1, their largest |value|)."""
-    def call(r, k, v, logw, u, s0, inplace=False):
+def shadowed(kernel, ref, seen):
+    """``kernel`` (a wrapper whose last argument is the state, written
+    over when ``inplace``) that also runs ``ref`` on the same inputs (the
+    state copied before the kernel writes it in place), counts its calls
+    in ``seen["calls"]`` and keeps in ``seen["y"]`` and ``seen["state"]``
+    the largest errors of y and the final state relative to max(1, their
+    largest |value|)."""
+    def call(*args, inplace=False):
         seen["calls"] += 1
-        s_in = s0.clone()
-        y, sT = wkv(r, k, v, logw, u, s0, inplace=inplace)
-        yr, sTr = wkv_ref(r, k, v, logw, u, s_in)
-        scale = max(1.0, yr.abs().max().item(), sTr.abs().max().item())
-        err = max((y - yr).abs().max().item(),
-                  (sT - sTr).abs().max().item()) / scale
-        seen["worst"] = max(seen["worst"], err)
+        s_in = args[-1].clone()
+        y, sT = kernel(*args, inplace=inplace)
+        ey, es = scan_errs(y, sT, *ref(*args[:-1], s_in))
+        seen["y"], seen["state"] = max(seen["y"], ey), max(seen["state"], es)
+        seen["y_dtype"] = str(y.dtype)
         return y, sT
     return call
 
 
-def phase_replay(dev, serving, cfg, params, reqs, rwkv=None):
+def phase_replay(dev, serving, cfg, params, reqs, shadow=None,
+                 spread=None, f32=True, served=True):
     """The served tokens replayed teacher-forced through the kernel path
     and the plain path on the card (run after the arch's measurements),
     in bf16 and in float32 (the same weights, upcast, with a float32
@@ -1047,131 +1281,190 @@ def phase_replay(dev, serving, cfg, params, reqs, rwkv=None):
     rounding: the bf16 kernel path must stay as close to it as the bf16
     plain path does.
 
-    ``rwkv`` = (the model's rwkv module, wkv6, wkv6_ref) changes the
-    float32 checks (RWKV_F32): the float32 logits bound and the float32
-    id check's margin come from the float32 spread of the model (the
-    plain path against itself with the kernel's order of sums,
-    ``wkv6_reordered``), every WKV6 launch of the kernel-path replays is
-    held to the plain version on the same inputs and counted (one per
-    layer per prefill dispatch and per decode step), and the served ids
-    are compared where the float32 margin exceeds twice the bf16 plain
-    path's distance at that step."""
-    import dataclasses
+    ``shadow`` = (module, wrapper name, kernel wrapper, plain version,
+    mixer): every launch of that kernel in the kernel-path replays is
+    held to the plain version on its own inputs (SCAN_RTOL for the state
+    and a float32 y, SCAN_RTOL_BF16 for a bf16 y) and counted (one per
+    layer of ``mixer`` per length group's prefill and per decode step).
+    ``spread`` = (module, plain name, reordered plain version) changes
+    the float32 checks (RWKV_F32): the float32 logits bound and the
+    float32 id check's margin come from the float32 spread of the model
+    (the plain path against itself with the kernel's order of sums), and
+    the served ids are compared where the float32 margin exceeds twice
+    the bf16 plain path's distance at that step. ``f32=False`` skips
+    every float32 replay (a model whose float32 copy does not fit the
+    card; the checks that need it are reported as not run).
+    ``served=False``: ``reqs``' tokens come from another model (a cut of
+    this one), so the kernel path's own greedy ids stand in for the
+    served ids and the served-ids check does not run."""
     from unittest import mock
     tree_map = serving["models"].params.tree_map
     plain = dict(attn_impl="plain")
     V = cfg.vocab_size
-    seen = {"worst": 0.0, "calls": 0}
-    calls = []          # WKV6 launches of each kernel-path replay
-    # one per layer in each length group's prefill and each decode step
-    want_calls = cfg.num_layers * (len({len(r.prompt) for r in reqs})
-                                   + len(reqs[0].out_tokens) - 1)
+    replays = []          # the shadowed launches of each kernel-path replay
+    want_calls = None
+    if shadow:
+        # one per layer of the mixer in each length group's prefill and
+        # each decode step
+        want_calls = sum(m == shadow[4] for m, _ in cfg.layer_specs()) * (
+            len({len(r.prompt) for r in reqs}) + len(reqs[0].out_tokens)
+            - 1)
 
     def kernel_replay(c, p):
-        if not rwkv:
+        if not shadow:
             return replay_logits(serving, c, p, dev, reqs)[..., :V]
-        with mock.patch.object(rwkv[0], "wkv6",
-                               shadowed_wkv6(rwkv[1], rwkv[2], seen)):
+        seen = {"calls": 0, "y": 0.0, "state": 0.0}
+        with mock.patch.object(shadow[0], shadow[1],
+                               shadowed(shadow[2], shadow[3], seen)):
             out = replay_logits(serving, c, p, dev, reqs)[..., :V]
-        calls.append(seen["calls"])
-        seen["calls"] = 0
+        replays.append(seen)
         return out
     lk = kernel_replay(cfg, params)
     lp = replay_logits(serving, dataclasses.replace(cfg, **plain), params,
                        dev, reqs)[..., :V]
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    p32 = tree_map(lambda t: t.float(), params)
-    lk32 = kernel_replay(cfg32, p32)
-    cfg32p = dataclasses.replace(cfg32, **plain)
-    lp32 = replay_logits(serving, cfg32p, p32, dev, reqs)[..., :V]
     spread32, atol32 = None, LOGITS_ATOL_F32
-    if rwkv:
-        with mock.patch.object(rwkv[0], "wkv6_ref", wkv6_reordered):
-            lr32 = replay_logits(serving, cfg32p, p32, dev, reqs)[..., :V]
-        spread32 = (lr32 - lp32).abs().max().item()
-        atol32 = RWKV_F32_SPREAD * spread32
-        del lr32
-    del p32
-    check(all(bool(torch.isfinite(t).all()) for t in (lk, lp, lk32, lp32)),
-          "non-finite logits")
+    lk32 = lp32 = None
+    if f32:
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        p32 = tree_map(lambda t: t.float(), params)
+        lk32 = kernel_replay(cfg32, p32)
+        cfg32p = dataclasses.replace(cfg32, **plain)
+        lp32 = replay_logits(serving, cfg32p, p32, dev, reqs)[..., :V]
+        if spread:
+            with mock.patch.object(spread[0], spread[1], spread[2]):
+                lr32 = replay_logits(serving, cfg32p, p32, dev,
+                                     reqs)[..., :V]
+            spread32 = (lr32 - lp32).abs().max().item()
+            atol32 = RWKV_F32_SPREAD * spread32
+            del lr32
+        del p32
+    check(all(bool(torch.isfinite(t).all()) for t in (lk, lp, lk32, lp32)
+              if t is not None), "non-finite logits")
     err = (lk - lp).abs().amax(dim=-1)                 # (R, T)
-    err32 = (lk32 - lp32).abs().max().item()
-    # per request: RMS distance from the float32 plain path
-    dist_k = (lk - lp32).square().mean(dim=(1, 2)).sqrt()
-    dist_p = (lp - lp32).square().mean(dim=(1, 2)).sqrt()
-    ratio = (dist_k / dist_p).cpu().numpy()
-    moved = (lp - lp32).abs().amax(dim=-1)             # (R, T)
-    bf16_moved = moved.max().item()
 
     def decided(logits, tol):
         top2 = logits.topk(2, dim=-1).values
         return (top2[..., 0] - top2[..., 1] > 2 * tol).cpu().numpy()
-    served = np.asarray([r.out_tokens for r in reqs])
+    served_ids = np.asarray([r.out_tokens for r in reqs])
+    ref_ids = served_ids if served else lk.argmax(dim=-1).cpu().numpy()
     plain_ids = lp.argmax(dim=-1).cpu().numpy()
-    ids32 = lp32.argmax(dim=-1).cpu().numpy()
     dec = decided(lp, LOGITS_ATOL)
-    mismatched = int(((plain_ids != served) & dec).sum())
-    tol32 = LOGITS_ATOL_F32 if not rwkv else max(LOGITS_ATOL_F32, spread32)
-    dec32 = decided(lp32, tol32)
-    mismatched32 = int(((lk32.argmax(dim=-1).cpu().numpy() != ids32)
-                        & dec32).sum())
-    # the served (bf16 kernel) ids against the float32 plain path's, where
-    # its margin exceeds twice what bf16 rounding moved the plain path
-    # (over the run; for rwkv at that step)
-    dec16 = decided(lp32, moved if rwkv else bf16_moved)
-    mismatched16 = int(((served != ids32) & dec16).sum())
-    emit({"phase": "serve", "arch": cfg.name, "replay": "teacher-forced",
-          "requests": len(reqs), "steps": served.shape[1],
-          "logits_max_abs_err": err.max().item(),
-          "logits_err_p50": err.median().item(),
-          "logits_abs_max": lp.abs().max().item(),
-          "logits_std": lp.std().item(),
-          "logits_atol": LOGITS_ATOL,
-          "ids_compared": int(dec.sum()), "ids_total": dec.size,
-          "ids_mismatched": mismatched,
-          "ids_equal_all": int((plain_ids == served).sum()),
-          "f32_logits_max_abs_err": err32,
-          "f32_logits_atol": atol32,
-          "f32_spread_reordered_plain": spread32,
-          "f32_ids_margin": 2 * tol32,
-          "f32_ids_compared": int(dec32.sum()),
-          "f32_ids_mismatched": mismatched32,
-          "wkv6_launch_max_rel_err": seen["worst"] if rwkv else None,
-          "wkv6_launches_per_replay": calls if rwkv else None,
-          "wkv6_launches_per_replay_expected": want_calls if rwkv else None,
-          "bf16_kernel_vs_f32_rms": dist_k.tolist(),
-          "bf16_plain_vs_f32_rms": dist_p.tolist(),
-          "rms_ratio_max": float(ratio.max()),
-          "rms_ratio_limit": REPLAY_DIST_RATIO,
-          "bf16_kernel_vs_f32_max": (lk - lp32).abs().max().item(),
-          "bf16_plain_vs_f32_max": bf16_moved,
-          "served_vs_f32_ids_compared": int(dec16.sum()),
-          "served_vs_f32_ids_mismatched": mismatched16})
+    mismatched = int(((plain_ids != ref_ids) & dec).sum())
+    out = {"phase": "serve", "arch": cfg.name, "replay": "teacher-forced",
+           "layers": cfg.num_layers, "experts": cfg.moe is not None,
+           "requests": len(reqs), "steps": served_ids.shape[1],
+           "logits_max_abs_err": err.max().item(),
+           "logits_err_p50": err.median().item(),
+           "logits_abs_max": lp.abs().max().item(),
+           "logits_std": lp.std().item(), "logits_atol": LOGITS_ATOL,
+           "ids_against": "served" if served else "bf16 kernel path",
+           "ids_compared": int(dec.sum()), "ids_total": dec.size,
+           "ids_mismatched": mismatched,
+           "ids_equal_all": int((plain_ids == ref_ids).sum())}
+    if shadow:
+        out.update({
+            f"{shadow[1]}_launch_max_rel_err": max(
+                max(r["y"], r["state"]) for r in replays),
+            f"{shadow[1]}_launch_max_rel_err_by_replay": [
+                {k: r[k] for k in ("y", "state", "y_dtype")}
+                for r in replays],
+            f"{shadow[1]}_launches_per_replay": [r["calls"]
+                                                 for r in replays],
+            f"{shadow[1]}_launches_per_replay_expected": want_calls})
+    if f32:
+        err32 = (lk32 - lp32).abs().max().item()
+        # per request: RMS distance from the float32 plain path
+        dist_k = (lk - lp32).square().mean(dim=(1, 2)).sqrt()
+        dist_p = (lp - lp32).square().mean(dim=(1, 2)).sqrt()
+        ratio = (dist_k / dist_p).cpu().numpy()
+        moved = (lp - lp32).abs().amax(dim=-1)         # (R, T)
+        bf16_moved = moved.max().item()
+        ids32 = lp32.argmax(dim=-1).cpu().numpy()
+        tol32 = LOGITS_ATOL_F32 if not spread else max(LOGITS_ATOL_F32,
+                                                       spread32)
+        dec32 = decided(lp32, tol32)
+        mismatched32 = int(((lk32.argmax(dim=-1).cpu().numpy() != ids32)
+                            & dec32).sum())
+        out.update({
+            "f32_logits_max_abs_err": err32, "f32_logits_atol": atol32,
+            "f32_spread_reordered_plain": spread32,
+            "f32_ids_margin": 2 * tol32,
+            "f32_ids_compared": int(dec32.sum()),
+            "f32_ids_mismatched": mismatched32,
+            "bf16_kernel_vs_f32_rms": dist_k.tolist(),
+            "bf16_plain_vs_f32_rms": dist_p.tolist(),
+            "rms_ratio_max": float(ratio.max()),
+            "rms_ratio_limit": REPLAY_DIST_RATIO,
+            "bf16_kernel_vs_f32_max": (lk - lp32).abs().max().item(),
+            "bf16_plain_vs_f32_max": bf16_moved})
+        if served:
+            # the served (bf16 kernel) ids against the float32 plain
+            # path's, where its margin exceeds twice what bf16 rounding
+            # moved the plain path (over the run; with a spread, at that
+            # step)
+            dec16 = decided(lp32, moved if spread else bf16_moved)
+            mismatched16 = int(((served_ids != ids32) & dec16).sum())
+            out.update({"served_vs_f32_ids_compared": int(dec16.sum()),
+                        "served_vs_f32_ids_mismatched": mismatched16})
+    else:
+        out["f32_not_run"] = ("the float32 copy of the served weights does "
+                              "not fit the card")
+    emit(out)
     check(err.max().item() <= LOGITS_ATOL,
           f"kernel path logits differ from the plain path by "
           f"{err.max().item()} > {LOGITS_ATOL} (bf16)")
-    if rwkv:
-        check(calls == [want_calls] * 2,
-              f"WKV6 launches of the bf16 and float32 kernel-path replays "
-              f"{calls}, expected {want_calls} each")
-        check(seen["worst"] <= WKV_ATOL,
-              f"a WKV6 launch of the replay differs from the plain version "
-              f"on its inputs by {seen['worst']} (relative) > {WKV_ATOL}")
+    if shadow:
+        check([r["calls"] for r in replays] == [want_calls] * len(replays),
+              f"{shadow[1]} launches of the kernel-path replays "
+              f"{[r['calls'] for r in replays]}, expected {want_calls} each")
+        for r in replays:
+            lim = (SCAN_RTOL if r["y_dtype"] == str(torch.float32)
+                   else SCAN_RTOL_BF16)
+            check(r["y"] <= lim and r["state"] <= SCAN_RTOL,
+                  f"a {shadow[1]} launch of the replay differs from the "
+                  f"plain version on its inputs by {r['y']} (y, {r['y_dtype']}"
+                  f") / {r['state']} (state), relative, > {lim} / "
+                  f"{SCAN_RTOL}")
+    check(mismatched == 0, f"{mismatched} greedy ids differ from the plain "
+          "path where its top-2 margin exceeds twice the tolerance")
+    if not f32:
+        return
     check(err32 <= atol32,
           f"kernel path logits differ from the plain path by {err32} > "
           f"{atol32} (float32)")
     check(bool((ratio <= REPLAY_DIST_RATIO).all()),
           f"bf16 kernel path farther from the float32 plain path than "
           f"{REPLAY_DIST_RATIO}x the bf16 plain path: ratios {ratio}")
-    check(mismatched == 0, f"{mismatched} greedy ids differ from the plain "
-          "path where its top-2 margin exceeds twice the tolerance")
     check(mismatched32 == 0, f"{mismatched32} float32 greedy ids differ "
           "from the plain path where its top-2 margin exceeds twice the "
           "tolerance")
-    check(dec16.sum() > 0 and mismatched16 == 0,
-          f"{mismatched16} of {int(dec16.sum())} served ids differ from the "
-          "float32 plain path where its margin exceeds twice the bf16 "
-          "plain path's largest distance from it")
+    if served:
+        check(dec16.sum() > 0 and mismatched16 == 0,
+              f"{mismatched16} of {int(dec16.sum())} served ids differ "
+              "from the float32 plain path where its margin exceeds twice "
+              "the bf16 plain path's largest distance from it")
+
+
+def phase_replay_cut(dev, serving, cfg, reqs, scan_shadow, seed=1):
+    """The float32 checks jamba's served weights cannot have (their
+    float32 copy is 92 GB): ``phase_replay`` in bf16 and float32 on a
+    no-expert cut of the served config, ``cfg`` with 3 layers and no
+    MoE, (attn, dense), (mamba, dense), (mamba, dense) at full width
+    (3.88 B params, 15.5 GB in float32), with its own seeded weights
+    (mamba leaves redrawn), over the served token sequences."""
+    models = serving["models"]
+    cut = dataclasses.replace(cfg, num_layers=3, moe=None)
+    check(cut.layer_specs() == [("attn", "dense"), ("mamba", "dense"),
+                                ("mamba", "dense")], "no-expert cut layers")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    specs = models.model_specs(cut)
+    params = models.init_params(specs, gen, dev, torch.bfloat16)
+    mamba_redraw(params, gen)
+    emit({"phase": "serve", "arch": cut.name, "cut": "no experts",
+          "layers": [list(sp) for sp in cut.layer_specs()],
+          "params": models.param_count(specs)})
+    phase_replay(dev, serving, cut, params, reqs, shadow=scan_shadow,
+                 served=False)
 
 
 def flash_bound(B, Sq, H, KV, hd, kvl, nbytes_el):
@@ -1300,6 +1593,7 @@ def main():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     from repro_torch.kernels.rwkv6 import wkv6, wkv6_ref
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
     import repro_torch.configs as cfgs
     import repro_torch.models as models
     import repro_torch.serving as serving_mod
@@ -1315,16 +1609,18 @@ def main():
             decode_attention_ref)
     attn_errs = phase_attention(dev, *attn)
     wkv_errs = phase_wkv6(dev, wkv6, wkv6_ref)
+    scan_kernel_errs = phase_mamba_scan(dev, mamba_scan, mamba_scan_ref)
     phase_parity(core, dev)
     launches, dispatches = phase_full(core, _build, dev)
     kernels = phase_timing(core, hp, hp_ref, counter_bump, counter_bump_ref,
                            dev, launches, dispatches, errs)
     serving = {"configs": cfgs, "models": models, "serving": serving_mod}
     cfg, serve_launches, counts, groups, _, params, reqs = phase_serve(
-        dev, _build, serving, "granite-3-2b",
+        dev, _build, serving, cfgs.get_config("granite-3-2b"),
         dict(num_layers=40, d_model=2048, num_heads=32, num_kv_heads=8,
              d_ff=8192, vocab_size=49155),
-        {"prefill": ["flash_attention"], "decode": ["decode_attention"]})
+        {"prefill": {"flash_attention": "attn"},
+         "decode": {"decode_attention": "attn"}})
     kernels += attention_rows(dev, *attn, cfg, serve_launches, counts,
                               groups, attn_errs)
     for row in kernels:
@@ -1334,15 +1630,41 @@ def main():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg, _, counts, groups, per, params, reqs = phase_serve(
-        dev, _build, serving, "rwkv6-1.6b",
+        dev, _build, serving, cfgs.get_config("rwkv6-1.6b"),
         dict(num_layers=24, d_model=2048, num_heads=32, head_dim=64,
              d_ff=7168, vocab_size=65536, rwkv=cfgs.RWKVConfig(64)),
-        {"prefill": ["wkv6"], "decode": ["wkv6"]}, redraw=rwkv_redraw)
+        {"prefill": {"wkv6": "rwkv"}, "decode": {"wkv6": "rwkv"}},
+        redraw=rwkv_redraw)
     kernels.append(wkv6_row(dev, wkv6, wkv6_ref, cfg, counts, per, groups,
                             wkv_errs))
     emit(dict(kernels[-1], phase="kernel_row"))
     phase_replay(dev, serving, cfg, params, reqs,
-                 rwkv=(models.rwkv, wkv6, wkv6_ref))
+                 shadow=(models.rwkv, "wkv6", wkv6, wkv6_ref, "rwkv"),
+                 spread=(models.rwkv, "wkv6_ref", wkv6_reordered))
+    del params, reqs                        # rwkv's weights go next
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    scan_shadow = (models.mamba, "mamba_scan", mamba_scan, mamba_scan_ref,
+                   "mamba")
+    jamba = dataclasses.replace(cfgs.get_config("jamba-1.5-large-398b"),
+                                num_layers=JAMBA_LAYERS)
+    cfg, _, counts, groups, per, params, reqs = phase_serve(
+        dev, _build, serving, jamba,
+        dict(num_layers=JAMBA_LAYERS, d_model=8192, num_heads=64,
+             num_kv_heads=8, head_dim=128, d_ff=24576, vocab_size=65536,
+             moe=cfgs.MoEConfig(num_experts=16, top_k=2, expert_ff=24576),
+             mamba=cfgs.MambaConfig(d_state=16, d_conv=4, expand=2)),
+        {"prefill": {"flash_attention": "attn", "mamba_scan": "mamba"},
+         "decode": {"decode_attention": "attn", "mamba_scan": "mamba"}},
+        redraw=mamba_redraw, profile_rows=JAMBA_PROFILE_ROWS)
+    kernels.append(mamba_scan_row(dev, mamba_scan, mamba_scan_ref, cfg,
+                                  counts, per, groups, scan_kernel_errs))
+    emit(dict(kernels[-1], phase="kernel_row"))
+    phase_replay(dev, serving, cfg, params, reqs, shadow=scan_shadow,
+                 f32=False)
+    del params                              # jamba's 46 GB go first
+    torch.cuda.empty_cache()
+    phase_replay_cut(dev, serving, cfg, reqs, scan_shadow)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

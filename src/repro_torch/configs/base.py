@@ -12,9 +12,9 @@ Differences from the copy's original:
     default: the hand-written CUDA kernels for CUDA tensors, their plain
     PyTorch versions for CPU tensors) or ``"plain"`` (the plain versions
     on any device, the reference a run on the card is held against);
-  * the registry holds only the ported architectures (granite-3-2b and
-    rwkv6-1.6b so far); the others raise ``KeyError`` until their slice
-    is ported;
+  * the registry holds only the ported architectures (granite-3-2b,
+    rwkv6-1.6b and jamba-1.5-large-398b so far); the others raise
+    ``KeyError`` until their slice is ported;
   * only the fields the serving path reads are kept: the training,
     sharding and dry-run policy knobs (``param_dtype``, ``optimizer``,
     ``opt_state_dtype``, ``remat``, ``grad_accum``,
@@ -266,6 +266,7 @@ ARCH_IDS = [
 _MODULES = {
     "granite-3-2b": "granite_3_2b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 

@@ -63,13 +63,20 @@ LIBRARIES = {
         "wkv6_launch": (_INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                         _INT, _INT, _INT, _INT, _STRIDES, _PTR),
     },
+    # (dtype, ds, a_log, dt, b, c, x, h0, hT, y, B, S, di, strides[10],
+    #  stream)
+    "mamba_scan": {
+        "mamba_scan_launch": (_INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                              _PTR, _PTR, _INT, _INT, _INT, _STRIDES, _PTR),
+    },
 }
 
 # launches per kernel since the last reset_launches(); a wrapper adds
 # one only after its kernel was launched without error
 LAUNCHES: Dict[str, int] = {"halo_pack": 0, "halo_unpack": 0,
                             "counter_bump": 0, "flash_attention": 0,
-                            "decode_attention": 0, "wkv6": 0}
+                            "decode_attention": 0, "wkv6": 0,
+                            "mamba_scan": 0}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -5,8 +5,15 @@ card by default.
   python -m repro_torch.launch.serve --arch rwkv6-1.6b
   python -m repro_torch.launch.serve --arch rwkv6-1.6b --reduced \\
       --device cpu --requests 8 --slots 4 --max-new 16
+  python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \\
+      --reduced --device cpu --moe-impl gshard
 
-``--arch`` takes the ported architectures (granite-3-2b, rwkv6-1.6b).
+``--arch`` takes the ported architectures (granite-3-2b, rwkv6-1.6b,
+jamba-1.5-large-398b); ``--moe-impl`` the MoE layers' implementation
+(the reference's choices; "dense" is its default, "a2a" is not ported
+yet and raises). The full 72-layer jamba (398.6 B params) fits no
+single card and is not cut here: on a card its init fails with the
+allocator's out-of-memory error (chip_smoke.py serves a 4-layer cut).
 
 Params are random (seed 0), in the config's compute dtype. The
 reference's ``--st-*`` flags (ST-routed decode) are not ported yet
@@ -29,6 +36,8 @@ def main():
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--moe-impl", default="dense",
+                    choices=["dense", "gshard", "a2a"])
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     args = ap.parse_args()
@@ -46,7 +55,8 @@ def main():
     params = init_params(model_specs(cfg), gen, device,
                          getattr(torch, cfg.compute_dtype))
     eng = ServingEngine(cfg, params, batch_slots=args.slots,
-                        max_len=args.max_len, device=device)
+                        max_len=args.max_len, moe_impl=args.moe_impl,
+                        device=device)
 
     rng = np.random.RandomState(0)
     t0 = time.time()

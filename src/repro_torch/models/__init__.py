@@ -1,4 +1,5 @@
-"""Models of the port (dense attention and rwkv blocks so far)."""
+"""Models of the port (attention, mamba and rwkv mixers; dense, MoE and
+rwkv FFNs so far)."""
 from repro_torch.models.model import (cache_specs, forward,
                                       logits_from_hidden, model_specs)
 from repro_torch.models.params import (ParamSpec, from_reference,

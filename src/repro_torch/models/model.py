@@ -1,15 +1,16 @@
 """Block-pattern LM of the port, following the JAX package's
 ``models/model.py``: per block
 
-    x += mixer(norm(x))     mixer: attn, rwkv time-mix
-    x += ffn(norm(x))       ffn:   dense SwiGLU, rwkv channel-mix
+    x += mixer(norm(x))     mixer: attn, mamba, rwkv time-mix
+    x += ffn(norm(x))       ffn:   dense SwiGLU, MoE, rwkv channel-mix
 
-The reference stacks its repeated unit on a leading "layers" axis and
-runs it with ``lax.scan``; the port keeps one param dict and one cache
-dict per layer (``params["layers"][i]``, ``cache["layers"][i]``) and
-loops over them. Blocks other than (attn, dense) and (rwkv, rwkv) — MLA,
-MoE, mamba and cross attention — raise ``NotImplementedError`` until
-their slice is ported.
+mixer and FFN dispatched independently, as the reference's
+``_block_specs`` and ``_apply_block`` do. The reference stacks its
+repeated unit on a leading "layers" axis and runs it with ``lax.scan``;
+the port keeps one param dict and one cache dict per layer
+(``params["layers"][i]``, ``cache["layers"][i]``) and loops over them.
+MLA and cross-attention mixers and the modality frontends raise
+``NotImplementedError`` until their slice is ported.
 """
 from __future__ import annotations
 
@@ -17,20 +18,22 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.params import ParamSpec
 
-_PORTED = (("attn", "dense"), ("rwkv", "rwkv"))
+_MIXERS = ("attn", "mamba", "rwkv")
 
 
 def _check_ported(cfg) -> list:
     specs = cfg.layer_specs()
-    for i, spec in enumerate(specs):
-        if tuple(spec) not in _PORTED:
+    for i, (mixer, _) in enumerate(specs):
+        if mixer not in _MIXERS:
             raise NotImplementedError(
-                f"{cfg.name}: layer {i} is {tuple(spec)!r}; the port runs "
-                f"{_PORTED} blocks only so far (ROADMAP Queue 1 item 7: "
-                "MLA, MoE, mamba and cross attention)")
+                f"{cfg.name}: layer {i} has a {mixer!r} mixer; the port "
+                f"runs {_MIXERS} mixers only so far (ROADMAP Queue 1 item "
+                "7: MLA and cross attention)")
     if cfg.vision is not None or cfg.family == "audio":
         raise NotImplementedError(
             f"{cfg.name}: modality frontends are not ported yet (ROADMAP "
@@ -43,14 +46,23 @@ def _check_ported(cfg) -> list:
 # ---------------------------------------------------------------------------
 
 def _block_specs(cfg, spec, ff_width: int) -> dict:
+    mixer, ffn_kind = spec
     d = cfg.d_model
     s = {"norm1": L.rmsnorm_specs(d), "norm2": L.rmsnorm_specs(d)}
-    if spec[0] == "attn":
+    if mixer == "attn":
         s["mixer"] = attn_mod.attn_specs(cfg)
-        s["ffn"] = L.ffn_specs(d, ff_width)
+    elif mixer == "mamba":
+        s["mixer"] = mamba_mod.mamba_specs(cfg)
     else:
         s["mixer"] = rwkv_mod.timemix_specs(cfg)
+    if ffn_kind == "dense":
+        s["ffn"] = L.ffn_specs(d, ff_width)
+    elif ffn_kind == "moe":
+        s["ffn"] = moe_mod.moe_specs(cfg)
+    elif ffn_kind == "rwkv":
         s["ffn"] = rwkv_mod.channelmix_specs(cfg)
+    else:
+        raise ValueError(ffn_kind)
     return s
 
 
@@ -65,19 +77,25 @@ def model_specs(cfg) -> dict:
 
 def cache_specs(cfg, batch: int, max_len: int,
                 cache_dtype=torch.bfloat16) -> dict:
-    """{"layers": [per-layer ParamSpecs]}, zero-initialized: an attention
-    layer's {"k", "v"} of (batch, max_len, KV, hd) in ``cache_dtype``
-    (bf16, as the reference); an rwkv layer's {"shift_t", "shift_c"}
-    (batch, D) in ``cache_dtype`` and {"wkv"} (batch, H, hd, hd) float32,
-    as the reference's ``_block_cache_specs``. Leaves with a "kv_seq"
-    axis hold rows per position; the others hold a sequence's state."""
+    """{"layers": [per-layer ParamSpecs]}, zero-initialized, as the
+    reference's ``_block_cache_specs``: an attention layer's {"k", "v"}
+    of (batch, max_len, KV, hd) in ``cache_dtype`` (bf16, as the
+    reference); a mamba layer's {"conv"} (batch, d_conv - 1, d_inner) in
+    ``cache_dtype`` and {"ssm"} (batch, d_inner, d_state) float32; an
+    rwkv layer's {"shift_t", "shift_c"} (batch, D) in ``cache_dtype`` and
+    {"wkv"} (batch, H, hd, hd) float32. Leaves with a "kv_seq" axis hold
+    rows per position; the others hold a sequence's state."""
     specs = _check_ported(cfg)
     out = []
     for mixer, _ in specs:
-        raw = (attn_mod.attn_cache_specs(cfg, batch, max_len)
-               if mixer == "attn" else rwkv_mod.rwkv_cache_specs(cfg, batch))
+        if mixer == "attn":
+            raw = attn_mod.attn_cache_specs(cfg, batch, max_len)
+        elif mixer == "mamba":
+            raw = mamba_mod.mamba_cache_specs(cfg, batch)
+        else:
+            raw = rwkv_mod.rwkv_cache_specs(cfg, batch)
         out.append({k: ParamSpec(tuple(shape), tuple(axes), init="zeros",
-                                 dtype=torch.float32 if k == "wkv"
+                                 dtype=torch.float32 if k in ("ssm", "wkv")
                                  else cache_dtype)
                     for k, (shape, axes) in raw.items()})
     return {"layers": out}
@@ -87,30 +105,43 @@ def cache_specs(cfg, batch: int, max_len: int,
 # Apply
 # ---------------------------------------------------------------------------
 
-def _apply_block(cfg, spec, params, x, *, positions, cache, shared):
+def _apply_block(cfg, spec, params, x, *, positions, cache, shared,
+                 moe_impl):
+    """One block; returns (x, cache, MoE aux loss or None)."""
+    mixer, ffn_kind = spec
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if spec[0] == "attn":
+    if mixer == "attn":
         out, cache = attn_mod.attention(cfg, params["mixer"], h,
                                         positions=positions, cache=cache,
                                         shared=shared)
+    elif mixer == "mamba":
+        out, cache = mamba_mod.mamba(cfg, params["mixer"], h, cache=cache)
     else:
         out, cache = rwkv_mod.time_mix(cfg, params["mixer"], h, cache=cache)
     x = x + out
     h2 = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
-    if spec[1] == "dense":
-        return x + L.ffn(params["ffn"], h2), cache
-    out2, cache = rwkv_mod.channel_mix(cfg, params["ffn"], h2, cache=cache)
-    return x + out2, cache
+    aux = None
+    if ffn_kind == "dense":
+        out2 = L.ffn(params["ffn"], h2)
+    elif ffn_kind == "moe":
+        out2, aux = moe_mod.moe(cfg, params["ffn"], h2, impl=moe_impl)
+    else:
+        out2, cache = rwkv_mod.channel_mix(cfg, params["ffn"], h2,
+                                           cache=cache)
+    return x + out2, cache, aux
 
 
 @torch.no_grad()
-def forward(cfg, params, batch, *, cache=None):
+def forward(cfg, params, batch, *, cache=None, moe_impl: str = "gshard"):
     """Forward pass.
 
     batch: {"tokens": (B,S) int, "positions": (B,S) int absolute}.
     cache: a cache tree (``cache_specs``), written in place, or None.
+    moe_impl: the MoE layers' implementation (:func:`.moe.moe`), the
+    reference's default "gshard".
     Returns (hidden (B,S,D) after the final norm, cache, aux_loss) — the
-    reference's triple; aux_loss is 0 (no MoE layer is ported).
+    reference's triple; aux_loss (float32) sums the MoE layers' load-
+    balance losses, 0 without one.
     """
     specs = _check_ported(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
@@ -118,12 +149,15 @@ def forward(cfg, params, batch, *, cache=None):
     x = L.embed(params["embed"], batch["tokens"], cdt)
     shared = (attn_mod.shared_inputs(cfg, positions)
               if any(sp[0] == "attn" for sp in specs) else None)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (sp, p) in enumerate(zip(specs, params["layers"])):
         c = cache["layers"][i] if cache is not None else None
-        x, _ = _apply_block(cfg, sp, p, x, positions=positions, cache=c,
-                            shared=shared)
+        x, _, aux = _apply_block(cfg, sp, p, x, positions=positions,
+                                 cache=c, shared=shared, moe_impl=moe_impl)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, cache, aux_total
 
 
 def logits_from_hidden(cfg, params, x, last_only: bool = False):

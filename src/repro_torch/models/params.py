@@ -19,7 +19,10 @@ use (``.astype(dt)``), which gives the same values. One-dim leaves stay
 float32, and each user applies them as the reference does: RMSNorm
 scales in float32, but rwkv's token-shift mixes and ``ln_x`` cast to the
 compute dtype at use (``models/rwkv.py``), its ``w0`` and ``bonus`` in
-float32.
+float32. The leaves of :data:`FLOAT32_LEAVES` stay float32 whatever their
+rank: mamba's ``a_log`` (di, d_state), which the reference's scan reads
+in float32 and never casts (bf16 would move every decay rate by up to
+0.4 %).
 """
 from __future__ import annotations
 
@@ -73,11 +76,18 @@ def _fan_in(shape) -> int:
     return int(np.prod(shape[:-1]))
 
 
-def leaf_dtype(shape, dtype: torch.dtype) -> torch.dtype:
-    """The dtype a leaf is kept in: ``dtype`` for weights (two or more
-    dims), float32 for scalars and vectors (norm scales, rwkv's mixes,
-    decay and bonus; their users cast them as the reference does)."""
-    return dtype if len(shape) >= 2 else torch.float32
+# leaves kept in float32 whatever their rank (see the module doc)
+FLOAT32_LEAVES = frozenset({"a_log"})
+
+
+def leaf_dtype(shape, dtype: torch.dtype, name=None) -> torch.dtype:
+    """The dtype the leaf ``name`` is kept in: ``dtype`` for weights (two
+    or more dims), float32 for scalars and vectors (norm scales, rwkv's
+    mixes, decay and bonus; their users cast them as the reference does)
+    and for the leaves of :data:`FLOAT32_LEAVES`."""
+    if len(shape) >= 2 and name not in FLOAT32_LEAVES:
+        return dtype
+    return torch.float32
 
 
 def init_params(spec_tree, generator: torch.Generator, device="cuda",
@@ -90,8 +100,8 @@ def init_params(spec_tree, generator: torch.Generator, device="cuda",
     JAX package's numbers (use :func:`from_reference` for those)."""
     device = resolve_device(device)
 
-    def make(spec: ParamSpec):
-        dt = leaf_dtype(spec.shape, dtype)
+    def make(spec: ParamSpec, name):
+        dt = leaf_dtype(spec.shape, dtype, name)
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dt, device=device)
         if spec.init == "ones":
@@ -102,12 +112,12 @@ def init_params(spec_tree, generator: torch.Generator, device="cuda",
                         dtype=torch.float32)
         return x.mul_(std).to(dt)
 
-    def build(tree):               # draws in tree_leaves order
+    def build(tree, name=None):    # draws in tree_leaves order
         if isinstance(tree, dict):
-            return {k: build(tree[k]) for k in sorted(tree)}
+            return {k: build(tree[k], k) for k in sorted(tree)}
         if isinstance(tree, (list, tuple)):
             return [build(v) for v in tree]
-        return make(tree)
+        return make(tree, name)
 
     return build(spec_tree)
 
@@ -133,13 +143,23 @@ def stack_specs(spec_tree, n: int):
         spec_tree)
 
 
-def _to_tensor(a, device, dtype) -> torch.Tensor:
+def _to_tensor(a, device, dtype, name) -> torch.Tensor:
     a = np.array(a)                       # a writable copy
     if a.dtype.kind == "f" and a.dtype not in (np.float32, np.float64,
                                                np.float16):
         a = a.astype(np.float32)          # bfloat16 (ml_dtypes) and kin
     return torch.from_numpy(a).to(
-        device=device, dtype=leaf_dtype(a.shape, dtype))
+        device=device, dtype=leaf_dtype(a.shape, dtype, name))
+
+
+def _convert(tree, device, dtype, name=None):
+    """A numpy tree as tensors, each leaf by :func:`leaf_dtype` of its
+    key."""
+    if isinstance(tree, dict):
+        return {k: _convert(v, device, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_convert(v, device, dtype) for v in tree]
+    return _to_tensor(tree, device, dtype, name)
 
 
 def from_reference(cfg, tree, device="cuda",
@@ -156,7 +176,7 @@ def from_reference(cfg, tree, device="cuda",
     """
     groups = cfg.layer_groups()
     device = resolve_device(device)
-    conv = lambda t: tree_map(lambda a: _to_tensor(a, device, dtype), t)
+    conv = lambda t: _convert(t, device, dtype)
     layers = [conv(b) for b in tree["prefix"]]
     unit = tree["unit"]
     for i in range(groups.repeats):

@@ -18,12 +18,14 @@ Differences from the reference, neither visible in the tokens:
     PLACE: the slots' rows of every layer's cache as one view when the
     slots are consecutive, else gathered and written back after the
     dispatch — the first L rows of a leaf with a sequence axis (KV), a
-    state leaf (rwkv's token shifts and WKV state) whole. The reference
-    builds a whole new zeroed (B, max_len) cache and merges the group's
-    rows. Stale KV rows past the prompt are masked by the valid length,
-    but a recurrent state is read whole, so the group's state leaves are
-    zeroed before the dispatch (a recycled slot would otherwise start
-    from the previous request's state);
+    state leaf (rwkv's token shifts and WKV state, mamba's conv rows
+    and SSM state) whole. The reference builds a whole new zeroed (B,
+    max_len) cache and merges the group's rows. Stale KV rows past the
+    prompt are masked by the valid length, but a recurrent state is
+    read whole, so the group's state leaves are zeroed before the
+    dispatch (a recycled slot would otherwise start from the previous
+    request's state: for mamba, its last 3 conv inputs and its SSM
+    state);
   * the decode step updates the cache in place (the reference donates
     it to a jitted step).
 
@@ -72,11 +74,12 @@ class ServingEngine:
     """``params``: the port's param tree (``init_params`` /
     ``from_reference``) on ``device``. ``device`` defaults to CUDA and
     raises without a card; pass ``"cpu"`` for the plain path on the
-    CPU."""
+    CPU. ``moe_impl`` is the MoE layers' implementation ("dense", the
+    reference engine's default, or "gshard"; "a2a" raises)."""
 
     def __init__(self, cfg, params, *, batch_slots: int = 4,
-                 max_len: int = 256, st_mode: Optional[str] = None,
-                 device="cuda"):
+                 max_len: int = 256, moe_impl: str = "dense",
+                 st_mode: Optional[str] = None, device="cuda"):
         if st_mode is not None:
             raise NotImplementedError(
                 f"st_mode={st_mode!r}: ST-routed decode is not ported yet "
@@ -89,8 +92,9 @@ class ServingEngine:
         self.params = params
         self.B = batch_slots
         self.max_len = max_len
-        self._prefill_sample = make_prefill_sample_step(cfg, max_len=max_len)
-        self._decode_sample = make_decode_sample_step(cfg)
+        self._prefill_sample = make_prefill_sample_step(
+            cfg, max_len=max_len, moe_impl=moe_impl)
+        self._decode_sample = make_decode_sample_step(cfg, moe_impl=moe_impl)
         specs = cache_specs(cfg, batch_slots, max_len)
         self.cache = zeros_from_specs(specs, self.device)
         # per layer, the cache leaves without a sequence axis: a

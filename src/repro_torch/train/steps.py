@@ -26,34 +26,38 @@ def _greedy_ids(cfg, logits):
                         dim=-1).to(torch.int32)
 
 
-def make_prefill_sample_step(cfg, max_len: Optional[int] = None):
+def make_prefill_sample_step(cfg, max_len: Optional[int] = None,
+                             moe_impl: str = "gshard"):
     """prefill_sample_step(params, batch, cache=None) -> (ids (B,), cache):
     prefill plus device-side greedy sampling of each row's first token.
     With ``cache=None`` a zeroed cache of (B, max_len or S) is made, as
-    the reference does (bf16 KV rows and token shifts, a float32 rwkv
-    state); a given cache's rows are written in place."""
+    the reference does (bf16 KV rows, token shifts and conv rows, float32
+    rwkv and mamba states); a given cache's rows are written in place.
+    ``moe_impl`` goes to ``forward`` (the MoE layers' implementation)."""
 
     def prefill_sample_step(params, batch, cache=None):
         if cache is None:
             B, S = batch["positions"].shape
             cache = zeros_from_specs(cache_specs(cfg, B, max_len or S),
                                      batch["positions"].device)
-        x, cache, _ = forward(cfg, params, batch, cache=cache)
+        x, cache, _ = forward(cfg, params, batch, cache=cache,
+                              moe_impl=moe_impl)
         logits = logits_from_hidden(cfg, params, x, last_only=True)
         return _greedy_ids(cfg, logits), cache
 
     return prefill_sample_step
 
 
-def make_decode_sample_step(cfg):
+def make_decode_sample_step(cfg, moe_impl: str = "gshard"):
     """decode_sample_step(params, batch, cache) -> (ids (B,), cache): one
     decode step plus device-side greedy sampling. (The reference's step
     also returns the last-position hidden block, the MoE-dispatch payload
     of ST-routed decode, which comes with that slice: ROADMAP Queue 1
-    item 8b.)"""
+    item 8b.) ``moe_impl`` goes to ``forward``."""
 
     def decode_sample_step(params, batch, cache):
-        x, cache, _ = forward(cfg, params, batch, cache=cache)
+        x, cache, _ = forward(cfg, params, batch, cache=cache,
+                              moe_impl=moe_impl)
         logits = logits_from_hidden(cfg, params, x, last_only=True)
         return _greedy_ids(cfg, logits), cache
 

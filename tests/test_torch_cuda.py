@@ -11,8 +11,11 @@ The attention kernels accumulate in float32 where their plain versions
 round to the input dtype, so on unit-normal inputs they are held to the
 tolerances of ``tests/test_kernels.py``: 2e-5 in float32 and, in bf16,
 2e-2 of the largest |output|. The WKV6 kernel and its plain version both
-compute in float32 on the same values: 1e-5. The serving engine on the
-card must serve the CPU's greedy tokens, granite-3-2b's and rwkv6's.
+compute in float32 on the same values: 1e-5. So do the selective-scan
+kernel and its plain version: 1e-5 of max(1, the largest |value|) for
+the state and a float32 y, 2e-2 of it for a bf16 y (one rounding of the
+same float32 value). The serving engine on the card must serve the CPU's
+greedy tokens, granite-3-2b's, rwkv6's and jamba's.
 """
 import numpy as np
 import pytest
@@ -406,4 +409,179 @@ def test_rwkv_engine_on_the_card_equals_the_cpu_and_launches_the_kernel(
         if device != "cpu":
             assert _build.LAUNCHES["wkv6"] == cfg.num_layers * (
                 eng.prefill_dispatches + eng.decode_steps)
+    assert tokens[str(dev)] == tokens["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# selective-scan kernel and the jamba serving path
+# ---------------------------------------------------------------------------
+
+SCAN_RTOL, SCAN_RTOL_BF16 = 1e-5, 2e-2
+
+
+def _scan_inputs(dev, dtype, B, S, di, ds, seed=0, extra=0):
+    """Mamba's init ranges (tests/_mamba_draws.py): a_log = log U(1, 16),
+    dt log-uniform in [1e-3, 1e-1]; unit-normal x, b, c; h0 at scale
+    0.1. b and c are column slices of one (B, S, extra + 2 ds) tensor,
+    as in the model (``extra`` columns of dt_rank before them)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda *s: torch.rand(s, generator=gen, device=dev)
+    a_log = torch.log(1 + 15 * u(di, ds))
+    dt = torch.exp(np.log(1e-3) + np.log(100.0) * u(B, S, di)).to(dtype)
+    x = torch.randn((B, S, di), generator=gen, device=dev).to(dtype)
+    xdb = torch.randn((B, S, extra + 2 * ds), generator=gen,
+                      device=dev).to(dtype)
+    h0 = 0.1 * torch.randn((B, di, ds), generator=gen, device=dev)
+    return (a_log, dt, xdb[..., extra:extra + ds], xdb[..., extra + ds:], x,
+            h0)
+
+
+def _assert_scan_close(y, hT, yr, hTr):
+    for got, want, rtol in ((y, yr, SCAN_RTOL if y.dtype == torch.float32
+                             else SCAN_RTOL_BF16), (hT, hTr, SCAN_RTOL)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        scale = max(1.0, want.float().abs().max().item())
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=rtol * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,di,ds", [
+    (2, 128, 64, 8), (1, 64, 128, 16),        # test_kernels.py's shapes
+    (4, 1000, 16384, 16),                     # jamba prefill, S ragged
+    (8, 1, 16384, 16),                        # jamba decode
+    (3, 37, 200, 8),                          # di not a multiple of 128
+])
+def test_mamba_scan_kernel_equals_plain(dev, dtype, B, S, di, ds):
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+    ins = _scan_inputs(dev, dtype, B, S, di, ds, extra=ds)
+    _build.reset_launches()
+    y, hT = mamba_scan(*ins)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mamba_scan"] == 1
+    assert y.dtype == dtype and hT.dtype == torch.float32
+    _assert_scan_close(y, hT, *mamba_scan_ref(*ins))
+
+
+def test_mamba_scan_kernel_carries_state_writes_in_place_reads_views(dev):
+    """Two launches of 500 steps with the state carried equal one of
+    1000; ``inplace`` writes the final state over h0 (some slots' rows of
+    a cache); b and c are strided column slices (checked by the
+    contiguous copies giving the same result)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+    a, dt, b, c, x, h0 = _scan_inputs(dev, torch.bfloat16, 2, 1000, 4096,
+                                      16, seed=1, extra=512)
+    assert not b.is_contiguous() and b.stride(1) == 512 + 32
+    y, hT = mamba_scan(a, dt, b, c, x, h0)
+    y1, h1 = mamba_scan(a, dt[:, :500], b[:, :500], c[:, :500],
+                        x[:, :500], h0)
+    y2, h2 = mamba_scan(a, dt[:, 500:], b[:, 500:], c[:, 500:],
+                        x[:, 500:], h1)
+    _assert_scan_close(torch.cat([y1, y2], 1), h2, y, hT)
+    yc, hc = mamba_scan(a, dt, b.contiguous(), c.contiguous(), x, h0)
+    assert torch.equal(yc, y) and torch.equal(hc, hT)
+    cache = torch.zeros((5, 4096, 16), device=dev)
+    cache[1:3] = h0
+    yi, out = mamba_scan(a, dt, b, c, x, cache[1:3], inplace=True)
+    assert out.data_ptr() == cache[1].data_ptr()
+    assert torch.equal(yi, y) and torch.equal(cache[1:3], hT)
+    assert not cache[0].any() and not cache[3:].any()
+    _assert_scan_close(y, hT, *mamba_scan_ref(a, dt, b, c, x, h0))
+
+
+def test_mamba_scan_kernel_refuses_what_it_cannot_take(dev):
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    a, dt, b, c, x, h0 = _scan_inputs(dev, torch.float32, 2, 5, 256, 16)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="state size"):
+        mamba_scan(a[:, :4].contiguous(), dt, b[..., :4], c[..., :4], x,
+                   h0[..., :4].contiguous())
+    with pytest.raises(TypeError, match="a_log must be float32"):
+        mamba_scan(a.bfloat16(), dt, b, c, x, h0)
+    with pytest.raises(TypeError, match="h0 must be float32"):
+        mamba_scan(a, dt, b, c, x, h0.bfloat16())
+    with pytest.raises(TypeError, match="one dtype"):
+        mamba_scan(a, dt.half(), b.half(), c.half(), x.half(), h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan(a, dt, b, c, x, h0.transpose(1, 2).contiguous()
+                   .transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_scan(a.cpu(), dt, b, c, x, h0)
+    assert _build.LAUNCHES["mamba_scan"] == 0
+
+
+def test_mamba_mixer_routes(dev):
+    """The three routes of the scan in ``mamba()``: on CUDA tensors
+    "kernel" launches the kernel once and "plain" runs the plain version
+    (no launch); on CPU tensors "kernel" runs the plain version. All
+    three agree (float32)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, mamba, model_specs
+    from repro_torch.models.params import tree_map
+    from _mamba_draws import redraw_mamba_torch
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(),
+                              compute_dtype="float32")
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         "cpu", torch.float32)
+    redraw_mamba_torch(params, torch.Generator().manual_seed(1))
+    w = params["layers"][1]["mixer"]
+    x = torch.randn((2, 50, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(2))
+    outs = {}
+    for device, route, launches in (("cpu", "kernel", 0), (dev, "kernel", 1),
+                                    (dev, "plain", 0)):
+        _build.reset_launches()
+        out, _ = mamba.mamba(dataclasses.replace(cfg, attn_impl=route),
+                             tree_map(lambda t: t.to(device), w),
+                             x.to(device))
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["mamba_scan"] == launches
+        outs[(str(device), route)] = out.cpu()
+    ref = outs[("cpu", "kernel")]
+    for out in outs.values():
+        torch.testing.assert_close(out, ref, rtol=0, atol=2e-5)
+
+
+def test_jamba_engine_on_the_card_equals_the_cpu_and_launches_the_kernels(
+        dev):
+    """The reduced jamba served on the card: every selective scan goes
+    through the kernel (one launch per mamba layer per prefill dispatch
+    and per decode step), the attention layer through its two kernels,
+    and the greedy tokens equal the plain path's on the CPU (float32
+    compute, dense MoE), with slots recycled."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Request, ServingEngine
+    from _mamba_draws import redraw_mamba_torch
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(),
+                              compute_dtype="float32")
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         "cpu", torch.float32)
+    redraw_mamba_torch(params, torch.Generator().manual_seed(1))
+    n_mamba = sum(m == "mamba" for m, _ in cfg.layer_specs())
+    n_attn = cfg.num_layers - n_mamba
+    rng = np.random.RandomState(0)
+    specs = [(rng.randint(1, cfg.vocab_size, L).astype(np.int32), m)
+             for L, m in ((5, 6), (9, 4), (5, 3), (17, 5), (9, 2),
+                          (70, 3))]
+    tokens = {}
+    for device in ("cpu", dev):
+        eng = ServingEngine(cfg, tree_map(lambda t: t.to(device), params),
+                            batch_slots=3, max_len=128, device=device)
+        reqs = [Request(prompt=pr, max_new_tokens=m) for pr, m in specs]
+        for r in reqs:
+            eng.submit(r)
+        _build.reset_launches()
+        eng.run_until_drained()
+        tokens[str(device)] = [r.out_tokens for r in reqs]
+        if device != "cpu":
+            assert _build.LAUNCHES["mamba_scan"] == n_mamba * (
+                eng.prefill_dispatches + eng.decode_steps)
+            assert _build.LAUNCHES["flash_attention"] == \
+                n_attn * eng.prefill_dispatches
+            assert _build.LAUNCHES["decode_attention"] == \
+                n_attn * eng.decode_steps
     assert tokens[str(dev)] == tokens["cpu"]

@@ -36,7 +36,7 @@ from repro.models.params import is_spec, param_count as j_param_count
 from repro.sharding.rules import make_rules
 from repro.train.steps import (make_decode_sample_step as j_decode_step,
                                make_prefill_sample_step as j_prefill_step)
-from repro_torch.configs import MoEConfig, get_config
+from repro_torch.configs import MLAConfig, get_config
 from repro_torch.models import (cache_specs, forward, from_reference,
                                 init_params, logits_from_hidden,
                                 model_specs, param_count, stack_specs,
@@ -255,7 +255,6 @@ def test_full_granite_config_and_unported_kinds():
     assert 2.4e9 < param_count(model_specs(cfg)) < 2.6e9
     with pytest.raises(KeyError, match="not ported"):
         get_config("qwen3-32b")
-    moe = dataclasses.replace(cfg.reduced(), moe=MoEConfig(
-        num_experts=4, top_k=2, expert_ff=64))
+    mla = dataclasses.replace(cfg.reduced(), mla=MLAConfig())
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        model_specs(moe)
+        model_specs(mla)

@@ -24,6 +24,7 @@ from repro.models import model_specs as j_specs
 from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JServingEngine
 from repro.sharding.rules import make_rules
+from _mamba_draws import redraw_mamba
 from _rwkv_draws import redraw_rwkv
 from repro_torch.configs import get_config
 from repro_torch.models import from_reference, init_params, model_specs
@@ -257,57 +258,73 @@ def test_st_routed_decode_is_not_ported_yet(tiny_model):
 
 
 # ---------------------------------------------------------------------------
-# rwkv6: recurrent state in the cache
+# recurrent state in the cache: rwkv6 and jamba
 # ---------------------------------------------------------------------------
 
-def _rwkv_models():
-    """The reduced rwkv6-1.6b in float32 for both frameworks, the same
+def _state_models(arch, redraw):
+    """The reduced ``arch`` in float32 for both frameworks, the same
     weights: the reference's init with the leaves it leaves constant
-    redrawn by ``tests/_rwkv_draws.py`` (the init's constants would leave
-    the token shift and the bonus inert)."""
-    jcfg = dataclasses.replace(jax_config("rwkv6-1.6b").reduced(),
+    redrawn by ``redraw`` (``tests/_rwkv_draws.py``,
+    ``tests/_mamba_draws.py``: the init's constants would leave rwkv's
+    token shift and bonus inert and mamba's decays all alike)."""
+    jcfg = dataclasses.replace(jax_config(arch).reduced(),
                                compute_dtype="float32")
-    tcfg = dataclasses.replace(get_config("rwkv6-1.6b").reduced(),
+    tcfg = dataclasses.replace(get_config(arch).reduced(),
                                compute_dtype="float32")
-    params = redraw_rwkv(j_init(j_specs(jcfg), jax.random.PRNGKey(0)),
-                         np.random.RandomState(0))
+    params = redraw(jax.tree.map(np.asarray,
+                                 j_init(j_specs(jcfg), jax.random.PRNGKey(0))),
+                    np.random.RandomState(0))
     return (jcfg, tcfg, jax.tree.map(jax.numpy.asarray, params),
             from_reference(tcfg, params, "cpu"))
+
+
+def _rwkv_models():
+    return _state_models("rwkv6-1.6b", redraw_rwkv)
+
+
+def _jamba_models():
+    return _state_models("jamba-1.5-large-398b", redraw_mamba)
 
 
 # (prompt length, budget): slots 0 and 2 finish at admission while slot 1
 # decodes, so the next length group (two prompts of 4) lands in the
 # scattered slots [0, 2], each holding its previous request's state
-RWKV_SPECS = ((1, 1), (2, 9), (3, 1), (4, 3), (4, 3), (2, 5), (3, 2),
-              (6, 4))
+STATE_SPECS = ((1, 1), (2, 9), (3, 1), (4, 3), (4, 3), (2, 5), (3, 2),
+               (6, 4))
 
 
-def _recording(eng):
-    """Record the slots of every prefill dispatch of ``eng``."""
+def _recording(eng, states=None):
+    """Record the slots of every prefill dispatch of ``eng``, and in
+    ``states`` (a list, if given) the slots' state rows it wrote (per
+    layer {leaf: rows})."""
     seen, inner = [], eng._prefill_group
 
     def prefill_group(slots, toks):
         seen.append(list(slots))
-        return inner(slots, toks)
+        out = inner(slots, toks)
+        if states is not None:
+            states.append([{k: c[k][slots].clone() for k in keys}
+                           for c, keys in zip(eng.cache["layers"],
+                                              eng._state_keys)])
+        return out
     eng._prefill_group = prefill_group
     return seen
 
 
-def test_rwkv_greedy_tokens_equal_the_jax_engine():
+def _tokens_equal_the_jax_engine(models, seed):
     """More requests than slots, slots recycled, one length group
     admitted into non-consecutive slots: every request gets the JAX
-    engine's tokens (float32 compute, the default bf16 cache). A slot
-    that kept its previous request's state, or a state leaf cut to the
-    prompt length, changes them."""
-    jcfg, tcfg, jparams, tparams = _rwkv_models()
+    engine's tokens (the reference engine's default dense MoE). Returns
+    the port's engine."""
+    jcfg, tcfg, jparams, tparams = models
     jeng = JServingEngine(jcfg, jparams, make_rules(jcfg, None, None),
                           batch_slots=3, max_len=32)
     teng = ServingEngine(tcfg, tparams, batch_slots=3, max_len=32,
                          device="cpu")
     dispatched = _recording(teng)
-    rng = np.random.RandomState(4)
+    rng = np.random.RandomState(seed)
     specs = [(rng.randint(1, tcfg.vocab_size, L).astype(np.int32), m)
-             for L, m in RWKV_SPECS]
+             for L, m in STATE_SPECS]
     jreqs = [JRequest(prompt=p, max_new_tokens=m) for p, m in specs]
     treqs = [Request(prompt=p, max_new_tokens=m) for p, m in specs]
     for jr, tr in zip(jreqs, treqs):
@@ -320,21 +337,21 @@ def test_rwkv_greedy_tokens_equal_the_jax_engine():
     assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
     for key in ("prefill_dispatches", "decode_steps", "tokens_generated"):
         assert teng.stats()[key] == jeng.stats()[key], key
-    shift = teng.cache["layers"][0]["shift_t"]
-    assert shift.shape == (3, tcfg.d_model) and shift.dtype == torch.bfloat16
+    return teng
 
 
-@pytest.mark.parametrize("scattered", [False, True])
-def test_rwkv_recycled_slot_serves_a_fresh_engines_tokens(scattered):
+def _recycled_slot_serves_a_fresh_engines_tokens(tcfg, tparams, scattered):
     """A request admitted into a slot whose state a finished request
     left behind — consecutive slots (prefilled through one view) or not
-    (gathered and written back) — gets the tokens of a fresh engine."""
-    _, tcfg, _, tparams = _rwkv_models()
+    (gathered and written back) — gets the tokens of a fresh engine, and
+    its prefill leaves the state rows that engine's does (a stale row may
+    move the logits too little to change a greedy token)."""
     rng = np.random.RandomState(5)
     prompt = lambda n: rng.randint(1, tcfg.vocab_size, n).astype(np.int32)
     eng = ServingEngine(tcfg, tparams, batch_slots=3, max_len=32,
                         device="cpu")
-    dispatched = _recording(eng)
+    states, fresh_states = [], []
+    dispatched = _recording(eng, states)
     # slots 0, 1, 2 by prompt length; scattered: slots 0 and 2 finish
     # after one decode step while slot 1 goes on decoding
     budgets = (2, 8, 2) if scattered else (4, 4, 4)
@@ -353,8 +370,71 @@ def test_rwkv_recycled_slot_serves_a_fresh_engines_tokens(scattered):
     assert dispatched[-1] == ([0, 2] if scattered else [0, 1])
     fresh = ServingEngine(tcfg, tparams, batch_slots=3, max_len=32,
                           device="cpu")
+    _recording(fresh, fresh_states)
     ref = [Request(prompt=r.prompt, max_new_tokens=5) for r in late]
     for r in ref:
         fresh.submit(r)
     fresh.run_until_drained()
     assert [r.out_tokens for r in late] == [r.out_tokens for r in ref]
+    # the default tolerance of each leaf's dtype: the two prefills attend
+    # over differently cut KV rows, which may move a bf16 conv row or
+    # token shift by one rounding; a stale row moves the state far more
+    for got, want in zip(states[-1], fresh_states[0]):
+        for k in got:
+            torch.testing.assert_close(got[k], want[k])
+
+
+def test_rwkv_greedy_tokens_equal_the_jax_engine():
+    """rwkv6 (float32 compute, the default bf16 cache): a slot that kept
+    its previous request's state, or a state leaf cut to the prompt
+    length, changes the tokens."""
+    jcfg, tcfg, jparams, tparams = models = _rwkv_models()
+    teng = _tokens_equal_the_jax_engine(models, seed=4)
+    shift = teng.cache["layers"][0]["shift_t"]
+    assert shift.shape == (3, tcfg.d_model) and shift.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("scattered", [False, True])
+def test_rwkv_recycled_slot_serves_a_fresh_engines_tokens(scattered):
+    _, tcfg, _, tparams = _rwkv_models()
+    _recycled_slot_serves_a_fresh_engines_tokens(tcfg, tparams, scattered)
+
+
+def test_jamba_greedy_tokens_equal_the_jax_engine():
+    """The reduced jamba (attention, mamba and dense-MoE layers; float32
+    compute, the default bf16 cache): a slot that kept its previous
+    request's conv rows or SSM state changes the tokens."""
+    jcfg, tcfg, jparams, tparams = models = _jamba_models()
+    teng = _tokens_equal_the_jax_engine(models, seed=6)
+    layer = teng.cache["layers"][1]
+    assert layer["conv"].shape == (3, 3, 2 * tcfg.d_model)
+    assert layer["conv"].dtype == torch.bfloat16
+    assert layer["ssm"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("scattered", [False, True])
+def test_jamba_recycled_slot_serves_a_fresh_engines_tokens(scattered):
+    _, tcfg, _, tparams = _jamba_models()
+    _recycled_slot_serves_a_fresh_engines_tokens(tcfg, tparams, scattered)
+
+
+@pytest.mark.parametrize("moe_impl", ["dense", "gshard", "a2a"])
+def test_jamba_engine_moe_impl(moe_impl):
+    """The engine passes ``moe_impl`` to the model: "dense" (its
+    default) and "gshard" serve (a prompt of 3 tokens leaves every
+    expert under capacity, so both give the same tokens); "a2a" is not
+    ported and raises."""
+    _, tcfg, _, tparams = _jamba_models()
+    tokens = {}
+    for impl in ("dense", moe_impl):
+        eng = ServingEngine(tcfg, tparams, batch_slots=2, max_len=16,
+                            moe_impl=impl, device="cpu")
+        eng.submit(Request(prompt=np.asarray([5, 6, 7], np.int32),
+                           max_new_tokens=4))
+        if impl == "a2a":
+            with pytest.raises(NotImplementedError, match="ep_a2a"):
+                eng.run_until_drained()
+            return
+        eng.run_until_drained()
+        tokens[impl] = eng.completed[0].out_tokens
+    assert tokens["dense"] == tokens[moe_impl]
