@@ -18,13 +18,19 @@ Phases (each prints JSON lines; any failure exits non-zero):
 
   1. build    — nvcc builds every kernel library from ``src/repro_torch/
                  csrc`` into ``build/repro_torch/`` (seconds, ptxas report);
+                 one line per attention library with the count of
+                 tensor-core instructions (HMMA, HGMMA) in its SASS by
+                 cuobjdump, or "not measured" and why (flash attention
+                 must have some);
   2. kernels  — each kernel against its plain PyTorch version on the card:
                  the Faces kernels exactly, at n=(64,64,64) and n=(6,5,4),
                  R=64; the attention kernels in bf16 and float32 at
-                 granite's shapes (H=32, KV=8, hd=64), a G=1 case, an
-                 hd=128 case, a ragged Sq of 1000 and kv_valid_len < Skv,
-                 on unit-normal q, k, v: within 2e-5 (float32) and within
-                 2e-2 of the largest |output| (bf16); the WKV6 kernel in
+                 granite's shapes (H=32, KV=8, hd=64) and jamba's (H=64,
+                 KV=8, hd=128), a G=1 case, an hd=128 case, a ragged Sq of
+                 1000 and kv_valid_len < Skv, q-tile and key-tile edges
+                 and flash-decode's split edges, on unit-normal q, k, v:
+                 within 2e-5 (float32) and within 2e-2 of the largest
+                 |output| (bf16); the WKV6 kernel in
                  float32 and bf16 at (B, S, H, hd) = (2,128,2,32),
                  (1,256,4,64), (8,1,32,64) (decode) and (3,1000,32,64)
                  (ragged prefill) with a nonzero s0, two 500-step
@@ -69,7 +75,8 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  during decode (profiler). The attention kernels'
                  kernels-line rows follow (time at the serving shapes,
                  bound, plain version, and SDPA on the valid keys as the
-                 yardstick);
+                 yardstick; flash-decode's split count; the kernel, SDPA
+                 and bound at jamba's attention shapes too);
   7. replay   — the served tokens replayed teacher-forced (prompts of
                  one length prefilled together, as the engine's length
                  groups) through the kernel path and the plain path on
@@ -118,6 +125,7 @@ result.
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -145,16 +153,20 @@ DECODE_PROFILE_STEPS = 8
 # (outputs up to ~3): the tolerances of tests/test_kernels.py, 2e-5
 # absolute in float32 and, in bf16, 2e-2 of the largest |output|. A
 # correct bf16 kernel sits at ~0.5 % of it: the plain version rounds its
-# scores and weights to bf16, the kernel keeps them float32. A wrong load,
-# stride or head mapping in the bf16 instantiation moves outputs by O(1);
-# the masks and the loop, shared by both instantiations, are held to the
-# float32 tolerance.
+# scores and normalised weights to bf16; the bf16 flash kernel keeps its
+# scores float32 and rounds its unnormalised weights p <= 1 to bf16 for
+# the tensor cores (the same ~2^-8 relative rounding), flash-decode keeps
+# both float32. A wrong load, stride or head mapping moves outputs by
+# O(1). flash attention's float32 kernel is another kernel than its bf16
+# one (CUDA-core FMAs, exact to float32 rounding) but takes the same
+# masks and key-loop bounds; flash-decode's two dtypes share one kernel.
 ATTN_ATOL_F32 = 2e-5
 ATTN_RTOL_BF16 = 2e-2
 # kernel path against plain path, last-position logits of the full
 # model (|logit| up to ~5, std ~0.9). In bf16 the two round attention at
-# different points (the plain versions round scores and weights to bf16,
-# the kernels keep float32) in each of 40 layers of random weights,
+# different points (the plain versions round scores and normalised
+# weights to bf16, the kernels keep scores float32 and flash attention
+# rounds unnormalised weights) in each of 40 layers of random weights,
 # which carry a difference forward: the tolerance is 32 bf16 spacings at
 # |logit| in [2, 4) (2^-6 each). It is loose, since bf16 rounding alone
 # moves either path ~0.2 from the float32 path: the bf16 check with power
@@ -337,6 +349,21 @@ def device_profile(run, out_path):
 # phases
 # ---------------------------------------------------------------------------
 
+def disassembler():
+    """cuobjdump from the CUDA toolkit, else the one Triton carries, else
+    None."""
+    import importlib.util
+    import shutil
+    cands = [os.path.join(os.environ.get("CUDA_HOME", ""), "bin",
+                          "cuobjdump"), "/usr/local/cuda/bin/cuobjdump",
+             shutil.which("cuobjdump") or ""]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        cands.append(os.path.join(os.path.dirname(spec.origin), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    return next((c for c in cands if c and os.path.isfile(c)), None)
+
+
 def phase_build(_build):
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -349,6 +376,31 @@ def phase_build(_build):
                            if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": secs, "built": sorted(built),
           "ptxas": ptxas})
+    # tensor-core instructions in each attention library's SASS: HMMA
+    # (mma.sync) and HGMMA (wgmma); the bf16 flash kernel must have them
+    tool = disassembler()
+    for name in ("flash_attention", "decode_attention"):
+        line = {"phase": "build", "library": name, "disassembler": tool}
+        if tool is None:
+            line["tensor_core_sass"] = ("not measured: no cuobjdump in the "
+                                        "CUDA toolkit or Triton's package")
+        else:
+            out = subprocess.run([tool, "-sass",
+                                  str(_build.library_path(name))],
+                                 capture_output=True, text=True, timeout=120)
+            if out.returncode != 0:
+                line["tensor_core_sass"] = ("not measured: cuobjdump exit "
+                                            f"{out.returncode}: "
+                                            f"{out.stderr.strip()[-300:]}")
+            else:
+                line["tensor_core_sass"] = {
+                    op: len(re.findall(rf"\b{op}\.", out.stdout))
+                    for op in ("HMMA", "HGMMA")}
+        emit(line)
+        sass = line["tensor_core_sass"]
+        if name == "flash_attention" and isinstance(sass, dict):
+            check(sass["HMMA"] + sass["HGMMA"] > 0,
+                  "flash_attention's SASS holds no tensor-core instruction")
 
 
 def phase_kernels(dev, hp, hp_ref, bump, R=64):
@@ -629,13 +681,23 @@ FLASH_CASES = [
     (2, 1000, 1000, 32, 8, 64, (700, 1000), 0),   # ragged Sq, kvl < Skv
     (1, 256, 256, 8, 8, 64, None, 0),             # G = 1
     (1, 200, 333, 8, 2, 128, (333,), 133),        # hd 128
+    (2, 1000, SERVE_MAX_LEN, 64, 8, 128, (1000, 1000), 0),  # jamba prefill
+    # tile edges: 65 rows (a 1-row q-tile), 129 keys (a 1-key tile),
+    # kv_valid_len 64 (a tile boundary), q offset 64
+    (2, 65, 129, 16, 2, 128, (129, 64), 64),
 ]
-# (B, S, H, KV, hd, positions); valid length position + 1 < S
+# (B, S, H, KV, hd, positions); valid length position + 1 <= S
 DECODE_CASES = [
     (8, SERVE_MAX_LEN, 32, 8, 64, (1016, 144, 528, 1016, 272, 1016, 528,
                                    144)),          # granite decode
     (2, 512, 8, 8, 64, (100, 511)),               # G = 1
     (3, 1024, 8, 2, 128, (5, 700, 1023)),         # hd 128
+    (8, SERVE_MAX_LEN, 64, 8, 128, (1016, 144, 528, 1016, 272, 1016, 528,
+                                    144)),         # jamba decode
+    # split edges (16 splits of S = 1000 for 4 x 2 KV heads on 132 SMs):
+    # 1 key (split 0 only), 15 keys (an empty split), 64 keys (16 equal
+    # splits), all 1000 keys (no multiple of the split width or the tile)
+    (4, 1000, 8, 2, 64, (0, 14, 63, 999)),
 ]
 
 
@@ -1477,17 +1539,43 @@ def flash_bound(B, Sq, H, KV, hd, kvl, nbytes_el):
     return nbytes, flops
 
 
-def attention_rows(dev, fa, fa_ref, da, da_ref, cfg, launches, d, groups,
-                   errs):
-    """The two attention kernels' kernels-line rows, at the serving
-    shapes: the run's largest prefill dispatch, and 8 slots decoding."""
+def kernel_us(fn, n=20):
+    """Device µs per call of each kernel ``fn`` launches, by kernel name
+    (torch.profiler over ``n`` calls after one warm-up)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = re.search(r"(\w+)(<|\()", e.key)
+            out[name.group(1) if name else e.key] = (
+                e.self_device_time_total / n)
+    return out
+
+
+def bound_ms(nbytes, flops):
+    """(least time in ms, "bytes" or "operations"): the bytes over the HBM
+    rate against the flops at the bf16 tensor-core rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / BF16_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_flops),
+            "bytes" if t_bytes >= t_flops else "operations")
+
+
+def flash_case(dev, fa, fa_ref, n, L, H, KV, hd, seed):
+    """A causal prefill of n prompts of L tokens into a max_len cache, as
+    the engine's length group runs it: (kernel call, plain call, library
+    call, the library's description, (bytes, flops))."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    dt, H, KV, hd = (torch.bfloat16, cfg.num_heads, cfg.num_kv_heads,
-                     cfg.head_dim)
-    (n, L) = max(((n, L) for (_, L), n in groups.items()),
-                 key=lambda t: t[0] * t[1] * t[1])
-    q, k, v = attn_inputs(dev, dt, n, L, SERVE_MAX_LEN, H, KV, hd, 99)
+    q, k, v = attn_inputs(dev, torch.bfloat16, n, L, SERVE_MAX_LEN, H, KV,
+                          hd, seed)
     pos = torch.arange(L, device=dev, dtype=torch.int32).expand(n, L)
     kvl = torch.full((n,), L, device=dev, dtype=torch.int32)
     # the library computes the same function on the valid keys alone:
@@ -1495,84 +1583,113 @@ def attention_rows(dev, fa, fa_ref, da, da_ref, cfg, launches, d, groups,
     # cache's first L rows is exact (and may take its flash backend)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :L], v[:, :L]))
 
-    def fa_sdpa():
+    def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                               enable_gqa=True)
 
-    def fa_flash():
+    def flash():
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-            return fa_sdpa()
+            return sdpa()
     try:                                    # the fastest backend if it runs
-        fa_flash()
-        fa_lib, fa_lib_name = fa_flash, "flash backend"
+        flash()
+        lib, backend = flash, "flash backend"
     except RuntimeError:
-        fa_lib, fa_lib_name = fa_sdpa, "default backend"
-    fa_err = (fa_lib().transpose(1, 2).float()
-              - fa(q, k, v, q_positions=pos, kv_valid_len=kvl).float()
-              ).abs().max().item()
-    fbytes, fflops = flash_bound(n, L, H, KV, hd, [L] * n, 2)
+        lib, backend = sdpa, "default backend"
+    return (lambda: fa(q, k, v, q_positions=pos, kv_valid_len=kvl),
+            lambda: fa_ref(q, k, v, q_offset=pos[:, 0], kv_valid_len=kvl),
+            lambda: lib().transpose(1, 2),
+            f"causal, first kv_valid_len keys, enable_gqa, {backend}",
+            flash_bound(n, L, H, KV, hd, [L] * n, 2))
 
-    B, S = SERVE_SLOTS, SERVE_MAX_LEN
-    dq, dk, dv = attn_inputs(dev, dt, B, 1, S, H, KV, hd, 98)
-    dpos = torch.tensor(DECODE_CASES[0][5], device=dev,
-                        dtype=torch.int32)[:, None]
-    dkvl = dpos[:, 0] + 1
+
+def decode_case(dev, da, da_ref, B, H, KV, hd, positions, seed):
+    """B slots decoding at ``positions`` over a max_len cache: (kernel
+    call, plain call, library call, the library's description, (bytes,
+    flops))."""
+    import torch.nn.functional as F
+    q, k, v = attn_inputs(dev, torch.bfloat16, B, 1, SERVE_MAX_LEN, H, KV,
+                          hd, seed)
+    pos = torch.tensor(positions, device=dev, dtype=torch.int32)[:, None]
+    kvl = pos[:, 0] + 1
     # valid lengths differ per row: a boolean mask over the longest one
-    smax = int(dkvl.max().item())
-    dmask = (torch.arange(smax, device=dev)[None, :]
-             < dkvl[:, None])[:, None, None, :]
-    dqt, dkt, dvt = (t.transpose(1, 2) for t in (dq, dk[:, :smax],
-                                                 dv[:, :smax]))
+    smax = max(positions) + 1
+    mask = (torch.arange(smax, device=dev)[None, :]
+            < kvl[:, None])[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :smax], v[:, :smax]))
+    valid = sum(positions) + len(positions)
+    return (lambda: da(q, k, v, q_positions=pos, kv_valid_len=kvl),
+            lambda: da_ref(q, k, v, q_positions=pos, kv_valid_len=kvl),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2),
+            "bool mask over the longest valid length, enable_gqa",
+            (2 * (2 * B * H * hd + valid * KV * 2 * hd),
+             valid * H * 2 * (hd + hd)))
 
-    def da_lib():
-        return F.scaled_dot_product_attention(dqt, dkt, dvt, attn_mask=dmask,
-                                              enable_gqa=True)
-    da_err = (da_lib().transpose(1, 2).float()
-              - da(dq, dk, dv, q_positions=dpos, kv_valid_len=dkvl).float()
-              ).abs().max().item()
-    valid = int(dkvl.sum().item())
-    dbytes = 2 * (2 * B * H * hd + valid * KV * 2 * hd)
-    dflops = valid * H * 2 * (hd + hd)
+
+def attention_rows(dev, fa, fa_ref, da, da_ref, cfg, launches, d, groups,
+                   errs):
+    """The two attention kernels' kernels-line rows, at the serving
+    shapes: the run's largest prefill dispatch, and 8 slots decoding;
+    each with ``at_jamba``, the kernel, SDPA and the bound at jamba's
+    attention shapes (64 heads, 8 KV heads of 128: 4 x 1000 prefill, 8
+    slots decoding)."""
+    from repro_torch.kernels import _attn
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B, S, positions = SERVE_SLOTS, SERVE_MAX_LEN, DECODE_CASES[0][5]
+    (n, L) = max(((n, L) for (_, L), n in groups.items()),
+                 key=lambda t: t[0] * t[1] * t[1])
+    nsplit = _attn.decode_splits(S, B, KV, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    Lj = SERVE_LENGTHS[-1]
     rows = []
-    for (name, source, replaces, kern, plain, lib, lib_name, lerr, nbytes,
-         flops, per, shape) in (
-            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention/kernel.py:73",
-             lambda: fa(q, k, v, q_positions=pos, kv_valid_len=kvl),
-             lambda: fa_ref(q, k, v, q_offset=pos[:, 0], kv_valid_len=kvl),
-             fa_lib, "causal, first kv_valid_len keys, enable_gqa, "
-             + fa_lib_name, fa_err, fbytes, fflops,
+    for name, line, case, jamba, per, shape, jshape in (
+            ("flash_attention", 73,
+             flash_case(dev, fa, fa_ref, n, L, H, KV, hd, 99),
+             lambda: flash_case(dev, fa, fa_ref, JAMBA_PROFILE_ROWS, Lj, 64,
+                                8, 128, 97),
              {"per_prefill_dispatch": launches["flash_attention"]
               / d["prefill_dispatches"]},
-             {"B": n, "Sq": L, "Skv": SERVE_MAX_LEN, "kv_valid_len": L,
-              "H": H, "KV": KV, "hd": hd, "dtype": "bfloat16"}),
-            ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention/kernel.py:61",
-             lambda: da(dq, dk, dv, q_positions=dpos, kv_valid_len=dkvl),
-             lambda: da_ref(dq, dk, dv, q_positions=dpos, kv_valid_len=dkvl),
-             da_lib, "bool mask over the longest valid length, enable_gqa",
-             da_err, dbytes, dflops,
+             {"B": n, "Sq": L, "Skv": S, "kv_valid_len": L},
+             {"B": JAMBA_PROFILE_ROWS, "Sq": Lj, "Skv": S,
+              "kv_valid_len": Lj}),
+            ("decode_attention", 61,
+             decode_case(dev, da, da_ref, B, H, KV, hd, positions, 98),
+             lambda: decode_case(dev, da, da_ref, B, 64, 8, 128, positions,
+                                 96),
              {"per_decode_step": launches["decode_attention"]
               / d["decode_steps"]},
-             {"B": B, "S": S, "positions": list(DECODE_CASES[0][5]),
-              "H": H, "KV": KV, "hd": hd, "dtype": "bfloat16"})):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_flops = flops / BF16_FLOPS_PER_S * 1e3
+             {"B": B, "S": S, "positions": list(positions),
+              "splits": nsplit, "split_pass_blocks": nsplit * KV * B},
+             {"B": B, "S": S, "positions": list(positions)})):
+        kern, plain, lib, lib_name, (nbytes, flops) = case
+        b_ms, b_by = bound_ms(nbytes, flops)
+        jk, _, jlib, _, jbound = jamba()
+        jb_ms, jb_by = bound_ms(*jbound)
         rows.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "launches_per": per, "shape": shape,
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}/kernel.py:{line}",
+            "launches": launches[name], "launches_per": per,
+            "shape": dict(shape, H=H, KV=KV, hd=hd, dtype="bfloat16"),
             "max_abs_err": max(errs[name].values()),
             "max_abs_err_by_dtype": errs[name],
             "ms": graph_ms(kern, inner=5), "plain_ms": graph_ms(plain, inner=5),
-            "bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops,
             "library_ms": graph_ms(lib, inner=5),
             "library": "torch.nn.functional.scaled_dot_product_attention "
                        f"({lib_name})",
-            "library_max_abs_err": lerr,
-            "call_ms": event_ms(kern, inner=5)})
+            "library_max_abs_err": (kern().float() - lib().float()
+                                    ).abs().max().item(),
+            "call_ms": event_ms(kern, inner=5),
+            "device_us_by_kernel": kernel_us(kern),
+            "at_jamba": {
+                "shape": dict(jshape, H=64, KV=8, hd=128, dtype="bfloat16"),
+                "ms": graph_ms(jk, inner=5),
+                "library_ms": graph_ms(jlib, inner=5),
+                "library_max_abs_err": (jk().float() - jlib().float()
+                                        ).abs().max().item(),
+                "bound_ms": jb_ms, "bound_by": jb_by}})
     return rows
 
 

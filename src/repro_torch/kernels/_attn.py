@@ -11,6 +11,23 @@ import torch
 HEAD_DIMS = ((32, 32), (64, 64), (128, 128))
 # the dtype code every C entry takes (the WKV6 wrapper's too)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# flash-decode's split over the key range: at most one split per
+# SPLIT_MIN_KEYS keys of the cache, and enough splits for about
+# SPLIT_BLOCKS_PER_SM blocks per SM. At 8 slots x 8 KV heads on an H100
+# (132 SMs) 2 gives 5 splits, which ran faster than 9 or 17 (each split
+# pays its own prologue and its share of the merge).
+SPLIT_MIN_KEYS = 64
+SPLIT_BLOCKS_PER_SM = 2
+
+
+def decode_splits(S: int, B: int, KV: int, sm_count: int) -> int:
+    """The number of key-range splits of one flash-decode launch, from
+    host-known shapes only (the cache length S, B, KV, the card's SM
+    count) and never from the device's positions or lengths, so that a
+    decode step needs no host synchronisation."""
+    by_len = -(-S // SPLIT_MIN_KEYS)
+    by_sms = -(-SPLIT_BLOCKS_PER_SM * sm_count // max(1, B * KV))
+    return max(1, min(by_len, by_sms))
 
 
 def check_inputs(name: str, q, k, v, *index) -> None:

@@ -50,12 +50,12 @@ LIBRARIES = {
                                    _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                                    _STRIDES, _INT, _PTR),
     },
-    # (dtype, q, k, v, out, positions, kv_len, B, S, H, KV, hd, hdv,
-    #  strides[12], stream)
+    # (dtype, q, k, v, out, workspace, positions, kv_len, B, S, H, KV, hd,
+    #  hdv, nsplit, strides[12], stream)
     "decode_attention": {
         "decode_attention_launch": (_INT, _PTR, _PTR, _PTR, _PTR, _PTR,
-                                    _PTR, _INT, _INT, _INT, _INT, _INT, _INT,
-                                    _STRIDES, _PTR),
+                                    _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                                    _INT, _INT, _STRIDES, _PTR),
     },
     # (dtype, r, k, v, logw, u, s0, sT, y, B, S, H, hd, strides[19],
     #  stream)

@@ -257,3 +257,36 @@ def test_wrappers_refuse_a_device_without_a_kernel():
         flash_attention(q, k, k)
     with pytest.raises(ValueError, match="CUDA tensor"):
         decode_attention(q[:, :1], k, k)
+
+
+def _split_ranges(kend, nsplit):
+    """The key ranges [lo, hi) flash-decode gives the splits of a sequence
+    whose keys [0, kend) are walked: ``split_range`` in
+    ``csrc/decode_attention.cu``, ceil(kend / nsplit) keys each, the last
+    ones short or empty."""
+    width = -(-kend // nsplit)
+    los = [min(kend, i * width) for i in range(nsplit)]
+    return [(lo, min(kend, lo + width)) for lo in los]
+
+
+@pytest.mark.parametrize("S,B,KV", [(4096, 8, 8), (4096, 1, 8), (1000, 4, 2),
+                                    (200, 2, 2), (129, 64, 8), (1, 1, 1)])
+def test_decode_splits_come_from_shapes_and_cover_the_keys(S, B, KV):
+    """flash-decode's split count is a function of host integers alone
+    (the cache length, B, KV, the SM count: no device value, so no host
+    synchronisation), at least 1 and at most one split per
+    SPLIT_MIN_KEYS keys, with enough blocks for SPLIT_BLOCKS_PER_SM per
+    SM unless that bound binds; and for every number of walked keys
+    kend in [1, S] the kernel's ranges cover [0, kend) exactly once, in
+    order."""
+    cap = -(-S // _attn.SPLIT_MIN_KEYS)
+    for sms in (132, 114, 1):
+        n = _attn.decode_splits(S, B, KV, sms)
+        assert type(n) is int and 1 <= n <= cap
+        assert n == cap or B * KV * n >= _attn.SPLIT_BLOCKS_PER_SM * sms
+        for kend in range(1, S + 1):
+            ranges = _split_ranges(kend, n)
+            assert len(ranges) == n and ranges[0][0] == 0
+            assert ranges[-1][1] == kend
+            assert all(lo <= hi for lo, hi in ranges)
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))

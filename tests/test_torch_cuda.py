@@ -7,10 +7,12 @@ CPU mode), run on the card with
 
 The Faces kernels must equal their plain PyTorch versions exactly, and
 Faces on the card must equal Faces on the CPU bit for bit in every mode.
-The attention kernels accumulate in float32 where their plain versions
-round to the input dtype, so on unit-normal inputs they are held to the
-tolerances of ``tests/test_kernels.py``: 2e-5 in float32 and, in bf16,
-2e-2 of the largest |output|. The WKV6 kernel and its plain version both
+The attention kernels accumulate in float32 (the bf16 flash kernel
+rounds its unnormalised weights to bf16 for the tensor cores, where the
+plain version rounds the normalised ones), so on unit-normal inputs they
+are held to the tolerances of ``tests/test_kernels.py``: 2e-5 in float32
+and, in bf16, 2e-2 of the largest |output|. Run the attention cases
+alone with ``-m cuda -k attention``. The WKV6 kernel and its plain version both
 compute in float32 on the same values: 1e-5. So do the selective-scan
 kernel and its plain version: 1e-5 of max(1, the largest |value|) for
 the state and a float32 y, 2e-2 of it for a bf16 y (one rounding of the
@@ -154,6 +156,19 @@ def _assert_attn_close(out, ref):
     (1, 200, 333, 4, 1, 128, (333,), 133, True),         # hd 128, ragged
     (2, 130, 512, 4, 2, 32, (90, 512), 0, True),         # kvl < Sq
     (2, 77, 300, 8, 4, 64, (300, 150), 0, False),        # not causal
+    # the edges of the 64-row q-tiles, the 64-key tiles and their
+    # two-stage ring (Sq, Skv in {1, 15, 16, 63, 64, 65, 127, 129, 1000}),
+    # hd 64 and 128, G 1, 4 and 8
+    (1, 1, 1, 4, 4, 64, None, 0, True),
+    (2, 15, 16, 8, 2, 64, (16, 15), 0, True),
+    (1, 16, 15, 16, 2, 128, None, 0, False),
+    (2, 63, 64, 8, 8, 64, (64, 63), 1, True),
+    (1, 64, 65, 16, 2, 128, (65,), 1, True),
+    (2, 65, 63, 8, 2, 64, (63, 1), 0, False),
+    (1, 127, 129, 8, 2, 128, (129,), 2, True),
+    (2, 129, 127, 8, 8, 64, (127, 64), 0, True),
+    (1, 1, 1000, 32, 8, 64, (1000,), 999, True),         # one row, last key
+    (1, 1000, 1000, 64, 8, 128, (1000,), 0, True),       # jamba prefill
 ])
 def test_flash_attention_kernel_equals_plain(dev, dtype, B, Sq, Skv, H, KV,
                                              hd, kvl, off, causal):
@@ -182,17 +197,48 @@ def test_flash_attention_kernel_equals_plain(dev, dtype, B, Sq, Skv, H, KV,
     (2, 512, 8, 8, 64, (100, 511)),                      # G = 1
     (3, 1024, 4, 1, 128, (5, 700, 1023)),                # hd 128
     (2, 200, 16, 2, 32, (199, 13)),                      # ragged S
+    # split edges: one key (only split 0 holds keys), fewer keys than
+    # splits (empty splits), as many keys as splits x 4 (equal splits),
+    # S = 1000 keys (no multiple of the split width or the 64-key tile)
+    (4, 1000, 8, 2, 64, (0, 14, 63, 999)),               # G = 4
+    (3, 4096, 64, 8, 128, (1016, 0, 4095)),              # jamba, G = 8
+    (2, 129, 8, 8, 128, (128, 3)),                       # G = 1, hd 128
+    # more than 16 heads per KV head: the bf16 kernel's head groups
+    (2, 300, 32, 1, 64, (299, 17)),                      # G = 32
+    (1, 200, 20, 1, 32, (150,)),                         # G = 20: 16 + 4
 ])
 def test_decode_attention_kernel_equals_plain(dev, dtype, B, S, H, KV, hd,
                                               pos):
+    """Per case four sets of valid lengths: the positions', S // 2, and
+    at the last position, one at a split boundary per sequence (a
+    multiple of the split count) with sequence 0's keys ending inside
+    split 0, and sequence 0 with no valid key (every split walks its keys
+    masked) beside full ones. The wrapper makes no host
+    synchronisation."""
+    from repro_torch.kernels import _attn
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
     q, k, v = _attn_inputs(dev, dtype, B, 1, S, H, KV, hd)
     p = torch.tensor(pos, device=dev, dtype=torch.int32)[:, None]
-    for kvl in (p[:, 0] + 1, torch.full((B,), S // 2, device=dev,
-                                        dtype=torch.int32)):
+    n = _attn.decode_splits(S, B, KV, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    last = torch.full((B, 1), S - 1, device=dev, dtype=torch.int32)
+    at_bounds = [1] + [min(S, n * (3 + 5 * b)) for b in range(1, B)]
+    full = [0] + [S] * (B - 1)
+    for p, kvl in ((p, p[:, 0] + 1),
+                   (p, torch.full((B,), S // 2, device=dev,
+                                  dtype=torch.int32)),
+                   (last, torch.tensor(at_bounds, device=dev,
+                                       dtype=torch.int32)),
+                   (last, torch.tensor(full, device=dev,
+                                       dtype=torch.int32))):
         _build.reset_launches()
-        out = decode_attention(q, k, v, q_positions=p, kv_valid_len=kvl)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = decode_attention(q, k, v, q_positions=p, kv_valid_len=kvl)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         assert _build.LAUNCHES["decode_attention"] == 1
         ref = decode_attention_ref(q, k, v, q_positions=p, kv_valid_len=kvl)

@@ -10,8 +10,9 @@ that of ``test_kernels.py`` (both sides sum the same float32 terms in
 other orders), and 2e-2 for a bf16 y (one bf16 rounding of the same
 float32 value may land one spacing apart).
 
-Model level, with the same weights (the reference's ``init_params``,
-with the mamba leaves it leaves degenerate redrawn by
+Model level, with the same weights (the reference's leaf rules drawn by
+``tests/_ref_params.py``, a fixed function of the seed, with the mamba
+leaves the reference's init leaves degenerate redrawn by
 ``tests/_mamba_draws.py``, handed over as numpy through
 ``from_reference``): ``mamba()`` without and with a cache (a prefill,
 then 3 decode steps), ``moe_dense`` and ``moe_gshard`` (outputs and aux
@@ -35,7 +36,6 @@ from repro.configs import get_config as jax_config
 from repro.kernels.mamba_scan import mamba_scan as j_mamba_scan
 from repro.kernels.mamba_scan.ref import mamba_scan_ref as j_mamba_scan_ref
 from repro.models import forward as j_forward
-from repro.models import init_params as j_init
 from repro.models import logits_from_hidden as j_logits
 from repro.models import mamba as j_mamba
 from repro.models import model_specs as j_specs
@@ -50,11 +50,22 @@ from repro_torch.models import (cache_specs, forward, from_reference,
                                 model_specs, param_count)
 from repro_torch.models import mamba, moe
 from _mamba_draws import redraw_mamba
+from _ref_params import ref_params
 
 ARCH = "jamba-1.5-large-398b"
 SCAN_TOL = 1e-5
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
+# the summed MoE aux loss (~0.04-0.09): the two frameworks' router
+# softmax and mean sum in other orders
+AUX_RTOL = 1e-3
+# in bf16 the aux also counts each token's top-2 experts, and a near-tie
+# that rounds the other way in one framework moves it by a step that the
+# reference's own bf16-vs-float32 distance on one draw need not show
+# (measured 8.8e-7 to 1.92e-3 of the aux over 21 weight draws x 4 cases,
+# while the port's bf16 aux lay up to 1.68e-3 from the reference's). So
+# the bf16 bound adds that spread's largest value, rounded up.
+AUX_BF16_SPREAD = 2e-3
 
 
 def _np(t):
@@ -185,9 +196,7 @@ def _configs(dtype="float32", num_layers=None):
 
 def _models(dtype="float32", seed=0, num_layers=None):
     jc, tc = _configs(dtype, num_layers)
-    jp = redraw_mamba(jax.tree.map(np.asarray,
-                                   j_init(j_specs(jc),
-                                          jax.random.PRNGKey(seed))),
+    jp = redraw_mamba(ref_params(j_specs(jc), seed),
                       np.random.RandomState(seed))
     tp = from_reference(tc, jp, "cpu", dtype=getattr(torch, dtype))
     return jc, tc, jax.tree.map(jnp.asarray, jp), tp
@@ -344,8 +353,11 @@ def _bf16_close(port, ref16, ref32):
 def test_forward_matches_jax(impl, num_layers, dtype):
     """The whole reduced jamba (8 layers: prefix 2 + unit 2 x 3) and its
     4-layer cut (the depth the card serves at full width: all prefix),
-    dense MoE: in float32 the hidden states, logits and summed aux loss
-    at F32_TOL; in bf16 the logits as ``_bf16_close`` says."""
+    dense MoE: in float32 the hidden states and logits at F32_TOL and the
+    summed aux loss at AUX_RTOL; in bf16 the logits as ``_bf16_close``
+    says, and the aux loss at AUX_RTOL + AUX_BF16_SPREAD plus this draw's
+    distance of the reference's bf16 aux from its float32 aux (as
+    ``_bf16_close`` widens the logits' bound)."""
     jc, tc, jp, tp = _models(dtype, seed=1, num_layers=num_layers)
     jc = dataclasses.replace(jc, attn_impl=impl)
     rules = make_rules(jc, None, None)
@@ -359,9 +371,12 @@ def test_forward_matches_jax(impl, num_layers, dtype):
         x, _, aux = j_forward(cfg, jp, batch, rules=rules, moe_impl="dense")
         return x, j_logits(cfg, jp, x, rules), aux
     jx, jl, jaux = reference(jc)
+    aux_rtol, aux_atol = AUX_RTOL, 0.0
     if dtype == "bfloat16":
-        _, jl32, _ = reference(dataclasses.replace(jc,
-                                                   compute_dtype="float32"))
+        _, jl32, jaux32 = reference(dataclasses.replace(
+            jc, compute_dtype="float32"))
+        aux_rtol += AUX_BF16_SPREAD
+        aux_atol = abs(float(jaux) - float(jaux32))
     for route in ("kernel", "plain"):
         tx, _, aux = forward(dataclasses.replace(tc, attn_impl=route), tp,
                              {"tokens": torch.from_numpy(toks),
@@ -373,7 +388,8 @@ def test_forward_matches_jax(impl, num_layers, dtype):
             _close(tl, jl, F32_TOL)
         else:
             _bf16_close(tl, jl, jl32)
-        np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-3)
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=aux_rtol,
+                                   atol=aux_atol)
         assert float(aux) > 0
 
 
@@ -386,9 +402,7 @@ def test_bf16_params_keep_a_log_float32(source):
         p = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
                         "cpu", torch.bfloat16)
     else:
-        jp = jax.tree.map(np.asarray, j_init(j_specs(jax_config(ARCH)
-                                                      .reduced()),
-                                             jax.random.PRNGKey(0)))
+        jp = ref_params(j_specs(jax_config(ARCH).reduced()), 0)
         p = from_reference(cfg, jp, "cpu", torch.bfloat16)
     for layer in p["layers"]:
         for part in layer.values():

@@ -1,7 +1,8 @@
 """The port's dense model on the CPU against the JAX package's.
 
-The same weights (the reference's ``init_params``, handed over as numpy
-through ``from_reference``) and the same numpy tokens go through the
+The same weights (drawn in the reference's layout by
+``tests/_ref_params.py``, a fixed function of the seed, handed over as
+numpy through ``from_reference``) and the same numpy tokens go through the
 JAX ``forward`` — with ``attn_impl="xla"`` and ``"pallas_interpret"``
 (its Pallas kernels in interpret mode) — and through the port's
 ``forward`` (plain attention on the CPU): without a cache, and as a
@@ -29,7 +30,6 @@ import jax.numpy as jnp
 from repro.configs import get_config as jax_config
 from repro.models import cache_specs as j_cache_specs
 from repro.models import forward as j_forward
-from repro.models import init_params as j_init
 from repro.models import logits_from_hidden as j_logits
 from repro.models import model_specs as j_specs
 from repro.models.params import is_spec, param_count as j_param_count
@@ -43,6 +43,7 @@ from repro_torch.models import (cache_specs, forward, from_reference,
                                 zeros_from_specs)
 from repro_torch.train.steps import (make_decode_sample_step,
                                      make_prefill_sample_step)
+from _ref_params import ref_params
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
@@ -63,9 +64,9 @@ def models():
     out = {}
     for variant in ("g1", "kv2"):
         jc, tc = _configs(variant)
-        jp = j_init(j_specs(jc), jax.random.PRNGKey(0))
-        out[variant] = (jc, tc, jp, from_reference(
-            tc, jax.tree.map(np.asarray, jp), "cpu"))
+        p = ref_params(j_specs(jc), 0)
+        out[variant] = (jc, tc, jax.tree.map(jnp.asarray, p),
+                        from_reference(tc, p, "cpu"))
     return out
 
 
@@ -178,9 +179,9 @@ def test_prefill_and_decode_match_jax(models, variant, impl):
 
 def test_prefill_and_decode_match_jax_in_bf16():
     jc, tc = _configs("kv2", "bfloat16")
-    jp = j_init(j_specs(jc), jax.random.PRNGKey(1))
-    tp = from_reference(tc, jax.tree.map(np.asarray, jp), "cpu",
-                        dtype=torch.bfloat16)
+    p = ref_params(j_specs(jc), 1)
+    jp = jax.tree.map(jnp.asarray, p)
+    tp = from_reference(tc, p, "cpu", dtype=torch.bfloat16)
     assert tp["layers"][0]["mixer"]["wq"].dtype == torch.bfloat16
     assert tp["layers"][0]["norm1"]["scale"].dtype == torch.float32
     outs, _, _ = _prefill_decode(jc, tc, jp, tp,

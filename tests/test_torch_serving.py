@@ -19,12 +19,12 @@ torch = pytest.importorskip("torch")
 import jax
 
 from repro.configs import get_config as jax_config
-from repro.models import init_params as j_init
 from repro.models import model_specs as j_specs
 from repro.serving import Request as JRequest
 from repro.serving import ServingEngine as JServingEngine
 from repro.sharding.rules import make_rules
 from _mamba_draws import redraw_mamba
+from _ref_params import ref_params
 from _rwkv_draws import redraw_rwkv
 from repro_torch.configs import get_config
 from repro_torch.models import from_reference, init_params, model_specs
@@ -203,15 +203,15 @@ def test_deterministic_completion_order(tiny_model):
 
 @pytest.mark.parametrize("kv_heads", [1, 2])
 def test_greedy_tokens_equal_the_jax_engine(kv_heads):
-    """Same params (the reference's init, handed over as numpy), same
+    """Same params (``ref_params``, handed over as numpy), same
     requests — three prompt lengths, more requests than slots, ragged
     budgets — float32 compute: every request gets the same tokens."""
     kw = dict(TINY, num_kv_heads=kv_heads, compute_dtype="float32")
     jcfg = dataclasses.replace(jax_config("granite-3-2b").reduced(), **kw)
     tcfg = dataclasses.replace(get_config("granite-3-2b").reduced(), **kw)
-    jparams = j_init(j_specs(jcfg), jax.random.PRNGKey(0))
-    tparams = from_reference(tcfg, jax.tree.map(np.asarray, jparams),
-                             "cpu")
+    params = ref_params(j_specs(jcfg), 0)
+    jparams = jax.tree.map(jax.numpy.asarray, params)
+    tparams = from_reference(tcfg, params, "cpu")
     jeng = JServingEngine(jcfg, jparams, make_rules(jcfg, None, None),
                           batch_slots=3, max_len=32)
     teng = ServingEngine(tcfg, tparams, batch_slots=3, max_len=32,
@@ -263,17 +263,15 @@ def test_st_routed_decode_is_not_ported_yet(tiny_model):
 
 def _state_models(arch, redraw):
     """The reduced ``arch`` in float32 for both frameworks, the same
-    weights: the reference's init with the leaves it leaves constant
-    redrawn by ``redraw`` (``tests/_rwkv_draws.py``,
+    weights: ``ref_params`` with the leaves the reference's init leaves
+    constant redrawn by ``redraw`` (``tests/_rwkv_draws.py``,
     ``tests/_mamba_draws.py``: the init's constants would leave rwkv's
     token shift and bonus inert and mamba's decays all alike)."""
     jcfg = dataclasses.replace(jax_config(arch).reduced(),
                                compute_dtype="float32")
     tcfg = dataclasses.replace(get_config(arch).reduced(),
                                compute_dtype="float32")
-    params = redraw(jax.tree.map(np.asarray,
-                                 j_init(j_specs(jcfg), jax.random.PRNGKey(0))),
-                    np.random.RandomState(0))
+    params = redraw(ref_params(j_specs(jcfg), 0), np.random.RandomState(0))
     return (jcfg, tcfg, jax.tree.map(jax.numpy.asarray, params),
             from_reference(tcfg, params, "cpu"))
 
