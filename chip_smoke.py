@@ -30,13 +30,15 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  1000 and kv_valid_len < Skv, q-tile and key-tile edges
                  and flash-decode's split edges, on unit-normal q, k, v:
                  within 2e-5 (float32) and within 2e-2 of the largest
-                 |output| (bf16); the WKV6 kernel in
+                 |output| (bf16); the WKV6 kernel (staged from 32
+                 steps, sequential below) in
                  float32 and bf16 at (B, S, H, hd) = (2,128,2,32),
                  (1,256,4,64), (8,1,32,64) (decode) and (3,1000,32,64)
                  (ragged prefill) with a nonzero s0, two 500-step
                  launches with the state carried against one of 1000,
                  and the state written in place: within 1e-5; the
-                 selective-scan kernel in float32 and bf16 at (B, S, di,
+                 selective-scan kernel (its decode kernel up to 4 steps)
+                 in float32 and bf16 at (B, S, di,
                  ds) = (2,128,64,8), (1,64,128,16), (4,1000,16384,16)
                  (jamba prefill) and (8,1,16384,16) (decode), b and c
                  strided column slices (equal to contiguous copies), 500
@@ -96,10 +98,15 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  mixes, decay base and bonus redrawn so that none is
                  inert, ~1.6 B) served as in phase 6: the WKV6 kernel must
                  launch 24 times in every prefill dispatch and in every
-                 decode step; the wkv6 kernels-line row (time at the run's
-                 largest prefill dispatch and at 8 slots decoding, bound,
-                 plain version; no library call computes WKV6); then the
-                 replay of phase 7 on rwkv's served tokens;
+                 decode step; each profile's device ms per kernel
+                 (prefill_kernel_device_ms: wkv6's share of the 8 x 1000
+                 prefill); the wkv6 kernels-line row (time at the run's
+                 largest prefill dispatch, at one 1000-token prompt
+                 (at_b1) and at 8 slots decoding, bound, plain version;
+                 no library call computes WKV6); then the replay of
+                 phase 7 on rwkv's served tokens, with bf16_spread: how
+                 far the bf16 plain path moves with its WKV sums in two
+                 other orders (reported, not checked);
   9. jamba    — rwkv's weights freed, jamba-1.5-large-398b at full width
                  (d_model 8192, 64 heads, 8 KV heads of 128, d_ff 24576,
                  16 experts of 24576 top-2, d_state 16, expand 2) cut to
@@ -109,7 +116,8 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  dense MoE: exactly 1 flash_attention and 3 mamba_scan
                  launches in every prefill dispatch, 1 decode_attention
                  and 3 mamba_scan in every decode step; its prefill
-                 profiled at 4 x 1000; the mamba_scan kernels-line row;
+                 profiled at 4 x 1000; the mamba_scan kernels-line row
+                 (with at_b1, as wkv6's);
                  the bf16 replay of phase 7 with every scan launch held
                  to the plain version (its float32 copy, 92 GB, does not
                  fit); then phase 7 in bf16 and float32 on a no-expert
@@ -121,7 +129,22 @@ The last three lines are the kernels JSON (one row per kernel), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without a CUDA card the script exits non-zero before printing any
 result.
+
+    python3 chip_smoke.py --ab DIR
+
+times the two recurrent kernels (WKV6, the selective scan) of this tree
+against those of DIR, another checkout of the repository (for a parent
+commit: ``git archive <commit> | tar -x -C DIR``, DIR inside a directory
+that ``.gitignore`` lists). Each tree runs in a worker process of its
+own, which builds that tree's kernels into its own ``build/repro_torch/``
+and prints one JSON line: each kernel function's SASS opcode counts
+(cuobjdump) and the device time per call (``graph_ms`` of 5 calls, as
+the kernels-line rows) on the rows' bf16 inputs at rwkv6-1.6b's and
+jamba's widths, B x S in AB_CASES. The workers go other, this, this,
+other, so that a drift of the card's clock falls on both trees alike;
+the last JSON line holds each tree's median per case.
 """
+import argparse
 import dataclasses
 import json
 import os
@@ -130,6 +153,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -203,7 +227,7 @@ RWKV_F32_SPREAD = 3
 # selective-scan kernel against its plain version: both run the
 # recurrence in float32 on the same values (bf16 inputs upcast), so the
 # state and a float32 y differ only by the order of the sums and the exp
-# (the kernel's exp2f, 2 ulp): 1e-5 of max(1, the largest |value|),
+# (the kernel's ex2.approx, 2 ulp): 1e-5 of max(1, the largest |value|),
 # tests/test_kernels.py's tolerance. A bf16 y is that float32 value
 # rounded once, where one rounding may land a spacing apart: 2e-2 of it.
 SCAN_RTOL = 1e-5
@@ -341,8 +365,21 @@ def device_profile(run, out_path):
     with open(out_path, "w") as f:
         f.write(avgs.table(sort_by="self_cpu_time_total", row_limit=40))
     return {"busy_ms": sum(r[0] for r in rows) if rows else None,
-            "top": rows[:6], "device_ops": device_ops,
+            "top": rows[:6], "rows": rows, "device_ops": device_ops,
             "host_calls": host_calls}
+
+
+# the device functions each wrapper launches, as the profiler names them
+KERNEL_FUNCS = {"flash_attention": ("flash_fwd_",),
+                "decode_attention": ("decode_split_", "decode_merge"),
+                "wkv6": ("wkv6_",), "mamba_scan": ("mamba_scan_",)}
+
+
+def kernel_ms(prof, names):
+    """{wrapper: device ms of its kernels in the profile ``prof``}."""
+    return {n: sum(ms for ms, key, _ in prof["rows"]
+                   if any(f in key for f in KERNEL_FUNCS[n]))
+            for n in names}
 
 
 # ---------------------------------------------------------------------------
@@ -892,7 +929,8 @@ def wkv6_row(dev, wkv, wkv_ref, cfg, d, per, groups, errs):
 
     prefill = timed(n, L, 40)
     return dict(
-        prefill, name="wkv6", route="cuda", source="src/repro_torch/csrc/"
+        prefill, at_b1=timed(1, L, 42), name="wkv6", route="cuda",
+        source="src/repro_torch/csrc/"
         "wkv6.cu", replaces="src/repro/kernels/rwkv6/kernel.py:53",
         launches=sum(p["wkv6"] for kind in per for p in per[kind]),
         launches_per={"per_prefill_dispatch": sum(
@@ -1069,7 +1107,7 @@ def mamba_scan_row(dev, scan, scan_ref, cfg, d, per, groups, errs):
     launches = {kind: sum(p["mamba_scan"] for p in per[kind])
                 for kind in per}
     return dict(
-        prefill, name="mamba_scan", route="cuda",
+        prefill, at_b1=timed(1, L, 72), name="mamba_scan", route="cuda",
         source="src/repro_torch/csrc/mamba_scan.cu",
         replaces="src/repro/kernels/mamba_scan/kernel.py:51",
         launches=sum(launches.values()),
@@ -1287,8 +1325,12 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
           / DECODE_PROFILE_STEPS,
           "decode_top_device_ms": [[round(t / DECODE_PROFILE_STEPS, 4), k,
                                     c] for t, k, c in prof["top"]],
+          "decode_kernel_device_ms_per_step": {
+              n: ms / DECODE_PROFILE_STEPS
+              for n, ms in kernel_ms(prof, names).items()},
           "prefill_profiled": [profile_rows, SERVE_LENGTHS[-1]],
           "prefill_device_busy_ms": pprof["busy_ms"],
+          "prefill_kernel_device_ms": kernel_ms(pprof, names),
           "prefill_profile_peak_mem_gb": prefill_peak,
           "prefill_top_device_ms": [[round(t, 4), k, c]
                                     for t, k, c in pprof["top"]]})
@@ -1348,12 +1390,16 @@ def phase_replay(dev, serving, cfg, params, reqs, shadow=None,
     held to the plain version on its own inputs (SCAN_RTOL for the state
     and a float32 y, SCAN_RTOL_BF16 for a bf16 y) and counted (one per
     layer of ``mixer`` per length group's prefill and per decode step).
-    ``spread`` = (module, plain name, reordered plain version) changes
-    the float32 checks (RWKV_F32): the float32 logits bound and the
-    float32 id check's margin come from the float32 spread of the model
-    (the plain path against itself with the kernel's order of sums), and
-    the served ids are compared where the float32 margin exceeds twice
-    the bf16 plain path's distance at that step. ``f32=False`` skips
+    ``spread`` = (module, plain name, reordered plain version, {name:
+    plain version in another order}) changes the float32 checks
+    (RWKV_F32): the float32 logits bound and the float32 id check's
+    margin come from the float32 spread of the model (the plain path
+    against itself with the kernel's order of sums), and the served ids
+    are compared where the float32 margin exceeds twice the bf16 plain
+    path's distance at that step. The bf16 plain path is also replayed
+    with each of the other orders, and its largest logit distance from
+    the plain path is reported (``bf16_spread``, no check): how far a
+    kernel summing in that order would stand from the bf16 gate. ``f32=False`` skips
     every float32 replay (a model whose float32 copy does not fit the
     card; the checks that need it are reported as not run).
     ``served=False``: ``reqs``' tokens come from another model (a cut of
@@ -1384,6 +1430,13 @@ def phase_replay(dev, serving, cfg, params, reqs, shadow=None,
     lk = kernel_replay(cfg, params)
     lp = replay_logits(serving, dataclasses.replace(cfg, **plain), params,
                        dev, reqs)[..., :V]
+    bf16_spread = {}
+    for name, order in (spread[3].items() if spread else ()):
+        with mock.patch.object(spread[0], spread[1], order):
+            lr = replay_logits(serving, dataclasses.replace(cfg, **plain),
+                               params, dev, reqs)[..., :V]
+        bf16_spread[name] = (lr - lp).abs().max().item()
+        del lr
     spread32, atol32 = None, LOGITS_ATOL_F32
     lk32 = lp32 = None
     if f32:
@@ -1419,6 +1472,7 @@ def phase_replay(dev, serving, cfg, params, reqs, shadow=None,
            "logits_err_p50": err.median().item(),
            "logits_abs_max": lp.abs().max().item(),
            "logits_std": lp.std().item(), "logits_atol": LOGITS_ATOL,
+           "bf16_spread": bf16_spread or None,
            "ids_against": "served" if served else "bf16 kernel path",
            "ids_compared": int(dec.sum()), "ids_total": dec.size,
            "ids_mismatched": mismatched,
@@ -1693,11 +1747,103 @@ def attention_rows(dev, fa, fa_ref, da, da_ref, cfg, launches, d, groups,
     return rows
 
 
+# --ab: B x S of the timed calls (jamba's and rwkv's 4 x 1000 prefill,
+# one 1000-token prompt, 8 x 128, the scan's longest decode-kernel call,
+# a decode step) and the opcodes a recurrent kernel's loop is made of
+AB_CASES = ((4, 1000), (1, 1000), (8, 128), (8, 4), (8, 1))
+AB_OPS = ("MUFU", "FFMA", "FMUL", "FADD", "LDS", "STS", "LDG", "STG",
+          "SHFL", "BAR")
+
+
+def sass_census(tool, lib):
+    """{kernel function: {opcode: count, "total": n}} of a library's SASS
+    (AB_OPS only, beside the total)."""
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, func = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            func = counts.setdefault(m.group(1), Counter())
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9]*)", line)
+        if m and func is not None:
+            func[m.group(1)] += 1
+    return {f: dict({op: c[op] for op in AB_OPS if c[op]},
+                    total=sum(c.values())) for f, c in counts.items()}
+
+
+def ab_worker(tree):
+    """Build ``tree``'s recurrent kernels and time them at AB_CASES on the
+    kernels-line rows' inputs (wkv_inputs at 32 heads of 64; scan_inputs
+    at d_inner 16384, d_state 16, b and c strided after 512 columns)."""
+    sys.path.insert(0, os.path.join(tree, "src"))
+    from repro_torch.kernels import _build
+    check(os.path.realpath(_build.__file__).startswith(tree + os.sep),
+          f"{_build.__file__} is not {tree}'s")
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.rwkv6 import wkv6
+    dev = torch.device("cuda", 0)
+    names = ("wkv6", "mamba_scan")
+    _build.build_all(list(names))
+    tool = disassembler()
+    sass = {n: sass_census(tool, _build.library_path(n)) if tool else
+            "not measured: no cuobjdump" for n in names}
+    ms = {}
+    for B, S in AB_CASES:
+        ins = wkv_inputs(dev, torch.bfloat16, B, S, 32, 64, 40)
+        ms[f"wkv6 {B}x{S}"] = graph_ms(lambda: wkv6(*ins), inner=5)
+        ins = scan_inputs(dev, torch.bfloat16, B, S, 16384, 16, 70, 512)
+        ms[f"mamba_scan {B}x{S}"] = graph_ms(lambda: mamba_scan(*ins),
+                                             inner=5)
+        del ins
+    emit({"tree": tree, "sass": sass, "ms": ms})
+
+
+def ab(other):
+    """This tree's recurrent kernels against ``other``'s, one worker
+    process per tree in turns other, this, this, other."""
+    trees = {"other": os.path.realpath(other), "this": ROOT}
+    runs = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--ab-worker", trees[who]],
+                             capture_output=True, text=True, timeout=900)
+        check(out.returncode == 0, f"the --ab worker of {trees[who]} "
+              f"failed:\n{out.stderr[-4000:]}")
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        if runs[who]:
+            rec.pop("sass")                 # the same build: counted once
+        emit(dict(rec, who=who))
+        runs[who].append(rec["ms"])
+    emit({"median_ms": {who: {case: statistics.median(r[case] for r in recs)
+                              for case in recs[0]}
+                        for who, recs in runs.items()}})
+
+
 def main():
+    ap = argparse.ArgumentParser(description="Smoke test of the port on "
+                                 "one NVIDIA card (see the docstring).")
+    ap.add_argument("--ab", metavar="DIR", help="time the recurrent "
+                    "kernels of this tree against DIR's")
+    ap.add_argument("--ab-worker", metavar="TREE", help=argparse.SUPPRESS)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
               "NVIDIA card", file=sys.stderr)
         return 2
+    if args.ab_worker:
+        ab_worker(os.path.realpath(args.ab_worker))
+        return 0
+    if args.ab:
+        ab(args.ab)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        print(smi.stdout.strip())
+        return 0
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch.core as core
     from repro_torch.kernels import _build
@@ -1710,6 +1856,7 @@ def main():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     from repro_torch.kernels.rwkv6 import wkv6, wkv6_ref
+    from repro_torch.kernels.rwkv6.ref import wkv6_chunked
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
     import repro_torch.configs as cfgs
     import repro_torch.models as models
@@ -1757,7 +1904,9 @@ def main():
     emit(dict(kernels[-1], phase="kernel_row"))
     phase_replay(dev, serving, cfg, params, reqs,
                  shadow=(models.rwkv, "wkv6", wkv6, wkv6_ref, "rwkv"),
-                 spread=(models.rwkv, "wkv6_ref", wkv6_reordered))
+                 spread=(models.rwkv, "wkv6_ref", wkv6_reordered,
+                         {"reordered": wkv6_reordered,
+                          "chunked": wkv6_chunked}))
     del params, reqs                        # rwkv's weights go next
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

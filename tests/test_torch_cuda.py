@@ -363,7 +363,13 @@ def _wkv_inputs(dev, dtype, B, S, H, hd, seed=0):
     (2, 128, 2, 32), (1, 256, 4, 64),         # test_kernels.py's shapes
     (8, 1, 32, 64),                           # rwkv6-1.6b decode
     (3, 1000, 32, 64),                        # ragged prefill
+    (1, 1000, 32, 64),                        # one 1000-token prompt
     (2, 37, 4, 32),                           # ragged, hd 32
+    # the sequential kernel at a chunk - 1, a chunk and a chunk + 1, and
+    # either side of the staged kernel's threshold (2 chunks, 32 steps)
+    (2, 15, 2, 64), (2, 16, 2, 64), (2, 17, 2, 64),
+    (2, 31, 2, 64), (2, 32, 2, 64), (2, 33, 2, 64),
+    (2, 47, 2, 32), (2, 48, 2, 32), (2, 49, 2, 32),   # chunk edges
 ])
 def test_wkv6_kernel_equals_plain(dev, dtype, B, S, H, hd):
     from repro_torch.kernels.rwkv6 import wkv6, wkv6_ref
@@ -376,6 +382,40 @@ def test_wkv6_kernel_equals_plain(dev, dtype, B, S, H, hd):
     assert y.dtype == sT.dtype == torch.float32 and y.shape == yr.shape
     torch.testing.assert_close(y, yr, rtol=0, atol=WKV_ATOL)
     torch.testing.assert_close(sT, sTr, rtol=0, atol=WKV_ATOL)
+
+
+def test_wkv6_kernel_takes_the_worst_decays(dev):
+    """Steps of logw = -90 followed by steps of -0.011 (the extremes of
+    exp(N(0,1)) over a 4 x 1000 x 32 x 64 draw) and a decay that
+    underflows (w = exp(-1e4) = 0), at the staged and the sequential
+    lengths."""
+    from repro_torch.kernels.rwkv6 import wkv6, wkv6_ref
+    for S in (100, 20):
+        r, k, v, logw, u, s0 = _wkv_inputs(dev, torch.float32, 2, S, 4, 64,
+                                           seed=S)
+        logw[:, 5] = -90.0
+        logw[:, 6:18] = -0.011
+        logw[:, 19, :2] = -1e4
+        y, sT = wkv6(r, k, v, logw, u, s0)
+        yr, sTr = wkv6_ref(r, k, v, logw, u, s0)
+        torch.testing.assert_close(y, yr, rtol=0, atol=WKV_ATOL)
+        torch.testing.assert_close(sT, sTr, rtol=0, atol=WKV_ATOL)
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_wkv6_staged_kernel_gives_the_sequential_kernels_bits(dev, hd):
+    """From 32 steps the C entry runs the staged kernel, below them the
+    sequential one; both do the same float32 operations in the same
+    order, so a 40-step call equals two 20-step calls with the state
+    carried, bit for bit (the state is float32 between the calls)."""
+    from repro_torch.kernels.rwkv6 import wkv6
+    for dtype in (torch.float32, torch.bfloat16):
+        r, k, v, logw, u, s0 = _wkv_inputs(dev, dtype, 2, 40, 4, hd, seed=7)
+        y, sT = wkv6(r, k, v, logw, u, s0)
+        y1, s1 = wkv6(r[:, :20], k[:, :20], v[:, :20], logw[:, :20], u, s0)
+        y2, s2 = wkv6(r[:, 20:], k[:, 20:], v[:, 20:], logw[:, 20:], u, s1)
+        assert torch.equal(torch.cat([y1, y2], 1), y)
+        assert torch.equal(s2, sT)
 
 
 def test_wkv6_kernel_carries_state_writes_in_place_reads_views(dev):
@@ -495,8 +535,14 @@ def _assert_scan_close(y, hT, yr, hTr):
 @pytest.mark.parametrize("B,S,di,ds", [
     (2, 128, 64, 8), (1, 64, 128, 16),        # test_kernels.py's shapes
     (4, 1000, 16384, 16),                     # jamba prefill, S ragged
+    (1, 1000, 16384, 16),                     # one 1000-token prompt
     (8, 1, 16384, 16),                        # jamba decode
     (3, 37, 200, 8),                          # di not a multiple of 128
+    # the decode kernel up to its threshold (4 steps), the prefill kernel
+    # from 5; ds 8 and a ragged di on the decode kernel
+    (8, 4, 16384, 16), (8, 5, 16384, 16), (3, 2, 200, 8),
+    # chunk edges (8-step chunks)
+    (2, 7, 256, 16), (2, 8, 256, 16), (2, 9, 256, 16), (2, 17, 256, 16),
 ])
 def test_mamba_scan_kernel_equals_plain(dev, dtype, B, S, di, ds):
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
@@ -533,6 +579,54 @@ def test_mamba_scan_kernel_carries_state_writes_in_place_reads_views(dev):
     assert torch.equal(yi, y) and torch.equal(cache[1:3], hT)
     assert not cache[0].any() and not cache[3:].any()
     _assert_scan_close(y, hT, *mamba_scan_ref(a, dt, b, c, x, h0))
+
+
+def test_mamba_scan_decode_kernel_in_place_and_unaligned(dev):
+    """A decode step writes the state in place over some slots' cache
+    rows (the decode kernel, float4 rows); a state that is not 16-byte
+    aligned takes the prefill kernel at S = 1, with the same result."""
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+    a, dt, b, c, x, h0 = _scan_inputs(dev, torch.bfloat16, 3, 1, 4096, 16,
+                                      seed=2, extra=512)
+    yr, hr = mamba_scan_ref(a, dt, b, c, x, h0)
+    cache = torch.zeros((5, 4096, 16), device=dev)
+    cache[1:4] = h0
+    _build.reset_launches()
+    y, out = mamba_scan(a, dt, b, c, x, cache[1:4], inplace=True)
+    assert out.data_ptr() == cache[1].data_ptr()
+    _assert_scan_close(y, cache[1:4], yr, hr)
+    assert not cache[0].any() and not cache[4].any()
+    flat = torch.zeros(3 * 4096 * 16 + 1, device=dev)
+    odd = flat[1:].view(3, 4096, 16)
+    odd.copy_(h0)
+    assert odd.data_ptr() % 16 != 0
+    yo, ho = mamba_scan(a, dt, b, c, x, odd)
+    _assert_scan_close(yo, ho, yr, hr)
+    assert _build.LAUNCHES["mamba_scan"] == 2
+
+
+def test_recurrent_kernels_do_not_sync_the_host(dev):
+    """One wkv6 prefill call (the staged kernel) and one mamba_scan
+    decode call (the decode kernel, in place over cache rows) under
+    ``set_sync_debug_mode("error")``: neither asks the host anything."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.rwkv6 import wkv6
+    wins = _wkv_inputs(dev, torch.bfloat16, 2, 100, 4, 64)
+    a, dt, b, c, x, h0 = _scan_inputs(dev, torch.bfloat16, 8, 1, 4096, 16,
+                                      extra=512)
+    cache = h0.clone()
+    wkv6(*wins)
+    mamba_scan(a, dt, b, c, x, cache, inplace=True)     # built and loaded
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wkv6(*wins)
+        mamba_scan(a, dt, b, c, x, cache, inplace=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["wkv6"] == 1 and _build.LAUNCHES["mamba_scan"] == 1
 
 
 def test_mamba_scan_kernel_refuses_what_it_cannot_take(dev):

@@ -5,8 +5,14 @@ Kernel level: the plain WKV6 version ``wkv6_ref`` (and the wrapper
 (its Pallas kernel in interpret mode) at the shapes of
 ``tests/test_kernels.py``, and against the JAX ``wkv6_ref`` at lengths
 the Pallas kernel refuses (S = 100 is no multiple of its 64-step
-chunk). Tolerance 1e-5, that of ``test_kernels.py``: both sides sum the
-same float32 terms in other orders (measured ~2e-7).
+chunk). ``wkv6_chunked``, the recurrence's chunked decomposition in
+plain PyTorch, against ``wkv6_ref`` and the JAX Pallas kernel at S = 1,
+one chunk - 1, one chunk, one chunk + 1 and 100 steps, with the state
+carried across calls, and with the card's inputs' decays (logw =
+-exp(N(0,1))) plus the steps that strain a chunked form most: a decay
+of -90 in one step followed by steps of -0.011. Tolerance 1e-5, that of
+``test_kernels.py``: all sides sum the same float32 terms in other
+orders (measured ~2e-7; the chunked form ~1e-6 at 4 x 1000).
 
 Model level: the reduced rwkv6-1.6b (2 layers, d_model 128, 4 heads of
 32) with the same weights (the reference's leaf rules drawn by
@@ -31,6 +37,7 @@ import jax.numpy as jnp
 
 from repro.configs import get_config as jax_config
 from repro.kernels.rwkv6 import wkv6 as j_wkv6
+from repro.kernels.rwkv6.kernel import wkv6_fwd as j_wkv6_fwd
 from repro.kernels.rwkv6.ref import wkv6_ref as j_wkv6_ref
 from repro.models import cache_specs as j_cache_specs
 from repro.models import forward as j_forward
@@ -47,6 +54,7 @@ from repro_torch.models import (cache_specs, forward, from_reference,
 from repro_torch.models import rwkv
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6 import wkv6, wkv6_ref
+from repro_torch.kernels.rwkv6.ref import CHUNK, wkv6_chunked
 from _ref_params import ref_params
 from _rwkv_draws import redraw_rwkv
 
@@ -130,6 +138,66 @@ def test_wkv6_takes_bf16_inputs_as_their_float32_values():
                          *map(jnp.asarray, ins[3:]))
     np.testing.assert_allclose(_np(y), np.asarray(jy), atol=WKV_TOL)
     np.testing.assert_allclose(_np(sT), np.asarray(jsT), atol=WKV_TOL)
+
+
+def _pallas_wkv6(ins):
+    """The JAX Pallas kernel in interpret mode, with a chunk that divides
+    S (it asserts S % chunk == 0)."""
+    S = ins[0].shape[1]
+    chunk = max(c for c in range(1, 65) if S % c == 0)
+    return j_wkv6_fwd(*map(jnp.asarray, ins), chunk=chunk, interpret=True)
+
+
+def _held(got, *wants):
+    """(y, sT) against each (y, sT) of ``wants`` within WKV_TOL."""
+    for want in wants:
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(_np(a), np.asarray(b), atol=WKV_TOL)
+
+
+@pytest.mark.parametrize("S", [1, CHUNK - 1, CHUNK, CHUNK + 1, 100])
+def test_wkv6_chunked_matches_ref_and_the_jax_kernel(S):
+    """The chunked decomposition at every edge of its chunking (a single
+    step, a ragged chunk, exactly one, one step into a second, and 100 =
+    6 chunks + 4, no multiple of 16 or 64), from a nonzero s0."""
+    ins = _wkv_inputs(2, S, 2, 32, seed=3)
+    got = wkv6_chunked(*map(torch.from_numpy, ins))
+    assert got[0].dtype == got[1].dtype == torch.float32
+    assert got[0].shape == (2, S, 2, 32) and got[1].shape == (2, 2, 32, 32)
+    _held(got, wkv6_ref(*map(torch.from_numpy, ins)), _pallas_wkv6(ins))
+
+
+def test_wkv6_chunked_carries_state_across_calls():
+    """Two calls of 37 and 63 steps (ragged chunks on both sides) with the
+    state carried equal one call of 100 and the JAX plain version."""
+    r, k, v, logw, u, s0 = map(torch.from_numpy, _wkv_inputs(1, 100, 2, 64,
+                                                             seed=4))
+    y1, s1 = wkv6_chunked(r[:, :37], k[:, :37], v[:, :37], logw[:, :37], u,
+                          s0)
+    y2, s2 = wkv6_chunked(r[:, 37:], k[:, 37:], v[:, 37:], logw[:, 37:], u,
+                          s1)
+    got = (torch.cat([y1, y2], 1), s2)
+    _held(got, wkv6_chunked(r, k, v, logw, u, s0),
+          j_wkv6_ref(*(jnp.asarray(_np(t)) for t in (r, k, v, logw, u,
+                                                     s0))))
+
+
+def test_wkv6_chunked_takes_the_worst_decays():
+    """The decays of the card's inputs (logw = -exp(N(0,1)), down to
+    about -20 a step at these sizes), with a step of logw = -90 (exp(4.5),
+    the deepest of a 4 x 1000 x 32 x 64 draw) followed by steps of
+    -0.011 (exp(-4.5)) in every head: a form that took decays as
+    differences of long prefix sums of logw would lose their spacing
+    here. Against the Pallas kernel and the plain version."""
+    rng = np.random.RandomState(5)
+    r, k, v, _, u, s0 = _wkv_inputs(2, 100, 2, 64, seed=5)
+    logw = -np.exp(rng.randn(*r.shape)).astype(np.float32)
+    logw[:, 20] = -np.exp(4.5)
+    logw[:, 21:40] = -np.exp(-4.5)
+    logw[:, 50:53] = -np.exp(4.5)
+    ins = (r, k, v, logw, u, s0)
+    got = wkv6_chunked(*map(torch.from_numpy, ins))
+    _held(got, wkv6_ref(*map(torch.from_numpy, ins)), _pallas_wkv6(ins))
 
 
 @pytest.mark.parametrize("what", ["head", "dtype", "state", "device"])
