@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's four main paths and the seven hand-written CUDA
+Drives the port's four main paths and the eight hand-written CUDA
 kernels they run: the Faces 26-neighbour halo exchange through
 ``repro_torch``'s ST, host and fused executors (merged halo pack, merged
-halo unpack, counter bump), granite-3-2b at full width served by the
+halo unpack with the per-rank max, counter bump, and the put that
+carries its completion signal), granite-3-2b at full width served by the
 port's continuous-batching engine (flash attention for prefill,
 flash-decode), rwkv6-1.6b at full width served by the same engine (the
 WKV6 recurrence), and jamba-1.5-large-398b at full width cut to 4
@@ -23,8 +24,14 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  cuobjdump, or "not measured" and why (flash attention
                  must have some);
   2. kernels  — each kernel against its plain PyTorch version on the card:
-                 the Faces kernels exactly, at n=(64,64,64) and n=(6,5,4),
-                 R=64; the attention kernels in bf16 and float32 at
+                 the Faces kernels exactly, R=64: pack and unpack at
+                 n=(64,64,64), (6,5,4), (6,5,3) and (1,3,2), the unpack
+                 with and without the per-rank max and with a NaN in one
+                 surface; put_signal (gather, and the zero-filled scatter
+                 of a non-periodic grid; float32, bf16 and int32; rows of
+                 1, 3, 64 and 4096 elements, each also one element off a
+                 16-byte boundary; with and without the signal); the
+                 attention kernels in bf16 and float32 at
                  granite's shapes (H=32, KV=8, hd=64) and jamba's (H=64,
                  KV=8, hd=128), a G=1 case, an hd=128 case, a ragged Sq of
                  1000 and kv_valid_len < Skv, q-tile and key-tile edges
@@ -54,8 +61,12 @@ Phases (each prints JSON lines; any failure exits non-zero):
   4. full     — grid (4,4,4) = 64 ranks, n=(64,64,64) float32, 20
                  iterations in ST, host and fused modes: counters, bit-
                  identical state across modes, the last exchange against a
-                 numpy exchange of the final blocks, every kernel launched
-                 in every mode, and the ST and fused emission under
+                 numpy exchange of the final blocks, every Faces kernel
+                 launched in every mode — per iteration one halo_pack, one
+                 halo_unpack, 26 put_signal and one counter_bump (the
+                 merged post) in st and fused, 27 counter_bump in host
+                 (each completion its own bump) — and the ST and fused
+                 emission under
                  ``torch.cuda.set_sync_debug_mode("error")`` (no hidden host
                  synchronisation);
   5. timing   — CUDA-event medians: per-iteration ms of each mode; from
@@ -65,7 +76,12 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  simulator's dispatch units; each kernel's device time
                  (CUDA-graph replay) and eager call time beside its
                  bound, its plain version and the one-call PyTorch
-                 yardstick (index_select, index_add, add);
+                 yardstick (index_select, index_add, add); the unpack
+                 with the max beside it (with_max_ms), an empty kernel's
+                 time beside the bump (launch_floor_ms), and put_signal
+                 at Faces' face, edge and corner payloads beside the two
+                 launches it replaces (index_select + add) and
+                 index_select alone;
   6. serve    — granite-3-2b at full width (40 layers, d_model 2048, 32
                  heads, 8 KV heads, d_ff 8192, vocab 49155; random bf16
                  params from a seed, ~2.5 B), 8 slots, max_len 4096, 16
@@ -132,17 +148,20 @@ result.
 
     python3 chip_smoke.py --ab DIR
 
-times the two recurrent kernels (WKV6, the selective scan) of this tree
-against those of DIR, another checkout of the repository (for a parent
-commit: ``git archive <commit> | tar -x -C DIR``, DIR inside a directory
-that ``.gitignore`` lists). Each tree runs in a worker process of its
-own, which builds that tree's kernels into its own ``build/repro_torch/``
-and prints one JSON line: each kernel function's SASS opcode counts
-(cuobjdump) and the device time per call (``graph_ms`` of 5 calls, as
-the kernels-line rows) on the rows' bf16 inputs at rwkv6-1.6b's and
-jamba's widths, B x S in AB_CASES. The workers go other, this, this,
-other, so that a drift of the card's clock falls on both trees alike;
-the last JSON line holds each tree's median per case.
+times the two recurrent kernels (WKV6, the selective scan) and the
+Faces path of this tree against those of DIR, another checkout of the
+repository (for a parent commit: ``git archive <commit> | tar -x -C
+DIR``, DIR inside a directory that ``.gitignore`` lists). Each tree runs
+in a worker process of its own, which builds that tree's kernels into
+its own ``build/repro_torch/`` and prints one JSON line: each kernel
+function's SASS opcode counts (cuobjdump); the device time per call
+(``graph_ms`` of 5 calls, as the kernels-line rows) on the rows' bf16
+inputs at rwkv6-1.6b's and jamba's widths, B x S in AB_CASES; halo_unpack
+at 64r and counter_bump (``graph_ms``); and the st and fused Faces 64r
+programs' ms per iteration with the device's busy ms and ops per
+iteration (profiler). The workers go other, this, this, other, so that a
+drift of the card's clock falls on both trees alike; the last JSON line
+holds each tree's median per case.
 """
 import argparse
 import dataclasses
@@ -440,12 +459,35 @@ def phase_build(_build):
                   "flash_attention's SASS holds no tensor-core instruction")
 
 
-def phase_kernels(dev, hp, hp_ref, bump, R=64):
+# put_signal's cases: rows of these many elements, each also as a view
+# one element off the row start (narrower vectors), in these dtypes
+PUT_ROWS = (1, 3, 64, 4096)
+PUT_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+# the unpack's cases, beside R = 64: the main path's block, a tiny one,
+# nz % 4 != 0 (scalar end cells), and a block smaller than a vector
+UNPACK_SHAPES = (N_FULL, (6, 5, 4), (6, 5, 3), (1, 3, 2))
+
+
+def nan_equal(a, b):
+    """Equal bit for bit up to NaN payloads, NaNs in the same places."""
+    return bool(torch.equal(a.isnan(), b.isnan())) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+def diff(a, b):
+    """max |a - b| over the non-NaN entries (0.0 when there are none)."""
+    d = (a.double() - b.double()).abs().nan_to_num(nan=0.0)
+    return float(d.max().item()) if d.numel() else 0.0
+
+
+def phase_kernels(dev, core, hp, hp_ref, cb, R=64):
     """Each kernel against its plain version on the same inputs (these
     launches are comparisons, made before the counted main-path runs)."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    errs = {"halo_pack": 0.0, "halo_unpack": 0.0, "counter_bump": 0.0}
-    for n in (N_FULL, (6, 5, 4)):
+    errs = {"halo_pack": 0.0, "halo_unpack": 0.0, "counter_bump": 0.0,
+            "put_signal": 0.0}
+    max_abs = core.halo._max_abs
+    for n in UNPACK_SHAPES:
         field = torch.rand((R,) + n, generator=gen, device=dev)
         split, split_ref = hp.halo_pack_split(field), \
             hp_ref.halo_pack_split_ref(field)
@@ -453,7 +495,7 @@ def phase_kernels(dev, hp, hp_ref, bump, R=64):
         ok = all(torch.equal(a, b) for a, b in zip(split, split_ref)) \
             and torch.equal(flat, flat_ref)
         errs["halo_pack"] = max(errs["halo_pack"], max(
-            (a - b).abs().max().item() for a, b in
+            diff(a, b) for a, b in
             zip(split + (flat,), split_ref + (flat_ref,))))
         check(ok, f"halo pack != plain pack at n={n}")
         recv = torch.randn(flat.shape, generator=gen, device=dev)
@@ -462,21 +504,66 @@ def phase_kernels(dev, hp, hp_ref, bump, R=64):
         acc, acc_ref = hp.halo_unpack(recv, n), hp_ref.halo_unpack_ref(recv, n)
         acc2 = hp.halo_unpack_split(parts, n)
         acc2_ref = hp_ref.halo_unpack_split_ref(parts, n)
-        errs["halo_unpack"] = max(errs["halo_unpack"],
-                                  (acc - acc_ref).abs().max().item(),
-                                  (acc2 - acc2_ref).abs().max().item())
+        errs["halo_unpack"] = max(errs["halo_unpack"], diff(acc, acc_ref),
+                                  diff(acc2, acc2_ref))
         check(torch.equal(acc, acc_ref) and torch.equal(acc2, acc2_ref),
               f"halo unpack != plain unpack at n={n}")
+        # with the per-rank max (Faces' unpack+compare), then with a NaN
+        # in one surface of rank 5: NaN in that rank's cells and max only
+        for nan in (False, True):
+            if nan:
+                parts[11] = parts[11].clone()
+                parts[11][5, 0] = float("nan")
+            want = hp_ref.halo_unpack_split_ref(parts, n)
+            got = hp.halo_unpack_split(parts, n, with_max=True)
+            gflat = hp.halo_unpack(torch.cat(parts, dim=1), n, with_max=True)
+            for a, m in (got, gflat):
+                errs["halo_unpack"] = max(errs["halo_unpack"], diff(a, want),
+                                          diff(m, max_abs(want)))
+                check(nan_equal(a, want) and nan_equal(m, max_abs(want)),
+                      f"halo unpack with max != plain at n={n}, nan={nan}")
+            check(bool(got[1][5].isnan()) == nan
+                  and not got[1][:5].isnan().any(), "NaN not in its rank")
         emit({"phase": "kernels", "n": list(n), "R": R, "pack": "equal",
-              "unpack": "equal"})
+              "unpack": "equal", "unpack_with_max": "equal, NaN propagated"})
     sig = torch.randint(0, 1 << 20, (R, 26), generator=gen, device=dev,
                         dtype=torch.int32)
     upd = torch.randint(0, 3, (R, 26), generator=gen, device=dev,
                         dtype=torch.int32)
-    out = bump(sig, upd)
-    errs["counter_bump"] = float((out - (sig + upd)).abs().max().item())
+    out = cb.counter_bump(sig, upd)
+    errs["counter_bump"] = diff(out, sig + upd)
     check(torch.equal(out, sig + upd), "counter bump != sig + upd")
-    emit({"phase": "kernels", "bump": "equal", "max_abs_err": errs})
+    # put_signal: gather (periodic) and zero-filled scatter (non-periodic
+    # grid), a face, an edge and a corner direction
+    cases = 0
+    for periodic in (True, False):
+        stream = core.STStream(dev, AXES, periodic=periodic,
+                               grid_shape=GRID_FULL)
+        for d in ((1, 0, 0), (-1, 1, 0), (1, 1, 1)):
+            perm = core.engine._perm_index(stream, d)
+            check(bool((perm < 0).any()) == (not periodic),
+                  f"perm of {d}: scatter form on a periodic grid?")
+            for dtype in PUT_DTYPES:
+                for e in PUT_ROWS:
+                    wide = torch.randint(-1 << 20, 1 << 20, (R, e + 1),
+                                         generator=gen, device=dev
+                                         ).to(dtype)
+                    for x in (wide[:, :e].contiguous(), wide[:, 1:]):
+                        want = cb.put_signal_ref(x, perm)
+                        got = cb.put_signal(x, perm)
+                        got2, cnt = cb.put_signal(x, perm, sig, upd)
+                        errs["put_signal"] = max(
+                            errs["put_signal"], diff(got, want),
+                            diff(got2, want), diff(cnt, sig + upd))
+                        check(torch.equal(got, want) and
+                              torch.equal(got2, want) and
+                              torch.equal(cnt, sig + upd),
+                              f"put_signal != plain: periodic={periodic}, "
+                              f"d={d}, {dtype}, row {e}, "
+                              f"aligned={x.is_contiguous()}")
+                        cases += 1
+    emit({"phase": "kernels", "bump": "equal", "put_signal": "equal",
+          "put_signal_cases": cases, "max_abs_err": errs})
     return errs
 
 
@@ -535,6 +622,9 @@ def phase_parity(core, dev):
               "ok": True})
 
 
+FACES_KERNELS = ("halo_pack", "halo_unpack", "counter_bump", "put_signal")
+
+
 def phase_full(core, _build, dev):
     halo = core.halo
     R = int(np.prod(GRID_FULL))
@@ -556,9 +646,15 @@ def phase_full(core, _build, dev):
         if mode == "st":
             check(stream.dispatches == sum(len(p.nodes) for p in progs),
                   "st dispatches != descriptor count")
-        for k in ("halo_pack", "halo_unpack", "counter_bump"):
+        for k in FACES_KERNELS:
             check(_build.LAUNCHES[k] > 0,
                   f"{mode}: kernel {k} was not launched")
+        # per iteration: one merged post bump and 26 puts carrying their
+        # completion signals; host keeps each completion a bump of its own
+        want = {"halo_pack": 1, "halo_unpack": 1, "put_signal": 26,
+                "counter_bump": 27 if mode == "host" else 1}
+        got = {k: _build.LAUNCHES[k] / NITER_FULL for k in want}
+        check(got == want, f"{mode}: launches per iteration {got} != {want}")
         for c in ("faces.post_sig", "faces.comp_sig"):
             check(bool((out[c] == NITER_FULL).all()), f"{mode}: {c} != niter")
         outs[mode] = out
@@ -587,8 +683,8 @@ def phase_full(core, _build, dev):
     return launches, dispatches
 
 
-def phase_timing(core, hp, hp_ref, bump, bump_ref, dev, launches,
-                 dispatches, errs):
+def phase_timing(core, hp, hp_ref, cb, lib_cb, dev, launches, dispatches,
+                 errs):
     R = int(np.prod(GRID_FULL))
     gen = torch.Generator(device=dev).manual_seed(2)
     src0 = torch.rand((R,) + N_FULL, generator=gen, device=dev)
@@ -624,6 +720,8 @@ def phase_timing(core, hp, hp_ref, bump, bump_ref, dev, launches,
               "host_calls_per_iter": {k: v / NITER_FULL for k, v in
                                       sorted(prof["host_calls"].items())},
               "device_busy_ms": busy,
+              "device_busy_ms_per_iter": (None if busy is None
+                                          else busy / NITER_FULL),
               "device_idle_share": None if busy is None else 1 - busy / ms,
               "top_device_ms": [[round(t, 4), k, c]
                                 for t, k, c in prof["top"]]})
@@ -644,6 +742,7 @@ def phase_timing(core, hp, hp_ref, bump, bump_ref, dev, launches,
     recv = hp.halo_pack(torch.randn(field.shape, generator=gen, device=dev))
     sig = torch.zeros((R, 26), dtype=torch.int32, device=dev)
     upd = torch.ones((R, 26), dtype=torch.int32, device=dev)
+    max_abs = core.halo._max_abs
 
     def lib_pack():
         return field.view(R, cells).index_select(1, idx)
@@ -658,38 +757,54 @@ def phase_timing(core, hp, hp_ref, bump, bump_ref, dev, launches,
     pairs = {"halo_pack": (lib_pack(), hp.halo_pack(field)),
              "halo_unpack": (lib_unpack().view(field.shape),
                              hp.halo_unpack(recv, N_FULL)),
-             "counter_bump": (torch.add(sig, upd), bump(sig, upd))}
+             "counter_bump": (torch.add(sig, upd), cb.counter_bump(sig, upd))}
     check(torch.equal(*pairs["halo_pack"]), "index_select != halo_pack")
     check(torch.equal(*pairs["counter_bump"]), "torch.add != counter_bump")
     torch.testing.assert_close(*pairs["halo_unpack"], rtol=1.3e-6,
                                atol=1e-5)
     lib_err = {k: float((a - b).abs().max().item())
                for k, (a, b) in pairs.items()}
+    empty = lib_cb.empty_launch
+
+    def launch_floor():
+        check(empty(torch.cuda.current_stream().cuda_stream) == 0,
+              "the empty kernel did not launch")
+
     rows = [
         ("halo_pack", "src/repro_torch/csrc/halo_pack.cu",
          "src/repro/kernels/halo_pack/kernel.py:39",
          lambda: hp.halo_pack(field), lambda: hp_ref.halo_pack_ref(field),
-         lib_pack, "torch.index_select", R * (shell + total) * 4),
+         lib_pack, "torch.index_select", R * (shell + total) * 4, {}),
+        # the time of the form without the max (what halo_unpack_fwd
+        # computes); the main path's form, with the max, beside it
         ("halo_unpack", "src/repro_torch/csrc/halo_pack.cu",
          "src/repro/kernels/halo_pack/kernel.py:53",
          lambda: hp.halo_unpack(recv, N_FULL),
          lambda: hp_ref.halo_unpack_ref(recv, N_FULL),
          lib_unpack, "torch.index_add (zero base)",
-         R * (total + cells) * 4),
+         R * (total + cells) * 4,
+         {"with_max_ms": lambda: graph_ms(
+             lambda: hp.halo_unpack(recv, N_FULL, with_max=True)),
+          "with_max_plain_ms": lambda: graph_ms(
+              lambda: max_abs(hp_ref.halo_unpack_ref(recv, N_FULL)))}),
+        # beside the bump, the launch floor: an empty kernel's time
         ("counter_bump", "src/repro_torch/csrc/counter_bump.cu",
          "src/repro/core/engine.py:67",
-         lambda: bump(sig, upd), lambda: bump_ref(sig, upd),
-         lambda: torch.add(sig, upd), "torch.add", 3 * sig.numel() * 4),
+         lambda: cb.counter_bump(sig, upd),
+         lambda: cb.counter_bump_ref(sig, upd),
+         lambda: torch.add(sig, upd), "torch.add", 3 * sig.numel() * 4,
+         {"launch_floor_ms": lambda: graph_ms(launch_floor)}),
     ]
     kernels = []
-    for name, source, replaces, kern, plain, lib, lib_name, nbytes in rows:
+    for (name, source, replaces, kern, plain, lib, lib_name, nbytes,
+         extra) in rows:
         # ms/plain_ms/library_ms: device time per call (CUDA graph);
         # *call_ms: eager calls back to back, host overhead included.
         # Pack/unpack are timed in their flat forms, where the plain
         # version materializes the same bytes (its split pack returns
         # views); the main path's split forms run the same kernels.
         # bound: each input read once, each output written once.
-        kernels.append({
+        kernels.append(dict({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(launches[m][name] for m in launches),
@@ -704,8 +819,72 @@ def phase_timing(core, hp, hp_ref, bump, bump_ref, dev, launches,
             "library_max_abs_err": lib_err[name],
             "call_ms": event_ms(kern, inner=20),
             "plain_call_ms": event_ms(plain, inner=20),
-            "library_call_ms": event_ms(lib, inner=20)})
+            "library_call_ms": event_ms(lib, inner=20)},
+            **{k: f() for k, f in extra.items()}))
+    kernels.append(put_signal_row(core, cb, dev, launches, errs))
     return kernels
+
+
+# put_signal at Faces' payloads (R = 64, n = 64^3, float32): a face, an
+# edge and a corner, each with the direction it goes in
+PUT_PAYLOADS = (("face", 64 * 64, (1, 0, 0)), ("edge", 64, (1, 1, 0)),
+                ("corner", 1, (1, 1, 1)))
+
+
+def put_signal_row(core, cb, dev, launches, errs):
+    """put_signal's kernels-line row, timed at the face payload, with
+    the edge and corner in ``at_payloads``. No one PyTorch call permutes
+    rows and bumps a counter: its yardstick is the two launches the port
+    made before it (index_select, then torch.add), and index_select alone
+    beside it. Bound: the payload read and written once, the permutation
+    table and the counters."""
+    R = int(np.prod(GRID_FULL))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    stream = core.STStream(dev, AXES, grid_shape=GRID_FULL)
+    sig = torch.zeros((R, 26), dtype=torch.int32, device=dev)
+    upd = torch.ones((R, 26), dtype=torch.int32, device=dev)
+    at = {}
+    for what, e, d in PUT_PAYLOADS:
+        perm = core.engine._perm_index(stream, d)
+        x = torch.randn((R, e), generator=gen, device=dev)
+        got, cnt = cb.put_signal(x, perm, sig, upd)
+        check(torch.equal(got, x.index_select(0, perm))
+              and torch.equal(cnt, sig + upd), "index_select + add != "
+              "put_signal")
+        nbytes = 2 * x.numel() * 4 + perm.numel() * 8 + 3 * sig.numel() * 4
+        kern = (lambda x=x, perm=perm: cb.put_signal(x, perm, sig, upd))
+        two = (lambda x=x, perm=perm: (x.index_select(0, perm),
+                                       torch.add(sig, upd)))
+        at[what] = {
+            "elements_per_rank": e, "ms": graph_ms(kern),
+            "plain_ms": graph_ms(lambda x=x, perm=perm: cb.put_signal_ref(
+                x, perm, sig, upd)),
+            "index_select_add_ms": graph_ms(two),
+            "index_select_ms": graph_ms(
+                lambda x=x, perm=perm: x.index_select(0, perm)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+            "call_ms": event_ms(kern, inner=20),
+            "index_select_add_call_ms": event_ms(two, inner=20)}
+    face = at["face"]
+    return {"name": "put_signal", "route": "cuda",
+            "source": "src/repro_torch/csrc/counter_bump.cu",
+            # the chained completion signal's bump, now in the put's launch
+            "replaces": "src/repro/core/engine.py:67",
+            "launches": sum(launches[m]["put_signal"] for m in launches),
+            "launches_by_mode": {m: launches[m]["put_signal"]
+                                 for m in launches},
+            "launches_per": {"per_iteration": launches["st"]["put_signal"]
+                             / NITER_FULL},
+            "max_abs_err": errs["put_signal"], "ms": face["ms"],
+            "plain_ms": face["plain_ms"], "bound_ms": face["bound_ms"],
+            "bound_by": "bytes", "bytes": face["bytes"],
+            "library_ms": None,
+            "library": "none: no one call permutes rows and bumps a "
+                       "counter; index_select_add_ms is the two launches "
+                       "it replaces",
+            "index_select_add_ms": face["index_select_add_ms"],
+            "index_select_ms": face["index_select_ms"],
+            "at_payloads": at}
 
 
 # ---------------------------------------------------------------------------
@@ -1774,18 +1953,58 @@ def sass_census(tool, lib):
                     total=sum(c.values())) for f, c in counts.items()}
 
 
+def faces_ab(dev, core, hp, bump):
+    """The Faces path of one tree: halo_unpack at 64r and the counter
+    bump (graph_ms), and the st and fused Faces 64r programs' ms per
+    iteration (event_ms), with the device's busy ms and ops per
+    iteration from the profiler. Only APIs the parent shares."""
+    R = int(np.prod(GRID_FULL))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    recv = hp.halo_pack(torch.randn((R,) + N_FULL, generator=gen,
+                                    device=dev))
+    sig = torch.zeros((R, 26), dtype=torch.int32, device=dev)
+    upd = torch.ones((R, 26), dtype=torch.int32, device=dev)
+    out = {"halo_unpack 64r ms": graph_ms(lambda: hp.halo_unpack(recv,
+                                                                 N_FULL)),
+           "counter_bump ms": graph_ms(lambda: bump(sig, upd))}
+    src0 = torch.rand((R,) + N_FULL, generator=gen, device=dev)
+    for mode in ("st", "fused"):
+        stream = core.STStream(dev, AXES, grid_shape=GRID_FULL)
+        core.halo.build_faces_program(stream, N_FULL, NITER_FULL)
+        state = stream.allocate()
+        state["faces.src"] = src0
+
+        def run(stream=stream, state=state, mode=mode):
+            return stream.synchronize(state, mode=mode, resources=16)
+        run()                                           # warm-up
+        out[f"faces {mode} iter ms"] = event_ms(run, reps=5,
+                                                warm=False) / NITER_FULL
+        prof = device_profile(run, os.path.join(
+            OUT_DIR, f"profile_ab_faces_{mode}.txt"))
+        out[f"faces {mode} device busy ms/iter"] = (
+            float("nan") if prof["busy_ms"] is None
+            else prof["busy_ms"] / NITER_FULL)
+        out[f"faces {mode} device ops/iter"] = prof["device_ops"] / NITER_FULL
+    return out
+
+
 def ab_worker(tree):
-    """Build ``tree``'s recurrent kernels and time them at AB_CASES on the
-    kernels-line rows' inputs (wkv_inputs at 32 heads of 64; scan_inputs
-    at d_inner 16384, d_state 16, b and c strided after 512 columns)."""
+    """Build ``tree``'s recurrent and Faces kernels; time the recurrent
+    ones at AB_CASES on the kernels-line rows' inputs (wkv_inputs at 32
+    heads of 64; scan_inputs at d_inner 16384, d_state 16, b and c
+    strided after 512 columns), then the Faces path (faces_ab)."""
     sys.path.insert(0, os.path.join(tree, "src"))
     from repro_torch.kernels import _build
     check(os.path.realpath(_build.__file__).startswith(tree + os.sep),
           f"{_build.__file__} is not {tree}'s")
+    import repro_torch.core as core
+    from repro_torch.kernels.counter_bump import counter_bump
+    from repro_torch.kernels.halo_pack import ops as hp
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.rwkv6 import wkv6
     dev = torch.device("cuda", 0)
-    names = ("wkv6", "mamba_scan")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    names = ("wkv6", "mamba_scan", "halo_pack", "counter_bump")
     _build.build_all(list(names))
     tool = disassembler()
     sass = {n: sass_census(tool, _build.library_path(n)) if tool else
@@ -1798,12 +2017,13 @@ def ab_worker(tree):
         ms[f"mamba_scan {B}x{S}"] = graph_ms(lambda: mamba_scan(*ins),
                                              inner=5)
         del ins
+    ms.update(faces_ab(dev, core, hp, counter_bump))
     emit({"tree": tree, "sass": sass, "ms": ms})
 
 
 def ab(other):
-    """This tree's recurrent kernels against ``other``'s, one worker
-    process per tree in turns other, this, this, other."""
+    """This tree's recurrent kernels and Faces path against ``other``'s,
+    one worker process per tree in turns other, this, this, other."""
     trees = {"other": os.path.realpath(other), "this": ROOT}
     runs = {"other": [], "this": []}
     for who in ("other", "this", "this", "other"):
@@ -1817,16 +2037,19 @@ def ab(other):
             rec.pop("sass")                 # the same build: counted once
         emit(dict(rec, who=who))
         runs[who].append(rec["ms"])
-    emit({"median_ms": {who: {case: statistics.median(r[case] for r in recs)
-                              for case in recs[0]}
-                        for who, recs in runs.items()}})
+    # each key's median over the tree's two workers (ms, unless the key
+    # names another unit)
+    emit({"median": {who: {case: statistics.median(r[case] for r in recs)
+                           for case in recs[0]}
+                     for who, recs in runs.items()}})
 
 
 def main():
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
                                  "one NVIDIA card (see the docstring).")
     ap.add_argument("--ab", metavar="DIR", help="time the recurrent "
-                    "kernels of this tree against DIR's")
+                    "kernels and the Faces path of this tree against "
+                    "DIR's")
     ap.add_argument("--ab-worker", metavar="TREE", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1847,8 +2070,7 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch.core as core
     from repro_torch.kernels import _build
-    from repro_torch.kernels.counter_bump import (counter_bump,
-                                                  counter_bump_ref)
+    from repro_torch.kernels import counter_bump as cb
     from repro_torch.kernels.halo_pack import ops as hp
     from repro_torch.kernels.halo_pack import ref as hp_ref
     from repro_torch.kernels.decode_attention import (decode_attention,
@@ -1868,7 +2090,7 @@ def main():
           "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
     phase_build(_build)
-    errs = phase_kernels(dev, hp, hp_ref, counter_bump)
+    errs = phase_kernels(dev, core, hp, hp_ref, cb)
     attn = (flash_attention, flash_attention_ref, decode_attention,
             decode_attention_ref)
     attn_errs = phase_attention(dev, *attn)
@@ -1876,7 +2098,7 @@ def main():
     scan_kernel_errs = phase_mamba_scan(dev, mamba_scan, mamba_scan_ref)
     phase_parity(core, dev)
     launches, dispatches = phase_full(core, _build, dev)
-    kernels = phase_timing(core, hp, hp_ref, counter_bump, counter_bump_ref,
+    kernels = phase_timing(core, hp, hp_ref, cb, _build.load("counter_bump"),
                            dev, launches, dispatches, errs)
     serving = {"configs": cfgs, "models": models, "serving": serving_mod}
     cfg, serve_launches, counts, groups, _, params, reqs = phase_serve(

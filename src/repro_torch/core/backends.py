@@ -15,8 +15,9 @@ host waits:
   * :func:`run_host` (Fig. 9a, mode="host"): the CPU-orchestrated
     standard active-RMA baseline — one dispatch per descriptor, the host
     blocking on the device at every epoch boundary (start/complete/wait).
-    Wire completion signals dispatch separately from their payload put,
-    like the MPI runtime's completion handling. Dependency edges are not
+    A put's completion signal is its own counter bump after the payload
+    put, like the MPI runtime's completion handling; a wire completion
+    signal is also its own dispatch. Dependency edges are not
     re-checked while dispatching: the serialized order must satisfy
     them, and :func:`_assert_dispatch_order` proves it does before the
     first dispatch.
@@ -24,8 +25,10 @@ host waits:
 Each executor adds its dispatch units, the cost simulator's accounting
 unit, to ``stream.dispatches``: one per descriptor (plus one per
 separately dispatched wire completion signal in host mode). A unit is
-not a device launch: start/complete/wait descriptors launch nothing,
-and a put launches its permuted copy and its completion bump.
+not a device launch: start/complete/wait descriptors launch nothing; in
+st and fused mode a put is one launch, its permuted copy with its
+completion signal (``put_signal``); in host mode it is two, the copy and
+then a counter bump.
 """
 from __future__ import annotations
 
@@ -93,12 +96,13 @@ def run_host(stream, prog, state):
     st = dict(state)
     for node in prog.nodes:
         stream.dispatches += 1
-        if node.kind == "put" and node.chained is not None \
-                and node.chained.wire:
-            # baseline RMA: payload dispatch, then the completion signal
-            # as its own dispatch (the MPI runtime's completion handling)
+        if node.kind == "put" and node.chained is not None:
+            # baseline RMA: the payload put, then the completion signal as
+            # its own bump (the MPI runtime's completion handling), a
+            # dispatch of its own when it crosses the wire
             st = emit_node(stream, node, st, with_chained=False)
-            stream.dispatches += 1
+            if node.chained.wire:
+                stream.dispatches += 1
             st = _emit_completion_signal(stream, node, st)
         else:
             st = emit_node(stream, node, st)

@@ -19,12 +19,16 @@ leading dim, so
     ``stream_interleaved_order`` and the segment plan's wave order are
     topological orders of the scheduled DAG, so every edge is already
     respected;
-  * every counter effect — a post signal, fused or not, and every chained
-    completion signal, wire or local — is ONE counter bump
-    ``sig + upd`` (the hand-written kernel on CUDA), where ``upd`` is a
-    precomputed (R, npeers) update holding each branch's arrival mask in
-    its slot. Counters are integers, so this equals the JAX package's
-    per-slot adds exactly.
+  * every counter effect is ``sig + upd``, where ``upd`` is a precomputed
+    (R, npeers) update holding each branch's arrival mask in its slot.
+    Counters are integers, so this equals the JAX package's per-slot adds
+    exactly. A post signal, fused or not, is ONE counter bump (the
+    hand-written kernel on CUDA). A put's chained completion signal, wire
+    or local, lands in the SAME launch as the put's permuted copy
+    (``put_signal``): the signal's only readers are later launches on the
+    same stream, which see the payload too. Only the host-orchestrated
+    baseline (``backends.run_host``) keeps the completion a bump of its
+    own, as the MPI runtime's completion handling is.
 
 Index tensors, masks and counter updates are device tables built once
 per direction when the stream allocates its state
@@ -41,7 +45,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.counter_bump.ops import counter_bump
+from repro_torch.kernels.counter_bump.ops import (counter_bump, put_signal,
+                                                  rank_rows)
 from repro_torch.kernels.halo_pack.ref import (chunk_gather, chunk_scatter,
                                                pack_flat, unpack_flat)
 
@@ -51,24 +56,16 @@ from repro_torch.kernels.halo_pack.ref import (chunk_gather, chunk_scatter,
 
 
 def _perm_index(stream, direction):
-    """Device index tensors of a put in ``direction``: ``("gather", idx)``
-    when every rank receives (idx[dst] = src), else
-    ``("scatter", src_idx, dst_idx)`` for a zero-filled destination."""
+    """(R,) int64 device table of a put in ``direction``: entry ``dst`` is
+    the rank whose payload ``dst`` receives, -1 where none does (the
+    non-receivers of a non-periodic grid, which get zeros)."""
     key = ("perm", tuple(direction))
     t = stream._device_tables.get(key)
     if t is None:
-        pairs = stream.perm_for(tuple(direction))
-        dev = stream.device
-        if len(pairs) == stream.num_ranks:
-            idx = np.empty((stream.num_ranks,), np.int64)
-            for src, dst in pairs:
-                idx[dst] = src
-            t = ("gather", torch.as_tensor(idx, device=dev))
-        else:
-            src = np.array([p[0] for p in pairs], np.int64)
-            dst = np.array([p[1] for p in pairs], np.int64)
-            t = ("scatter", torch.as_tensor(src, device=dev),
-                 torch.as_tensor(dst, device=dev))
+        idx = np.full((stream.num_ranks,), -1, np.int64)
+        for src, dst in stream.perm_for(tuple(direction)):
+            idx[dst] = src
+        t = torch.as_tensor(idx, device=stream.device)
         stream._device_tables[key] = t
     return t
 
@@ -117,29 +114,24 @@ def prepare_tables(stream) -> None:
 # emission
 # ---------------------------------------------------------------------------
 
-def _ppermute(stream, x, direction):
-    idx = _perm_index(stream, direction)
-    if idx[0] == "gather":
-        return x.index_select(0, idx[1])
-    _, src, dst = idx
-    out = torch.zeros_like(x)
-    # in place on the fresh destination only: no state key aliases it
-    out.index_copy_(0, dst, x.index_select(0, src))
-    return out
-
-
 def _bump(stream, sig, slots):
     return counter_bump(sig, _counter_update(stream, slots, sig.shape[1]))
 
 
-def _emit_completion_signal(stream, node, st):
-    """§3.2 chained completion signal of a put descriptor: a wire signal
-    (its own permuted one-hot put) and a local bump tied to the payload's
-    arrival land the same counts — each branch's arrival mask in its
-    slot (a multicast put's completion tree has several branches)."""
+def _completion_slots(node):
+    """(slot, direction) branches of a put's §3.2 chained completion
+    signal: a wire signal (its own permuted one-hot put) and a local bump
+    tied to the payload's arrival land the same counts — each branch's
+    arrival mask in its slot (a multicast put's completion tree has
+    several branches)."""
     ch = node.chained
-    branches = ch.slots or ((ch.slot, node.direction),)
-    st[ch.counter] = _bump(stream, st[ch.counter], branches)
+    return ch.slots or ((ch.slot, node.direction),)
+
+
+def _emit_completion_signal(stream, node, st):
+    """A put's chained completion signal as a bump of its own."""
+    st[node.chained.counter] = _bump(stream, st[node.chained.counter],
+                                     _completion_slots(node))
     return st
 
 
@@ -177,7 +169,20 @@ def emit_node(stream, node, st, *, with_chained=True):
             raise NotImplementedError(
                 "multicast puts come with the broadcast pattern, not "
                 "ported yet (ROADMAP Queue 1 item 6)")
-        arrived = _ppermute(stream, payload, node.direction)
+        if not payload.is_contiguous() and rank_rows(payload) is None:
+            # an unmerged pack's strided surface view: put_signal copies
+            # rows whose elements are contiguous
+            payload = payload.contiguous()
+        perm = _perm_index(stream, node.direction)
+        ch = node.chained if with_chained else None
+        if ch is None:
+            arrived = put_signal(payload, perm)
+        else:
+            # the payload and its completion signal in one launch
+            cnt = st[ch.counter]
+            arrived, st[ch.counter] = put_signal(
+                payload, perm, cnt, _counter_update(
+                    stream, _completion_slots(node), cnt.shape[1]))
         if chunked:
             dnames = node.dsts if packed else (node.dst,)
             updated = chunk_scatter(arrived, [st[d] for d in dnames],
@@ -191,8 +196,6 @@ def emit_node(stream, node, st, *, with_chained=True):
                 st[dst] = part
         else:
             st[node.dst] = arrived
-        if with_chained and node.chained is not None:
-            st = _emit_completion_signal(stream, node, st)
     elif node.kind in ("start", "complete", "wait"):
         # start snapshots the post counter and wait fences the delivered
         # buffers: with in-order execution on one stream, the emission

@@ -106,9 +106,9 @@ def make_faces_kernels(n):
         unpacks[d] = unpack_d
 
     def unpack_compare(src, *recvs):
-        # merged unpack (§5.4): one launch gathers all 26 surfaces
-        acc = halo_unpack_split(recvs, n)
-        return acc, _max_abs(acc)
+        # merged unpack+compare (§5.4): one launch gathers all 26 surfaces
+        # and takes the per-rank max|acc| in the same pass
+        return halo_unpack_split(recvs, n, with_max=True)
 
     def zero_acc(acc):
         return torch.zeros_like(acc)

@@ -1,19 +1,40 @@
-// Device-resident counter bump: out = sig + upd over int32 counter slots.
+// Device-resident counter bump, and the put that carries its completion
+// signal in its own launch.
 //
 // Replaces the TPU kernel _pallas_bump in src/repro/core/engine.py, the
-// progress engine's merged post-signal bump on the counter arena. In the
-// port every counter effect of the epoch protocol (post signals, chained
-// completion signals) is one such bump of a (R, npeers) counter buffer by
+// progress engine's merged post-signal bump on the counter arena, and the
+// chained completion signal the reference lands as "a second triggered put
+// ... triggered by the payload's arrival" (src/repro/core/engine.py,
+// _emit_completion_signal). Counters are (R, npeers) int32 buffers bumped by
 // a precomputed update of the same shape.
 //
-// What bounds it on an H100: launch latency. Faces' counters are
-// 64 x 26 int32 (6.5 KB); the kernel reads two and writes one, about
-// 20 KB, which the memory moves in nanoseconds against microseconds to
-// launch. The design is therefore the simplest one: one thread per slot,
-// no shared memory, a single small grid. Integer adds are exact, so the
-// result equals the reference bit for bit. A device-side wait poll and a
-// persistent per-segment kernel, which would remove launches, are later
-// work.
+// What bounds them on an H100: the launch, not the bytes. Faces' counters
+// are 64 x 26 int32 (6.5 KB); a bump reads two and writes one, about 20 KB,
+// which the memory moves in nanoseconds against microseconds to launch. No
+// design of a lone bump gets under that floor, so the design removes
+// launches instead:
+//   * counter_bump: out = sig + upd, one thread per slot. It stays for the
+//     merged post signal and for the host-orchestrated baseline, whose
+//     completion handling is its own dispatch (paper Fig. 9a).
+//   * put_signal: the permuted copy of a put (row dst of the output is row
+//     perm[dst] of the payload, zeros where perm[dst] is -1: the
+//     non-periodic scatter) and, in the same launch, its chained completion
+//     signal sig + upd. The payload and the counter take one launch instead
+//     of two. Rows are copied as bytes, in 16-byte vectors where the row
+//     size, the rank stride and both base addresses allow and narrower ones
+//     otherwise, so float32, bf16 and int32 payloads all take it. The copy
+//     is bound by the payload's bytes (a Faces face is 64 x 16 KB); a block
+//     row per destination rank keeps every load and store coalesced.
+//
+// Why no fence between payload and signal: every reader of either output is
+// a later launch on the same stream, and a launch sees all memory effects of
+// the launches before it on its stream. A device-side wait poll (a kernel
+// spinning on the counter while this one runs, ROADMAP Queue 1 item 13)
+// would need a release ordering here: the payload stores, then
+// __threadfence(), then the signal, written by the last block to finish.
+//
+// Integer adds and copies are exact: both results equal the reference bit
+// for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,6 +50,62 @@ __global__ void bump_kernel(const int32_t* __restrict__ sig,
   if (i < n) out[i] = sig[i] + upd[i];
 }
 
+// grid: (copy blocks per row [+ 1], max(R, 1)); block row r writes output
+// row r from payload row perm[r], nvec vectors of V. With a signal, the
+// last block of each row writes signal slots instead (nsig between them):
+// the signal's loads then run beside the copy's two dependent ones (the
+// source rank, then its row), not after them.
+template <typename V>
+__global__ void put_signal_kernel(const char* __restrict__ x,
+                                  long long x_stride, char* __restrict__ out,
+                                  long long nvec, int R,
+                                  const int64_t* __restrict__ perm,
+                                  const int32_t* __restrict__ sig,
+                                  const int32_t* __restrict__ upd,
+                                  int32_t* __restrict__ sig_out,
+                                  long long nsig) {
+  const int r = blockIdx.y;
+  const int copy_blocks = gridDim.x - (sig_out != nullptr);
+  if ((int)blockIdx.x == copy_blocks) {
+    for (long long k = r * (long long)blockDim.x + threadIdx.x; k < nsig;
+         k += (long long)gridDim.y * blockDim.x)
+      sig_out[k] = sig[k] + upd[k];
+    return;
+  }
+  if (r >= R) return;
+  const long long step = (long long)copy_blocks * blockDim.x;
+  const long long j0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  V* dst = reinterpret_cast<V*>(out) + r * nvec;
+  const long long src = perm[r];
+  if (src >= 0) {
+    const V* row = reinterpret_cast<const V*>(x + src * x_stride);
+    for (long long j = j0; j < nvec; j += step) dst[j] = row[j];
+  } else {
+    for (long long j = j0; j < nvec; j += step) dst[j] = V{};
+  }
+}
+
+__global__ void empty_kernel() {}
+
+template <typename V>
+cudaError_t launch_put(const char* x, long long x_stride, char* out,
+                       long long row_bytes, int R, const int64_t* perm,
+                       const int32_t* sig, const int32_t* upd,
+                       int32_t* sig_out, long long nsig, cudaStream_t stream) {
+  const long long nvec = row_bytes / (long long)sizeof(V);
+  // a warp at least, a block at most; a Faces face (1,024 16-byte vectors)
+  // takes 4 blocks a row, an edge or a corner one warp
+  long long threads = (nvec + 31) / 32 * 32;
+  threads = threads < 32 ? 32 : (threads > kThreads ? kThreads : threads);
+  long long bx = (nvec + threads - 1) / threads;
+  bx = bx < 1 ? 1 : (bx > 1024 ? 1024 : bx);
+  const dim3 grid((unsigned)(bx + (sig_out != nullptr)),
+                  (unsigned)(R > 0 ? R : 1));
+  put_signal_kernel<V><<<grid, (unsigned)threads, 0, stream>>>(
+      x, x_stride, out, nvec, R, perm, sig, upd, sig_out, nsig);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // sig, upd, out: contiguous int32 buffers of n elements on one device.
@@ -37,5 +114,44 @@ extern "C" int counter_bump_launch(const int32_t* sig, const int32_t* upd,
   if (n == 0) return 0;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   bump_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(sig, upd, out, n);
+  return (int)cudaGetLastError();
+}
+
+// x: R payload rows of row_bytes bytes each, row r at x + r * x_stride
+// bytes; out: contiguous (R, row_bytes); perm: R source ranks in [-1, R)
+// on the device (-1: zero fill). sig_out == nullptr puts with no signal;
+// else sig, upd, sig_out are contiguous int32 buffers of nsig elements.
+extern "C" int put_signal_launch(const void* x, long long x_stride, void* out,
+                                 long long row_bytes, int R,
+                                 const int64_t* perm, const int32_t* sig,
+                                 const int32_t* upd, int32_t* sig_out,
+                                 long long nsig, void* stream) {
+  if (R < 0 || R > 65535 || row_bytes < 0) return (int)cudaErrorInvalidValue;
+  if (sig_out == nullptr) nsig = 0;
+  if ((R == 0 || row_bytes == 0) && nsig == 0) return 0;
+  const uintptr_t align = (uintptr_t)x | (uintptr_t)out |
+                          (uintptr_t)row_bytes | (uintptr_t)x_stride;
+  const char* xs = static_cast<const char*>(x);
+  char* os = static_cast<char*>(out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (align % 16 == 0)
+    return (int)launch_put<uint4>(xs, x_stride, os, row_bytes, R, perm, sig,
+                                  upd, sig_out, nsig, s);
+  if (align % 8 == 0)
+    return (int)launch_put<uint2>(xs, x_stride, os, row_bytes, R, perm, sig,
+                                  upd, sig_out, nsig, s);
+  if (align % 4 == 0)
+    return (int)launch_put<uint32_t>(xs, x_stride, os, row_bytes, R, perm,
+                                     sig, upd, sig_out, nsig, s);
+  if (align % 2 == 0)
+    return (int)launch_put<uint16_t>(xs, x_stride, os, row_bytes, R, perm,
+                                     sig, upd, sig_out, nsig, s);
+  return (int)launch_put<uint8_t>(xs, x_stride, os, row_bytes, R, perm, sig,
+                                  upd, sig_out, nsig, s);
+}
+
+// One launch of an empty kernel: the launch floor the bump is timed against.
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

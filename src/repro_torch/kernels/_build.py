@@ -37,11 +37,17 @@ LIBRARIES = {
     "halo_pack": {
         "halo_pack_launch": (_PTR, _INT, _INT, _INT, _INT, _PTRS, _STRIDES,
                              _PTR),
+        # (acc, R, nx, ny, nz, ptrs, strides, rank max or NULL, stream)
         "halo_unpack_launch": (_PTR, _INT, _INT, _INT, _INT, _PTRS,
-                               _STRIDES, _PTR),
+                               _STRIDES, _PTR, _PTR),
     },
+    # put_signal: (x, x rank stride in bytes, out, row bytes, R, perm, sig,
+    #  upd, sig out or NULL, signal slots, stream)
     "counter_bump": {
         "counter_bump_launch": (_PTR, _PTR, _PTR, _I64, _PTR),
+        "put_signal_launch": (_PTR, _I64, _PTR, _I64, _INT, _PTR, _PTR, _PTR,
+                              _PTR, _I64, _PTR),
+        "empty_launch": (_PTR,),
     },
     # (dtype, q, k, v, out, q_offset, kv_len, B, Sq, Skv, H, KV, hd, hdv,
     #  strides[12], causal, stream)
@@ -74,7 +80,8 @@ LIBRARIES = {
 # launches per kernel since the last reset_launches(); a wrapper adds
 # one only after its kernel was launched without error
 LAUNCHES: Dict[str, int] = {"halo_pack": 0, "halo_unpack": 0,
-                            "counter_bump": 0, "flash_attention": 0,
+                            "counter_bump": 0, "put_signal": 0,
+                            "flash_attention": 0,
                             "decode_attention": 0, "wkv6": 0,
                             "mamba_scan": 0}
 

@@ -10,7 +10,8 @@ rank dim R and use the same two kernels:
     send buffers, one launch (Faces' merged ``pack_all``);
   * :func:`halo_pack` — the same kernel into one flat (R, total) buffer;
   * :func:`halo_unpack_split` — 26 (R, s_d) surfaces -> (R, nx, ny, nz)
-    accumulator, one launch (Faces' merged ``unpack_compare``);
+    accumulator, one launch; with ``with_max=True`` the same launch also
+    writes the per-rank max|acc| (Faces' merged ``unpack_compare``);
   * :func:`halo_unpack` — the same kernel from one flat (R, total) buffer.
 
 The kernels address each of the 26 surfaces through its own base
@@ -26,8 +27,10 @@ import functools
 
 import torch
 
-from repro_torch.core.halo import DIRECTIONS, offsets_of, surface_size
+from repro_torch.core.halo import (DIRECTIONS, _max_abs, offsets_of,
+                                  surface_size)
 from repro_torch.kernels import _build
+from repro_torch.kernels.counter_bump.ops import rank_rows
 from repro_torch.kernels.halo_pack import ref
 
 NDIR = len(DIRECTIONS)
@@ -56,14 +59,12 @@ def _check_cuda(t: torch.Tensor, what: str, device=None):
         raise TypeError(f"{what}: the kernel takes float32, got {t.dtype}")
 
 
-def _rows(t: torch.Tensor, R: int, s: int, what: str) -> torch.Tensor:
-    """``t`` viewed as (R, s) rows, one per rank, without a copy: each
-    rank's ``s`` elements must be contiguous, its rank stride is free."""
-    try:
-        rows = t.view(R, s)
-    except RuntimeError:
-        rows = None
-    if rows is None or (s > 1 and rows.stride(1) != 1):
+def _rows(t: torch.Tensor, s: int, what: str) -> torch.Tensor:
+    """``t`` (R, ...) viewed as (R, s) rows, one per rank, without a copy:
+    each rank's ``s`` elements must be contiguous, its rank stride is
+    free."""
+    rows = rank_rows(t)
+    if rows is None:
         raise ValueError(f"{what}: each rank's {s} elements must be "
                          f"contiguous (shape {tuple(t.shape)}, strides "
                          f"{t.stride()})")
@@ -98,13 +99,26 @@ def _launch_pack(field, dst_tensors, dst_strides, dst_offsets=None):
     _build.check(rc, "halo_pack")
 
 
-def _launch_unpack(acc, src_tensors, src_strides, src_offsets=None):
-    R, nx, ny, nz = acc.shape
-    ptrs, strd = _pointer_table(src_tensors, src_strides, src_offsets)
-    rc = _build.load("halo_pack").halo_unpack_launch(
-        acc.data_ptr(), R, nx, ny, nz, ptrs, strd,
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "halo_unpack")
+def _unpack(R, n, device, with_max, src_tensors, src_strides,
+            src_offsets=None):
+    """New accumulator (and, ``with_max``, the per-rank max|acc|) from one
+    launch of the unpack kernel."""
+    acc = torch.empty((R,) + n, dtype=torch.float32, device=device)
+    # the kernel lands each block's max on its rank's slot: zero first
+    rmax = torch.zeros((R, 1), dtype=torch.float32, device=device) \
+        if with_max else None
+    if R:
+        ptrs, strd = _pointer_table(src_tensors, src_strides, src_offsets)
+        rc = _build.load("halo_pack").halo_unpack_launch(
+            acc.data_ptr(), R, *n, ptrs, strd,
+            None if rmax is None else rmax.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, "halo_unpack")
+    return (acc, rmax) if with_max else acc
+
+
+def _plain_unpack(acc, with_max):
+    return (acc, _max_abs(acc)) if with_max else acc
 
 
 def halo_pack_split(field):
@@ -136,10 +150,12 @@ def halo_pack(field):
     return out
 
 
-def halo_unpack_split(recvs, n):
+def halo_unpack_split(recvs, n, with_max=False):
     """26 surfaces (each (R, s_d), ``DIRECTIONS`` order) -> new
     (R, nx, ny, nz) accumulator: every cell is 0.0 plus, in
-    ``DIRECTIONS`` order, each surface that contains it."""
+    ``DIRECTIONS`` order, each surface that contains it. ``with_max``
+    returns ``(acc, max)``, max the per-rank max|acc| as (R, 1), from the
+    same launch."""
     n = tuple(int(x) for x in n)
     if len(recvs) != NDIR:
         raise ValueError(f"halo unpack: expected {NDIR} surfaces, got "
@@ -151,31 +167,27 @@ def halo_unpack_split(recvs, n):
             raise ValueError(f"halo unpack: surface {d} has shape "
                              f"{tuple(r.shape)}, expected ({R}, {s})")
     if recvs[0].device.type == "cpu":
-        return ref.halo_unpack_split_ref(recvs, n)
+        return _plain_unpack(ref.halo_unpack_split_ref(recvs, n), with_max)
     rows = []
     for d, s, r in zip(DIRECTIONS, sizes, recvs):
         _check_cuda(r, f"halo unpack: surface {d}", recvs[0].device)
-        rows.append(_rows(r, R, s, f"halo unpack: surface {d}"))
-    acc = torch.empty((R,) + n, dtype=torch.float32,
-                      device=recvs[0].device)
-    if R:
-        _launch_unpack(acc, rows, [r.stride(0) for r in rows])
-    return acc
+        rows.append(_rows(r, s, f"halo unpack: surface {d}"))
+    return _unpack(R, n, recvs[0].device, with_max, rows,
+                   [r.stride(0) for r in rows])
 
 
-def halo_unpack(flat, n):
-    """flat (R, total) float32 -> new (R, nx, ny, nz) accumulator."""
+def halo_unpack(flat, n, with_max=False):
+    """flat (R, total) float32 -> new (R, nx, ny, nz) accumulator (and,
+    ``with_max``, the per-rank max|acc|, as :func:`halo_unpack_split`)."""
     n = tuple(int(x) for x in n)
     _, offs, total = _geometry(n)
     if flat.dim() != 2 or flat.shape[1] != total:
         raise ValueError(f"halo unpack: flat must be (R, {total}), got "
                          f"{tuple(flat.shape)}")
     if flat.device.type == "cpu":
-        return ref.halo_unpack_ref(flat, n)
+        return _plain_unpack(ref.halo_unpack_ref(flat, n), with_max)
     _check_cuda(flat, "halo unpack: flat")
     R = flat.shape[0]
-    flat = _rows(flat, R, total, "halo unpack: flat")
-    acc = torch.empty((R,) + n, dtype=torch.float32, device=flat.device)
-    if R:
-        _launch_unpack(acc, [flat] * NDIR, [flat.stride(0)] * NDIR, offs)
-    return acc
+    flat = _rows(flat, total, "halo unpack: flat")
+    return _unpack(R, n, flat.device, with_max, [flat] * NDIR,
+                   [flat.stride(0)] * NDIR, offs)

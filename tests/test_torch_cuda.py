@@ -24,9 +24,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import STStream, halo
+from repro_torch.core import STStream, engine, halo
+from repro_torch.core.halo import _max_abs
 from repro_torch.kernels import _build
-from repro_torch.kernels.counter_bump import counter_bump
+from repro_torch.kernels.counter_bump import (counter_bump, put_signal,
+                                              put_signal_ref)
 from repro_torch.kernels.halo_pack import (halo_pack, halo_pack_split,
                                            halo_unpack, halo_unpack_split)
 from repro_torch.kernels.halo_pack import ref
@@ -79,6 +81,9 @@ def test_halo_unpack_takes_rank_strided_surfaces(dev):
                        ref.halo_unpack_split_ref(views, n))
     assert torch.equal(halo_unpack(flat[:, 3:-4], n),
                        ref.halo_unpack_ref(flat[:, 3:-4], n))
+    acc, res = halo_unpack_split(views, n, with_max=True)
+    want = ref.halo_unpack_split_ref(views, n)
+    assert torch.equal(acc, want) and torch.equal(res, _max_abs(want))
     face = sizes.index(max(sizes))          # a surface of many elements
     column_major = list(views)
     column_major[face] = views[face].t().contiguous().t()   # rank stride 1
@@ -92,6 +97,116 @@ def test_counter_bump_equals_add(dev):
     assert torch.equal(counter_bump(sig, upd), sig + upd)
     with pytest.raises(ValueError):
         counter_bump(sig.t(), upd.t())             # not contiguous
+
+
+def _device_kernels(fn, calls=3):
+    """Names of the device kernels (not memsets) ``calls`` calls of
+    ``fn()`` run, each name once per launch. The profiler sometimes
+    returns no device event at all for a short trace: that says nothing
+    of the kernel, so such a trace is taken again (at most twice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and "emset" not in e.key
+                 for _ in range(e.count)]
+        if names:
+            return names
+    return names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32], ids=str)
+@pytest.mark.parametrize("periodic", [True, False])
+def test_put_signal_equals_plain_version(dev, periodic, dtype):
+    """Gather and zero-filled scatter, rows of 1, 3, 64 and 4096
+    elements, rows that start off a 16-byte boundary (narrower vectors),
+    with and without the signal: equal to the plain version bit for
+    bit, one launch a call."""
+    stream = STStream(dev, ("x", "y", "z"), periodic=periodic,
+                      grid_shape=(4, 4, 4))
+    R = stream.num_ranks
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sig = torch.randint(0, 1 << 20, (R, 26), generator=gen, device=dev,
+                        dtype=torch.int32)
+    upd = torch.randint(0, 3, (R, 26), generator=gen, device=dev,
+                        dtype=torch.int32)
+    calls = 0
+    _build.reset_launches()
+    for d in ((1, 0, 0), (-1, 1, 0), (1, 1, 1)):
+        perm = engine._perm_index(stream, d)
+        assert bool((perm < 0).any()) == (not periodic)
+        for s in (1, 3, 64, 4096):
+            wide = torch.randint(-1000, 1000, (R, s + 1), generator=gen,
+                                 device=dev).to(dtype)
+            for x in (wide[:, :s].contiguous(), wide[:, 1:]):
+                want = put_signal_ref(x, perm)
+                assert torch.equal(put_signal(x, perm), want)
+                got, cnt = put_signal(x, perm, sig, upd)
+                assert torch.equal(got, want) and got.dtype == dtype
+                assert torch.equal(cnt, sig + upd)
+                calls += 2
+    assert _build.LAUNCHES["put_signal"] == calls
+    x = torch.randn((R, 64), generator=gen, device=dev)
+    assert len(_device_kernels(lambda: put_signal(x, perm, sig, upd))) == 3
+    with pytest.raises(ValueError, match="contiguous"):
+        put_signal(x.t().contiguous().t(), perm)      # rank stride 1
+
+
+@pytest.mark.parametrize("n", [(4, 4, 4), (6, 5, 4), (1, 3, 2), (2, 1, 3),
+                               (3, 3, 3), (16, 8, 4)])
+def test_halo_unpack_is_one_kernel_with_the_max(dev, n):
+    """The one-pass unpack: one device kernel a call (and a memset of the
+    R maxima with ``with_max``), equal to the plain unpack and its
+    max|acc| pass, a NaN in one surface propagated to its rank's max."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    field = torch.randn((5,) + n, generator=gen, device=dev)
+    recvs = [torch.randn(p.shape, generator=gen, device=dev)
+             for p in halo_pack_split(field)]
+    want = ref.halo_unpack_split_ref(recvs, n)
+    _build.reset_launches()
+    acc, res = halo_unpack_split(recvs, n, with_max=True)
+    assert torch.equal(acc, want) and torch.equal(res, _max_abs(want))
+    assert _build.LAUNCHES["halo_unpack"] == 1
+    for with_max in (False, True):
+        names = _device_kernels(
+            lambda: halo_unpack_split(recvs, n, with_max=with_max))
+        assert len([k for k in names if "unpack" in k]) == 3, names
+        assert len(names) == 3 * (1 + with_max), names  # + the maxima's zeros
+    recvs[7] = recvs[7].clone()
+    recvs[7][2, -1] = float("nan")
+    acc, res = halo_unpack_split(recvs, n, with_max=True)
+    want = ref.halo_unpack_split_ref(recvs, n)
+    torch.testing.assert_close(acc, want, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(res, _max_abs(want), rtol=0, atol=0,
+                               equal_nan=True)
+    assert bool(res[2].isnan()) and not res[[0, 1, 3, 4]].isnan().any()
+
+
+def test_put_signal_and_unpack_never_sync(dev):
+    n, R = (6, 5, 3), 8
+    gen = torch.Generator(device=dev).manual_seed(4)
+    field = torch.randn((R,) + n, generator=gen, device=dev)
+    x = torch.randn((R, 33), generator=gen, device=dev)
+    sig = torch.zeros((R, 26), dtype=torch.int32, device=dev)
+    perm = torch.tensor([1, 2, 3, 4, 5, 6, 7, -1], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        put_signal(x, perm)
+        put_signal(x, perm, sig, sig)
+        recvs = halo_pack_split(field)
+        halo_unpack_split(recvs, n, with_max=True)
+        halo_unpack(halo_pack(field), n, with_max=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 PACK = dict(pack=True, node_aware=True)
