@@ -25,7 +25,8 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  must have some);
   2. kernels  — each kernel against its plain PyTorch version on the card:
                  the Faces kernels exactly, R=64: pack and unpack at
-                 n=(64,64,64), (6,5,4), (6,5,3) and (1,3,2), the unpack
+                 n=(64,64,64), (6,5,4), (6,5,3) and (1,3,2), the pack
+                 also in bf16 and int32 at (64,64,64), the unpack
                  with and without the per-rank max and with a NaN in one
                  surface; put_signal (gather, and the zero-filled scatter
                  of a non-periodic grid; float32, bf16 and int32; rows of
@@ -71,12 +72,20 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  synchronisation);
   5. timing   — CUDA-event medians: per-iteration ms of each mode; from
                  torch.profiler (full tables in ``chiprun_out/``) the
-                 device's busy time and idle share and the device ops
+                 device's busy time and idle share, the pack's and the
+                 unpack's device ms, and the device ops
                  and host launch calls per iteration, beside the cost
-                 simulator's dispatch units; each kernel's device time
+                 simulator's dispatch units; a fetch-granularity probe
+                 (1, 8 or 16 floats, or the first and last, read per
+                 256-byte row of a cold 67 MB buffer); each kernel's
+                 device time
                  (CUDA-graph replay) and eager call time beside its
                  bound, its plain version and the one-call PyTorch
-                 yardstick (index_select, index_add, add); the unpack
+                 yardstick (index_select, index_add, add); the pack
+                 also cold (cold_ms, library_cold_ms: four fields in
+                 turns, out of L2), its bound counted in distinct 32-byte
+                 sectors of the field (bound_useful_bytes_ms beside it);
+                 the unpack
                  with the max beside it (with_max_ms), an empty kernel's
                  time beside the bump (launch_floor_ms), and put_signal
                  at Faces' face, edge and corner payloads beside the two
@@ -156,15 +165,17 @@ in a worker process of its own, which builds that tree's kernels into
 its own ``build/repro_torch/`` and prints one JSON line: each kernel
 function's SASS opcode counts (cuobjdump); the device time per call
 (``graph_ms`` of 5 calls, as the kernels-line rows) on the rows' bf16
-inputs at rwkv6-1.6b's and jamba's widths, B x S in AB_CASES; halo_unpack
-at 64r and counter_bump (``graph_ms``); and the st and fused Faces 64r
-programs' ms per iteration with the device's busy ms and ops per
-iteration (profiler). The workers go other, this, this, other, so that a
-drift of the card's clock falls on both trees alike; the last JSON line
-holds each tree's median per case.
+inputs at rwkv6-1.6b's and jamba's widths, B x S in AB_CASES; halo_pack
+at 64r warm and cold, halo_unpack at 64r and counter_bump; and the st
+and fused Faces 64r programs' ms per iteration with the device's busy
+ms, ops, and pack and unpack ms per iteration (profiler). The workers
+go other, this, this, other, so that a drift of the card's clock falls
+on both trees alike; the last JSON line holds each tree's median per
+case.
 """
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -354,6 +365,15 @@ def graph_ms(fn, inner=20, reps=7):
     return event_ms(graph.replay, reps=reps) / inner
 
 
+def cold_ms(fn, inputs, inner=20):
+    """``graph_ms`` with each call's input out of L2: call i runs on
+    ``inputs[i % len(inputs)]`` and every call's output is kept (memory of
+    its own), so the calls between two on one input, reading and writing
+    more than the card's 50 MB L2 holds, have pushed it out."""
+    kept, nxt = [], itertools.cycle(inputs).__next__
+    return graph_ms(lambda: kept.append(fn(nxt())), inner=inner)
+
+
 def device_profile(run, out_path):
     """One ``run()`` under torch.profiler: {"busy_ms": device time,
     "top": its largest entries, "device_ops": kernels, memsets and copies
@@ -388,16 +408,21 @@ def device_profile(run, out_path):
             "host_calls": host_calls}
 
 
-# the device functions each wrapper launches, as the profiler names them
+# the device functions each wrapper launches, as the profiler names them:
+# the start of a function name (halo_pack's was pack_kernel before the
+# redesign, which --ab reads in a parent tree)
 KERNEL_FUNCS = {"flash_attention": ("flash_fwd_",),
                 "decode_attention": ("decode_split_", "decode_merge"),
-                "wkv6": ("wkv6_",), "mamba_scan": ("mamba_scan_",)}
+                "wkv6": ("wkv6_",), "mamba_scan": ("mamba_scan_",),
+                "halo_pack": ("halo_pack_kernel", "pack_kernel"),
+                "halo_unpack": ("unpack_kernel",)}
 
 
 def kernel_ms(prof, names):
     """{wrapper: device ms of its kernels in the profile ``prof``}."""
     return {n: sum(ms for ms, key, _ in prof["rows"]
-                   if any(f in key for f in KERNEL_FUNCS[n]))
+                   if any(re.search(r"(?<!\w)" + f, key)
+                          for f in KERNEL_FUNCS[n]))
             for n in names}
 
 
@@ -466,6 +491,8 @@ PUT_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 # the unpack's cases, beside R = 64: the main path's block, a tiny one,
 # nz % 4 != 0 (scalar end cells), and a block smaller than a vector
 UNPACK_SHAPES = (N_FULL, (6, 5, 4), (6, 5, 3), (1, 3, 2))
+# the pack's other dtypes, at N_FULL (float32 at every UNPACK_SHAPES)
+PACK_DTYPES = (torch.bfloat16, torch.int32)
 
 
 def nan_equal(a, b):
@@ -526,6 +553,18 @@ def phase_kernels(dev, core, hp, hp_ref, cb, R=64):
                   and not got[1][:5].isnan().any(), "NaN not in its rank")
         emit({"phase": "kernels", "n": list(n), "R": R, "pack": "equal",
               "unpack": "equal", "unpack_with_max": "equal, NaN propagated"})
+    # the pack is a pure copy of any 2-, 4- or 8-byte element: bf16 and
+    # int32 at the main path's block
+    for dtype in PACK_DTYPES:
+        field = torch.randint(-1 << 20, 1 << 20, (R,) + N_FULL, generator=gen,
+                              device=dev).to(dtype)
+        want = hp_ref.halo_pack_split_ref(field)
+        split, flat = hp.halo_pack_split(field), hp.halo_pack(field)
+        check(all(torch.equal(a, b) for a, b in zip(split, want))
+              and torch.equal(flat, torch.cat(want, dim=1))
+              and flat.dtype == dtype, f"halo pack != plain pack in {dtype}")
+    emit({"phase": "kernels", "n": list(N_FULL), "R": R,
+          "pack_dtypes": [str(d) for d in PACK_DTYPES], "pack": "equal"})
     sig = torch.randint(0, 1 << 20, (R, 26), generator=gen, device=dev,
                         dtype=torch.int32)
     upd = torch.randint(0, 3, (R, 26), generator=gen, device=dev,
@@ -709,6 +748,7 @@ def phase_timing(core, hp, hp_ref, cb, lib_cb, dev, launches, dispatches,
         prof = device_profile(
             runs[mode], os.path.join(OUT_DIR, f"profile_faces_{mode}.txt"))
         busy = prof["busy_ms"]
+        faces_ms = kernel_ms(prof, ("halo_pack", "halo_unpack"))
         emit({"phase": "timing", "mode": mode, "iter_ms": ms / NITER_FULL,
               "program_ms": ms, "program_ms_runs": ts, "niter": NITER_FULL,
               # the cost simulator's accounting unit (one per descriptor,
@@ -723,6 +763,8 @@ def phase_timing(core, hp, hp_ref, cb, lib_cb, dev, launches, dispatches,
               "device_busy_ms_per_iter": (None if busy is None
                                           else busy / NITER_FULL),
               "device_idle_share": None if busy is None else 1 - busy / ms,
+              "kernel_device_ms_per_iter": {k: v / NITER_FULL
+                                            for k, v in faces_ms.items()},
               "top_device_ms": [[round(t, 4), k, c]
                                 for t, k, c in prof["top"]]})
 
@@ -770,11 +812,25 @@ def phase_timing(core, hp, hp_ref, cb, lib_cb, dev, launches, dispatches,
         check(empty(torch.cuda.current_stream().cuda_stream) == 0,
               "the empty kernel did not launch")
 
+    # the pack cold: four fields (268 MB) in turns, beside the warm ms
+    fields = [field] + [torch.rand(field.shape, generator=gen, device=dev)
+                        for _ in range(3)]
+    written = R * total * 4
     rows = [
+        # bound: the distinct 32-byte sectors of the field the shell covers
+        # and the surfaces written; the useful bytes' bound beside it
         ("halo_pack", "src/repro_torch/csrc/halo_pack.cu",
          "src/repro/kernels/halo_pack/kernel.py:39",
          lambda: hp.halo_pack(field), lambda: hp_ref.halo_pack_ref(field),
-         lib_pack, "torch.index_select", R * (shell + total) * 4, {}),
+         lib_pack, "torch.index_select",
+         sector_bytes(N_FULL, R, 4) + written,
+         {"bytes_counted_as": lambda: "distinct 32-byte sectors of the "
+                                      "field read, plus the bytes written",
+          "bound_useful_bytes_ms": lambda: (R * shell * 4 + written)
+          / HBM_BYTES_PER_S * 1e3,
+          "cold_ms": lambda: cold_ms(hp.halo_pack, fields),
+          "library_cold_ms": lambda: cold_ms(
+              lambda f: f.view(R, cells).index_select(1, idx), fields)}),
         # the time of the form without the max (what halo_unpack_fwd
         # computes); the main path's form, with the max, beside it
         ("halo_unpack", "src/repro_torch/csrc/halo_pack.cu",
@@ -823,6 +879,47 @@ def phase_timing(core, hp, hp_ref, cb, lib_cb, dev, launches, dispatches,
             **{k: f() for k, f in extra.items()}))
     kernels.append(put_signal_row(core, cb, dev, launches, errs))
     return kernels
+
+
+def sector_bytes(n, R, nbytes_el):
+    """Bytes of the distinct 32-byte sectors that hold the boundary shell
+    of an (R, *n) field of ``nbytes_el``-byte elements: the least the card
+    can read to pack it (a lone end cell of a row costs a whole sector)."""
+    shell = np.ones(n, dtype=bool)
+    shell[1:-1, 1:-1, 1:-1] = False
+    cells = (np.arange(R)[:, None] * int(np.prod(n))
+             + np.flatnonzero(shell)[None, :])
+    return np.unique(cells * nbytes_el // 32).size * 32
+
+
+def fetch_probe(dev, lib, reps=16):
+    """Reads of a cold 67 MB float32 buffer (the 64r field's size) seen as
+    256-byte rows: one thread a row reads its first 1, 8 or 16 floats, or
+    its first and last float (the pack's end cells: "ends"), and writes
+    their sum (the same output each way; ``fetch_probe_launch`` in
+    csrc/halo_pack.cu). If a lone float costs what 8 do, the card fetches
+    32-byte sectors; if it costs what 16 do, 64 bytes. ``reps`` such
+    buffers in turns keep each cold (cold_ms)."""
+    rows = int(np.prod(GRID_FULL)) * int(np.prod(N_FULL)) // 64
+    bufs = torch.rand((reps, rows, 64), device=dev)
+
+    def read(buf, k):
+        out = torch.empty(rows, device=dev)
+        check(lib.fetch_probe_launch(buf.data_ptr(), rows, k, out.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
+              == 0, "the fetch probe did not launch")
+        return out
+    ways = {"1_float": 1, "ends": 2, "8_floats": 8, "16_floats": 16}
+    for k in ways.values():           # sums in another order: rounding
+        want = bufs[0][:, [0, 63]] if k == 2 else bufs[0][:, :k]
+        torch.testing.assert_close(read(bufs[0], k), want.sum(1))
+    ms = {f"{w}_per_row_ms": cold_ms(lambda b, k=k: read(b, k), list(bufs))
+          for w, k in ways.items()}
+    emit({"phase": "timing", "probe": "fetch_granularity",
+          "buffer_bytes": rows * 256, "rows": rows, **ms,
+          "sectors_32B_ms": rows * 32 / HBM_BYTES_PER_S * 1e3,
+          "fetches_64B_ms": rows * 64 / HBM_BYTES_PER_S * 1e3})
+    del bufs
 
 
 # put_signal at Faces' payloads (R = 64, n = 64^3, float32): a face, an
@@ -1954,19 +2051,26 @@ def sass_census(tool, lib):
 
 
 def faces_ab(dev, core, hp, bump):
-    """The Faces path of one tree: halo_unpack at 64r and the counter
-    bump (graph_ms), and the st and fused Faces 64r programs' ms per
-    iteration (event_ms), with the device's busy ms and ops per
-    iteration from the profiler. Only APIs the parent shares."""
+    """The Faces path of one tree: halo_pack at 64r warm (graph_ms) and
+    cold (cold_ms, four fields in turns), halo_unpack at 64r and the
+    counter bump (graph_ms), and the st and fused Faces 64r programs' ms
+    per iteration (event_ms), with the device's busy ms and ops per
+    iteration and the pack's and unpack's device ms per iteration from
+    the profiler. Only APIs the parent shares."""
     R = int(np.prod(GRID_FULL))
     gen = torch.Generator(device=dev).manual_seed(6)
     recv = hp.halo_pack(torch.randn((R,) + N_FULL, generator=gen,
                                     device=dev))
     sig = torch.zeros((R, 26), dtype=torch.int32, device=dev)
     upd = torch.ones((R, 26), dtype=torch.int32, device=dev)
-    out = {"halo_unpack 64r ms": graph_ms(lambda: hp.halo_unpack(recv,
+    fields = [torch.rand((R,) + N_FULL, generator=gen, device=dev)
+              for _ in range(4)]
+    out = {"halo_pack 64r ms": graph_ms(lambda: hp.halo_pack(fields[0])),
+           "halo_pack 64r cold ms": cold_ms(hp.halo_pack, fields),
+           "halo_unpack 64r ms": graph_ms(lambda: hp.halo_unpack(recv,
                                                                  N_FULL)),
            "counter_bump ms": graph_ms(lambda: bump(sig, upd))}
+    del fields
     src0 = torch.rand((R,) + N_FULL, generator=gen, device=dev)
     for mode in ("st", "fused"):
         stream = core.STStream(dev, AXES, grid_shape=GRID_FULL)
@@ -1985,6 +2089,8 @@ def faces_ab(dev, core, hp, bump):
             float("nan") if prof["busy_ms"] is None
             else prof["busy_ms"] / NITER_FULL)
         out[f"faces {mode} device ops/iter"] = prof["device_ops"] / NITER_FULL
+        for k, v in kernel_ms(prof, ("halo_pack", "halo_unpack")).items():
+            out[f"faces {mode} {k} device ms/iter"] = v / NITER_FULL
     return out
 
 
@@ -2100,6 +2206,7 @@ def main():
     launches, dispatches = phase_full(core, _build, dev)
     kernels = phase_timing(core, hp, hp_ref, cb, _build.load("counter_bump"),
                            dev, launches, dispatches, errs)
+    fetch_probe(dev, _build.load("halo_pack"))
     serving = {"configs": cfgs, "models": models, "serving": serving_mod}
     cfg, serve_launches, counts, groups, _, params, reqs = phase_serve(
         dev, _build, serving, cfgs.get_config("granite-3-2b"),

@@ -12,16 +12,46 @@
 // (26 pointers into it, stride total) take the same kernel.
 //
 // What bounds them on an H100: memory, once the index work per thread is
-// small. Pack reads and writes the R * total surface elements (6.49 MB each
-// way for R = 64, n = 64^3); unpack writes the whole (R, nx, ny, nz)
-// accumulator (64 MiB at that size) and reads the surfaces. A warp runs as
-// long as its slowest lane, so no thread scans all 26 directions (measured:
-// such a scan kept an earlier unpack at 11x its bound). The design:
-//   * pack: one thread per surface element, one block row per rank; it
-//     finds its surface by a 5-step binary search over the prefix offsets
-//     and its source cell with two divisions; the stores are coalesced. A
-//     pure copy: bit-identical to the reference. The z-faces read one
-//     float per 32-byte sector.
+// small. Pack reads the boundary shell of every rank's block and writes the
+// R * total surface elements (6.49 MB for R = 64, n = 64^3, float32);
+// unpack writes the whole (R, nx, ny, nz) accumulator (64 MiB at that size)
+// and reads the surfaces. A warp runs as long as its slowest lane, so no
+// thread scans all 26 directions (measured: such a scan kept an earlier
+// unpack at 11x its bound). The designs:
+//   * pack: the card reads device memory in 32-byte sectors at the least.
+//     The dz != 0 surfaces (the z-faces, 8 edges, 8 corners) need only the
+//     two end cells, z = 0 and z = nz - 1, of each (x, y) row; at nz = 64
+//     a row is 256 bytes, so each end cell costs a sector of its own (19.9
+//     MB of distinct sectors at R = 64, n = 64^3, against 6.1 MB of useful
+//     bytes). Nothing coalesces below a sector, and such scattered reads
+//     are bound by their count, not their bytes: on an H100 SXM (700 W) a
+//     cold 67 MB field read one float per 256-byte row takes 0.0090 ms,
+//     8 or 16 floats per row 0.0094 and 0.0102, both end floats 0.0158
+//     (chip_smoke.py's fetch probe). Staging whole rows to coalesce the
+//     end cells would stream all 67 MB, more than the end reads cost. So
+//     the end reads are issued as densely as they can be. One launch,
+//     blocks of two roles:
+//       - copy blocks, dispatched first: the dz = 0 surfaces are runs that
+//         are contiguous in src and in the surface (the two x-planes, one
+//         ny * nz run each; the y = 0 and y = ny - 1 rows of every
+//         x-plane and the four x-y edges, runs of nz), streamed in 16-byte
+//         stores aligned on the destination, loaded 16 bytes at a time
+//         where the source's alignment matches and narrower where it does
+//         not, the ragged ends of a run 2 bytes at a time;
+//       - end-sector blocks: one thread a row loads both end cells, then
+//         writes the z-faces (index x * ny + y: a warp's stores are
+//         coalesced) and, where x or y is on the boundary, the dz != 0
+//         edges and corners that contain them. One row a thread was
+//         faster than 2, 4 or 8 (more threads, fewer loads each); a lo
+//         pass apart from a hi pass, and walking the ranks from the last,
+//         were no faster. The loads carry the evict-first hint
+//         (ld.global.cs): in Faces the increment has just written the
+//         field, and with L1-allocating loads (ld.global.nc) the pack
+//         there took 0.021 ms against 0.016; cold, .cs is ~6 % slower.
+//     A block's role and rank come from blockIdx ranges, its runs and rows
+//     from a multiply-high: no search, division or modulo per element.
+//     Elements of 2, 4 or 8 bytes are copied as bytes, so any dtype of
+//     those sizes packs; a pure copy, bit for bit the plain pack.
 //   * unpack: one launch that writes every cell of the accumulator exactly
 //     once, in full 16-byte stores along z. The accumulator is ~95% interior
 //     zeros at n = 64^3 and does not stay in the 50 MB L2, so a zero fill
@@ -59,50 +89,27 @@ namespace {
 constexpr int kNdir = 26;
 constexpr int kThreads = 256;
 
+// Surface k of rank r starts at ptr[k] + r * stride[k] elements.
 struct Surfaces {
-  float* ptr[kNdir];
+  void* ptr[kNdir];
   long long stride[kNdir];  // rank stride of surface k, in elements
-  int off[kNdir + 1];       // prefix offsets of the surface sizes
 };
 
-// Direction k of DIRECTIONS as (dx, dy, dz) in {-1, 0, 1}^3.
-__host__ __device__ constexpr int dir_x(int k) { return (k < 13 ? k : k + 1) / 9 - 1; }
-__host__ __device__ constexpr int dir_y(int k) { return ((k < 13 ? k : k + 1) / 3) % 3 - 1; }
-__host__ __device__ constexpr int dir_z(int k) { return (k < 13 ? k : k + 1) % 3 - 1; }
-
-__host__ __device__ inline int extent(int d, int n) { return d ? 1 : n; }
-__host__ __device__ inline int coord(int d, int n, int e) {
-  return d < 0 ? 0 : (d > 0 ? n - 1 : e);
+template <typename T>
+__device__ __forceinline__ T* surface(const Surfaces& s, int k, long long r) {
+  return static_cast<T*>(s.ptr[k]) + r * s.stride[k];
 }
 
+__host__ __device__ inline int extent(int d, int n) { return d ? 1 : n; }
+
 // DIRECTIONS index of (dx, dy, dz).
-__device__ inline int dir_index(int dx, int dy, int dz) {
+__host__ __device__ constexpr int dir_index(int dx, int dy, int dz) {
   const int m = (dx + 1) * 9 + (dy + 1) * 3 + (dz + 1);
   return m < 13 ? m : m - 1;
 }
 
-// grid: (ceil(total / kThreads), R); one thread per element of one rank's
-// flat surface space, which finds its surface by binary search over the
-// 27 prefix offsets.
-__global__ void pack_kernel(const float* __restrict__ src, int nx, int ny,
-                            int nz, const __grid_constant__ Surfaces s) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= s.off[kNdir]) return;
-  const long long r = blockIdx.y;
-  int k = 0, hi = kNdir;                 // s.off[k] <= j < s.off[hi]
-  while (hi - k > 1) {
-    const int mid = (k + hi) >> 1;
-    if (s.off[mid] <= j) k = mid; else hi = mid;
-  }
-  const int dx = dir_x(k), dy = dir_y(k), dz = dir_z(k);
-  const int e = j - s.off[k];
-  const int sy = extent(dy, ny), sz = extent(dz, nz);
-  const int x = coord(dx, nx, e / (sy * sz));
-  const int y = coord(dy, ny, (e / sz) % sy);
-  const int z = coord(dz, nz, e % sz);
-  s.ptr[k][r * s.stride[k] + e] =
-      src[((r * nx + x) * ny + y) * (long long)nz + z];
-}
+// DIRECTIONS indices of the z-faces (0, 0, -1) and (0, 0, 1).
+constexpr int kZlo = dir_index(0, 0, -1), kZhi = dir_index(0, 0, 1);
 
 // Division by a divisor fixed for the launch, as a multiply-high and a
 // shift (exact for dividends below 2^31; the round-up method of
@@ -124,6 +131,185 @@ FastDiv make_fastdiv(int d) {
 __device__ __forceinline__ int fast_div(FastDiv f, int n) {
   return f.shift < 0 ? n : (int)(__umulhi((unsigned)n, f.mul) >> f.shift);
 }
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// ---------------------------------------------------------------------------
+// pack
+// ---------------------------------------------------------------------------
+
+// 16-byte destination chunks a copy thread moves, a block apart; all their
+// loads are issued before the first store.
+constexpr int kCopyChunks = 4;
+
+// The runs of the dz = 0 surfaces, in two sets of equal-length runs: set 0,
+// the two x-planes (one run of ny * nz each); set 1, the y = 0 rows of
+// every x-plane, then the y = ny - 1 rows (nx runs of nz each), then the
+// four x-y edges (one run of nz each). A run of len elements can touch
+// `slots` 16-byte destination chunks, whatever its alignment.
+struct RunSet {
+  int runs, len, slots;
+  FastDiv fslots;
+  int blocks;         // blocks of a rank
+  FastDiv fblocks;
+};
+
+struct Pack {
+  int R, nx, ny, nz;
+  long long cells;    // of a rank
+  RunSet set[2];
+  int rows;           // (x, y) rows of a rank
+  FastDiv fny;
+  int end_blocks;     // end-sector blocks of a rank
+  FastDiv fend;
+};
+
+// Run j of set q: its surface, its first cell in the rank's block and its
+// first element in the surface's rank row.
+__device__ __forceinline__ void run_at(const Pack& p, int q, int j, int& k,
+                                       long long& src, long long& dst) {
+  const long long plane = (long long)p.ny * p.nz;
+  if (q == 0) {                                   // x = 0, x = nx - 1
+    k = j ? dir_index(1, 0, 0) : dir_index(-1, 0, 0);
+    src = j ? (p.nx - 1) * plane : 0;
+    dst = 0;
+  } else if (j < 2 * p.nx) {                      // y = 0, y = ny - 1 rows
+    const int hi = j >= p.nx, x = j - hi * p.nx;
+    k = hi ? dir_index(0, 1, 0) : dir_index(0, -1, 0);
+    src = x * plane + (hi ? p.ny - 1 : 0) * (long long)p.nz;
+    dst = (long long)x * p.nz;
+  } else {                          // the x-y edges, in DIRECTIONS order
+    const int e = j - 2 * p.nx, dx = e & 2 ? 1 : -1, dy = e & 1 ? 1 : -1;
+    k = dir_index(dx, dy, 0);
+    src = (dx < 0 ? 0 : p.nx - 1) * plane +
+          (dy < 0 ? 0 : p.ny - 1) * (long long)p.nz;
+    dst = 0;
+  }
+}
+
+// 16 bytes from s, in the widest loads its alignment allows (s is even:
+// elements are 2, 4 or 8 bytes).
+__device__ __forceinline__ uint4 load16(const char* s) {
+  const unsigned m = (unsigned)(uintptr_t)s & 15u;
+  if (m == 0) return *reinterpret_cast<const uint4*>(s);
+  if ((m & 7) == 0) {
+    const uint2* q = reinterpret_cast<const uint2*>(s);
+    const uint2 a = q[0], b = q[1];
+    return make_uint4(a.x, a.y, b.x, b.y);
+  }
+  if ((m & 3) == 0) {
+    const unsigned* q = reinterpret_cast<const unsigned*>(s);
+    return make_uint4(q[0], q[1], q[2], q[3]);
+  }
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(s);
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (unsigned)q[2 * i] | ((unsigned)q[2 * i + 1] << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Copy blocks of set q: chunk slot u of a rank is chunk u % slots of run
+// u / slots; chunk c of a run whose destination starts at byte d covers
+// destination bytes [a + 16c, a + 16c + 16) of the run, a = d rounded down
+// to 16. A whole chunk is one 16-byte store; a chunk the run's ends cut
+// (at most two a run) is copied 2 bytes at a time.
+__device__ __forceinline__ void copy_runs(const char* src, const Pack& p,
+                                          const Surfaces& s, int q,
+                                          long long r, int b, int es) {
+  const RunSet& rs = p.set[q];
+  const long long nbytes = (long long)rs.len * es;
+  uint4 v[kCopyChunks];
+  char* to[kCopyChunks];
+#pragma unroll
+  for (int i = 0; i < kCopyChunks; ++i) {
+    to[i] = nullptr;
+    const int u = (b * kCopyChunks + i) * kThreads + threadIdx.x;
+    const int j = fast_div(rs.fslots, u);
+    if (j >= rs.runs) continue;
+    int k;
+    long long so, dof;
+    run_at(p, q, j, k, so, dof);
+    char* d = static_cast<char*>(s.ptr[k]) + (r * s.stride[k] + dof) * es;
+    const char* from = src + (r * p.cells + so) * es;
+    char* lo = reinterpret_cast<char*>(
+        (reinterpret_cast<uintptr_t>(d) & ~(uintptr_t)15) +
+        16 * (uintptr_t)(u - j * rs.slots));
+    char* end = d + nbytes;
+    if (lo >= d && lo + 16 <= end) {
+      v[i] = load16(from + (lo - d));
+      to[i] = lo;
+    } else {
+#pragma unroll
+      for (int t = 0; t < 16; t += 2) {
+        char* a = lo + t;
+        if (a >= d && a < end)
+          *reinterpret_cast<unsigned short*>(a) =
+              *reinterpret_cast<const unsigned short*>(from + (a - d));
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kCopyChunks; ++i)
+    if (to[i]) *reinterpret_cast<uint4*>(to[i]) = v[i];
+}
+
+// End-sector blocks: thread t of block b owns row b * kThreads + t of the
+// rank (a warp's lanes on consecutive rows, so its z-face stores are
+// coalesced). It loads both end cells, each the one cell the pack needs
+// from its sector, with the evict-first hint (ld.global.cs), then writes
+// the z-faces and, where x or y is on the boundary, the dz != 0 edges and
+// corners that contain them.
+template <typename T>
+__device__ __forceinline__ void pack_ends(const T* __restrict__ src,
+                                          const Pack& p, const Surfaces& s,
+                                          long long r, int b) {
+  const int row = b * kThreads + threadIdx.x;
+  if (row >= p.rows) return;
+  const T* c = src + r * p.cells + (long long)row * p.nz;
+  const T lo = __ldcs(c), hi = __ldcs(c + p.nz - 1);
+  const int x = fast_div(p.fny, row), y = row - x * p.ny;
+#pragma unroll
+  for (int dx = -1; dx <= 1; ++dx) {
+    if (dx < 0 ? x != 0 : (dx > 0 && x != p.nx - 1)) continue;
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy) {
+      if (dy < 0 ? y != 0 : (dy > 0 && y != p.ny - 1)) continue;
+      // the element of (x, y) in the surface: x * ny + y in a z-face, y in
+      // an x-z edge, x in a y-z edge, 0 in a corner
+      const long long e = (long long)(dx ? 0 : x) * (dy ? 1 : p.ny) +
+                          (dy ? 0 : y);
+      surface<T>(s, dir_index(dx, dy, -1), r)[e] = lo;
+      surface<T>(s, dir_index(dx, dy, 1), r)[e] = hi;
+    }
+  }
+}
+
+// grid: the blocks of each role for all R ranks, in the order copy set 0,
+// copy set 1, end sectors; T: an unsigned type of the element's size.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+halo_pack_kernel(const T* __restrict__ src, const __grid_constant__ Pack p,
+                 const __grid_constant__ Surfaces s) {
+  int b = blockIdx.x;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const RunSet& rs = p.set[q];
+    if (b < p.R * rs.blocks) {
+      const int r = fast_div(rs.fblocks, b);
+      copy_runs(reinterpret_cast<const char*>(src), p, s, q, r,
+                b - r * rs.blocks, (int)sizeof(T));
+      return;
+    }
+    b -= p.R * rs.blocks;
+  }
+  const int r = fast_div(p.fend, b);
+  pack_ends<T>(src, p, s, r, b - r * p.end_blocks);
+}
+
+// ---------------------------------------------------------------------------
+// unpack
+// ---------------------------------------------------------------------------
 
 __host__ __device__ inline int ends(int n) { return n == 1 ? 1 : 2; }
 __host__ __device__ inline int inner(int n) { return n > 2 ? n - 2 : 0; }
@@ -167,7 +353,7 @@ __device__ __forceinline__ void boundary_cells(const Surfaces& s, long long r,
         if (dx == 0 && dy == 0 && dz == 0) continue;   // no surface
         const int k = dir_index(dx, dy, dz);
         const int sy = extent(dy, h.ny), sz = extent(dz, h.nz);
-        const float* p = s.ptr[k] + r * s.stride[k] +
+        const float* p = surface<const float>(s, k, r) +
                          (long long)((dx ? 0 : x) * sy + (dy ? 0 : y)) * sz;
 #pragma unroll
         for (int i = 0; i < W; ++i) {
@@ -179,9 +365,6 @@ __device__ __forceinline__ void boundary_cells(const Surfaces& s, long long r,
     }
   }
 }
-
-// DIRECTIONS indices of the z-faces (0, 0, -1) and (0, 0, 1).
-constexpr int kZlo = 12, kZhi = 13;
 
 // Units of an interior block per thread: their z-face loads are all
 // issued before the first store, so a warp waits for one load latency per
@@ -245,8 +428,8 @@ unpack_kernel(float* __restrict__ acc, const Rows h,
       }
     }
   } else {
-    const float* zlo = s.ptr[kZlo] + r * s.stride[kZlo];
-    const float* zhi = s.ptr[kZhi] + r * s.stride[kZhi];
+    const float* zlo = surface<const float>(s, kZlo, r);
+    const float* zhi = surface<const float>(s, kZhi, r);
     const int units = h.ni * h.upr;
     long long at[kInteriorUnits];      // the unit's first cell in the rank
     int z0[kInteriorUnits];
@@ -291,42 +474,98 @@ unpack_kernel(float* __restrict__ acc, const Rows h,
   }
 }
 
-Surfaces make_surfaces(int nx, int ny, int nz, const uint64_t* ptrs,
-                       const int64_t* strides) {
-  Surfaces s;
-  int off = 0;
-  for (int k = 0; k < kNdir; ++k) {
-    s.ptr[k] = reinterpret_cast<float*>(ptrs[k]);
-    s.stride[k] = strides[k];
-    s.off[k] = off;
-    off += extent(dir_x(k), nx) * extent(dir_y(k), ny) * extent(dir_z(k), nz);
+// The fetch-granularity probe (chip_smoke.py): thread i sums the first k
+// floats (1, or a multiple of 4 up to 16) of 256-byte row i of buf into
+// out[i], its loads issued together; k = 2 sums the row's first and last
+// float, the pack's two end cells. A lone float costs what 8 do if the
+// card fetches 32-byte sectors, what 16 do if it fetches 64 bytes.
+__global__ void fetch_probe_kernel(const float* __restrict__ buf, int rows,
+                                   int k, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows) return;
+  const float* row = buf + (long long)i * 64;
+  if (k <= 2) {
+    out[i] = k == 1 ? row[0] : row[0] + row[63];
+    return;
   }
-  s.off[kNdir] = off;
+  float4 v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = 4 * j < k ? reinterpret_cast<const float4*>(row)[j]
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) sum += v[j].x + v[j].y + v[j].z + v[j].w;
+  out[i] = sum;
+}
+
+Surfaces make_surfaces(const uint64_t* ptrs, const int64_t* strides) {
+  Surfaces s;
+  for (int k = 0; k < kNdir; ++k) {
+    s.ptr[k] = reinterpret_cast<void*>(ptrs[k]);
+    s.stride[k] = strides[k];
+  }
   return s;
 }
 
-int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// gridDim.y carries the rank (at most 65535); in-rank indices are 32-bit.
+// In-rank indices are 32-bit.
 bool shape_ok(int R, int nx, int ny, int nz) {
-  return R > 0 && R <= 65535 && nx > 0 && ny > 0 && nz > 0 &&
+  return R > 0 && nx > 0 && ny > 0 && nz > 0 &&
          (long long)nx * ny * nz < (1LL << 31);
+}
+
+RunSet make_runs(int runs, int len, int es) {
+  RunSet rs;
+  rs.runs = runs;
+  rs.len = len;
+  // a run's first byte sits 0 .. 16 - es bytes past a 16-byte boundary
+  rs.slots = (int)(((long long)len * es + 16 - es + 15) / 16);
+  rs.fslots = make_fastdiv(rs.slots);
+  rs.blocks = cdiv(runs * rs.slots, kThreads * kCopyChunks);
+  rs.fblocks = make_fastdiv(rs.blocks);
+  return rs;
+}
+
+template <typename T>
+cudaError_t launch_pack(const void* src, const Pack& p, const Surfaces& s,
+                        unsigned grid, cudaStream_t stream) {
+  halo_pack_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(src), p, s);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// src: contiguous (R, nx, ny, nz) float32; ptrs/strides: host arrays of 26
-// surface base pointers (device addresses) and rank strides.
-extern "C" int halo_pack_launch(const float* src, int R, int nx, int ny,
-                                int nz, const uint64_t* ptrs,
+// src: contiguous (R, nx, ny, nz) elements of es = 2, 4 or 8 bytes;
+// ptrs/strides: host arrays of 26 surface base pointers (device addresses)
+// and rank strides in elements. Every address is a multiple of es.
+extern "C" int halo_pack_launch(const void* src, int R, int nx, int ny,
+                                int nz, int es, const uint64_t* ptrs,
                                 const int64_t* strides, void* stream) {
   if (R == 0) return 0;
-  if (!shape_ok(R, nx, ny, nz)) return (int)cudaErrorInvalidValue;
-  Surfaces s = make_surfaces(nx, ny, nz, ptrs, strides);
-  const dim3 grid(cdiv(s.off[kNdir], kThreads), R);
-  pack_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(src, nx, ny, nz,
-                                                           s);
-  return (int)cudaGetLastError();
+  if (!shape_ok(R, nx, ny, nz) || (es != 2 && es != 4 && es != 8) ||
+      (long long)ny * nz * es + 32 >= (1LL << 31) ||
+      (long long)(2 * nx + 4) * ((long long)nz * es / 16 + 2) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  Pack p;
+  p.R = R; p.nx = nx; p.ny = ny; p.nz = nz;
+  p.cells = (long long)nx * ny * nz;
+  p.set[0] = make_runs(2, ny * nz, es);
+  p.set[1] = make_runs(2 * nx + 4, nz, es);
+  p.rows = nx * ny;
+  p.fny = make_fastdiv(ny);
+  p.end_blocks = cdiv(p.rows, kThreads);
+  p.fend = make_fastdiv(p.end_blocks);
+  const long long grid = (long long)R * (p.set[0].blocks + p.set[1].blocks +
+                                         p.end_blocks);
+  if (grid >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const Surfaces s = make_surfaces(ptrs, strides);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (es == 2)
+    return (int)launch_pack<unsigned short>(src, p, s, (unsigned)grid, st);
+  if (es == 4)
+    return (int)launch_pack<unsigned>(src, p, s, (unsigned)grid, st);
+  return (int)launch_pack<unsigned long long>(src, p, s, (unsigned)grid, st);
 }
 
 // acc: contiguous (R, nx, ny, nz) float32 output, every cell written once;
@@ -338,7 +577,7 @@ extern "C" int halo_unpack_launch(float* acc, int R, int nx, int ny, int nz,
                                   void* stream) {
   if (R == 0) return 0;
   if (!shape_ok(R, nx, ny, nz)) return (int)cudaErrorInvalidValue;
-  Surfaces s = make_surfaces(nx, ny, nz, ptrs, strides);
+  const Surfaces s = make_surfaces(ptrs, strides);
   const int W = nz % 4 == 0 ? 4 : 1;
   Rows h;
   h.nx = nx; h.ny = ny; h.nz = nz;
@@ -362,5 +601,15 @@ extern "C" int halo_unpack_launch(float* acc, int R, int nx, int ny, int nz,
     unpack_kernel<1, true><<<grid, kThreads, 0, st>>>(acc, h, s, m);
   else
     unpack_kernel<1, false><<<grid, kThreads, 0, st>>>(acc, h, s, m);
+  return (int)cudaGetLastError();
+}
+
+// buf: rows contiguous 256-byte rows of 64 floats; out: rows floats.
+extern "C" int fetch_probe_launch(const float* buf, int rows, int k,
+                                  float* out, void* stream) {
+  if (rows <= 0 || k < 1 || (k > 2 && (k % 4 || k > 16)))
+    return (int)cudaErrorInvalidValue;
+  fetch_probe_kernel<<<cdiv(rows, kThreads), kThreads, 0,
+                       (cudaStream_t)stream>>>(buf, rows, k, out);
   return (int)cudaGetLastError();
 }

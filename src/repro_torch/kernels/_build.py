@@ -35,11 +35,14 @@ _STRIDES = ctypes.POINTER(ctypes.c_int64)
 # library -> {C entry: argtypes}; every entry returns a cudaError_t as int
 LIBRARIES = {
     "halo_pack": {
-        "halo_pack_launch": (_PTR, _INT, _INT, _INT, _INT, _PTRS, _STRIDES,
-                             _PTR),
+        # (src, R, nx, ny, nz, element bytes, ptrs, strides, stream)
+        "halo_pack_launch": (_PTR, _INT, _INT, _INT, _INT, _INT, _PTRS,
+                             _STRIDES, _PTR),
         # (acc, R, nx, ny, nz, ptrs, strides, rank max or NULL, stream)
         "halo_unpack_launch": (_PTR, _INT, _INT, _INT, _INT, _PTRS,
                                _STRIDES, _PTR, _PTR),
+        # (buf, rows, floats per row, out, stream): chip_smoke.py's probe
+        "fetch_probe_launch": (_PTR, _INT, _INT, _PTR, _PTR),
     },
     # put_signal: (x, x rank stride in bytes, out, row bytes, R, perm, sig,
     #  upd, sig out or NULL, signal slots, stream)

@@ -4,7 +4,8 @@ Each wrapper takes its route from the device of the tensor it is given:
 on a CUDA tensor it launches the hand-written kernel (or raises), on a
 CPU tensor it runs the plain version from :mod:`.ref`. There is no
 fallback between the two. All four forms are batched over the leading
-rank dim R and use the same two kernels:
+rank dim R and use the same two kernels. The pack is a pure copy and
+takes any dtype of 2, 4 or 8 bytes; the unpack adds, in float32:
 
   * :func:`halo_pack_split` — (R, nx, ny, nz) -> 26 contiguous (R, s_d)
     send buffers, one launch (Faces' merged ``pack_all``);
@@ -46,7 +47,7 @@ def _geometry(n):
 
 
 def _check_cuda(t: torch.Tensor, what: str, device=None):
-    """Device and dtype of a tensor the kernel reads or writes."""
+    """Device of a tensor the kernel reads or writes."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -55,6 +56,10 @@ def _check_cuda(t: torch.Tensor, what: str, device=None):
         raise ValueError(f"{what}: on {t.device}, but the current CUDA "
                          f"device is {torch.cuda.current_device()}; the "
                          "kernel launches on the current device")
+
+
+def _check_float32(t: torch.Tensor, what: str):
+    """The unpack adds, in float32."""
     if t.dtype != torch.float32:
         raise TypeError(f"{what}: the kernel takes float32, got {t.dtype}")
 
@@ -89,12 +94,18 @@ def _pointer_table(tensors, strides, base_offsets=None):
 
 def _launch_pack(field, dst_tensors, dst_strides, dst_offsets=None):
     _check_cuda(field, "halo pack: field")
-    if not field.is_contiguous():
-        raise ValueError("halo pack: field must be contiguous")
+    es = field.element_size()
+    # a pure copy: the kernel moves elements as bytes, whatever their type
+    if es not in (2, 4, 8):
+        raise TypeError("halo pack: the kernel takes elements of 2, 4 or 8 "
+                        f"bytes, got {field.dtype}")
+    if not field.is_contiguous() or field.data_ptr() % es:
+        raise ValueError("halo pack: field must be contiguous and aligned "
+                         "to its element size")
     R, nx, ny, nz = field.shape
     ptrs, strd = _pointer_table(dst_tensors, dst_strides, dst_offsets)
     rc = _build.load("halo_pack").halo_pack_launch(
-        field.data_ptr(), R, nx, ny, nz, ptrs, strd,
+        field.data_ptr(), R, nx, ny, nz, es, ptrs, strd,
         torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "halo_pack")
 
@@ -122,8 +133,9 @@ def _plain_unpack(acc, with_max):
 
 
 def halo_pack_split(field):
-    """(R, nx, ny, nz) float32 -> tuple of the 26 surfaces, each a new
-    contiguous (R, s_d) tensor, in ``DIRECTIONS`` order."""
+    """(R, nx, ny, nz) -> tuple of the 26 surfaces, each a new contiguous
+    (R, s_d) tensor of the field's dtype, in ``DIRECTIONS`` order (on the
+    card: any dtype of 2, 4 or 8 bytes)."""
     _check_field(field)
     if field.device.type == "cpu":
         return ref.halo_pack_split_ref(field)
@@ -137,8 +149,9 @@ def halo_pack_split(field):
 
 
 def halo_pack(field):
-    """(R, nx, ny, nz) float32 -> flat (R, total) merged surface buffer
-    at ``offsets_of`` offsets."""
+    """(R, nx, ny, nz) -> flat (R, total) merged surface buffer of the
+    field's dtype at ``offsets_of`` offsets (on the card: any dtype of 2,
+    4 or 8 bytes)."""
     _check_field(field)
     if field.device.type == "cpu":
         return ref.halo_pack_ref(field)
@@ -171,6 +184,7 @@ def halo_unpack_split(recvs, n, with_max=False):
     rows = []
     for d, s, r in zip(DIRECTIONS, sizes, recvs):
         _check_cuda(r, f"halo unpack: surface {d}", recvs[0].device)
+        _check_float32(r, f"halo unpack: surface {d}")
         rows.append(_rows(r, s, f"halo unpack: surface {d}"))
     return _unpack(R, n, recvs[0].device, with_max, rows,
                    [r.stride(0) for r in rows])
@@ -187,6 +201,7 @@ def halo_unpack(flat, n, with_max=False):
     if flat.device.type == "cpu":
         return _plain_unpack(ref.halo_unpack_ref(flat, n), with_max)
     _check_cuda(flat, "halo unpack: flat")
+    _check_float32(flat, "halo unpack: flat")
     R = flat.shape[0]
     flat = _rows(flat, total, "halo unpack: flat")
     return _unpack(R, n, flat.device, with_max, [flat] * NDIR,

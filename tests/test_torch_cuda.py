@@ -44,16 +44,39 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("n", [(4, 4, 4), (6, 5, 4), (1, 3, 2), (2, 1, 3),
-                               (3, 3, 3), (16, 8, 4)])
-def test_halo_kernels_equal_plain_versions(dev, n):
+# the pack's cases: blocks of one cell, one row, one plane, nz of 1, 2 or
+# 3 (rows off 16-byte alignment), odd sizes, and the main path's 64^3
+HALO_SHAPES = [(1, 1, 1), (1, 3, 2), (2, 1, 3), (3, 3, 1), (3, 3, 3),
+               (4, 4, 4), (6, 5, 3), (6, 5, 4), (5, 7, 5), (16, 8, 4),
+               (64, 64, 64)]
+PACK_DTYPES = [torch.float32, torch.bfloat16, torch.int32]
+
+
+def _pack_field(gen, shape, dtype, dev):
+    if dtype == torch.int32:
+        return torch.randint(-1 << 20, 1 << 20, shape, generator=gen,
+                             device=dev, dtype=dtype)
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", PACK_DTYPES, ids=str)
+@pytest.mark.parametrize("R", [1, 5, 64])
+@pytest.mark.parametrize("n", HALO_SHAPES)
+def test_halo_kernels_equal_plain_versions(dev, n, R, dtype):
+    """The pack (a copy of any 2-, 4- or 8-byte dtype), split and flat,
+    and in float32 the unpack: bit for bit their plain versions."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    field = torch.randn((5,) + n, generator=gen, device=dev)
+    field = _pack_field(gen, (R,) + n, dtype, dev)
     _build.reset_launches()
     for a, b in zip(halo_pack_split(field), ref.halo_pack_split_ref(field)):
-        assert torch.equal(a, b)
+        assert torch.equal(a, b) and a.dtype == dtype
     flat = halo_pack(field)
-    assert torch.equal(flat, ref.halo_pack_ref(field))
+    assert torch.equal(flat, ref.halo_pack_ref(field)) and flat.dtype == dtype
+    if dtype != torch.float32:
+        with pytest.raises(TypeError, match="float32"):
+            halo_unpack(flat, n)                # the unpack adds, in float32
+        assert _build.LAUNCHES["halo_pack"] == 2
+        return
     recv = torch.randn(flat.shape, generator=gen, device=dev)
     assert torch.equal(halo_unpack(recv, n), ref.halo_unpack_ref(recv, n))
     parts = [p.contiguous() for p in
@@ -63,6 +86,25 @@ def test_halo_kernels_equal_plain_versions(dev, n):
                        ref.halo_unpack_split_ref(parts, n))
     assert _build.LAUNCHES["halo_pack"] == 3
     assert _build.LAUNCHES["halo_unpack"] == 2
+
+
+@pytest.mark.parametrize("dtype", PACK_DTYPES, ids=str)
+def test_halo_pack_off_16_byte_alignment(dev, dtype):
+    """A flat output whose rank rows start off 16-byte boundaries (total *
+    element size not a multiple of 16), from a field that starts off one
+    too: the copies' 16-byte stores align on each destination run and
+    load the source in the widest pieces its alignment allows."""
+    n, R = (6, 5, 3), 5
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cells = R * int(np.prod(n))
+    base = _pack_field(gen, (cells + 1,), dtype, dev)
+    field = base[1:].view((R,) + n)
+    assert field.data_ptr() % 16 and (
+        halo.offsets_of(n)[1] * field.element_size()) % 16
+    flat = halo_pack(field)
+    assert torch.equal(flat, ref.halo_pack_ref(field))
+    for a, b in zip(halo_pack_split(field), ref.halo_pack_split_ref(field)):
+        assert torch.equal(a, b)
 
 
 def test_halo_unpack_takes_rank_strided_surfaces(dev):

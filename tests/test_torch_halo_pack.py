@@ -7,6 +7,8 @@ and the generic packed/chunked put helpers must equal their jnp
 counterparts. The CUDA kernels themselves are held against these plain
 versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -27,6 +29,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.counter_bump import counter_bump
 from repro_torch.kernels.halo_pack import (halo_pack, halo_pack_split,
                                            halo_unpack, halo_unpack_split)
+from repro_torch.kernels.halo_pack import ops
 from repro_torch.kernels.halo_pack import ref as tref
 
 R = 3
@@ -36,14 +39,32 @@ def _field(rng, n):
     return rng.standard_normal((R,) + tuple(n)).astype(np.float32)
 
 
+# the pack is a pure copy of any dtype (``halo_pack_fwd``'s output takes
+# the field's dtype), compared as bits: an integer type of each size
+PACK_DTYPES = {"float32": (torch.float32, jnp.float32),
+               "bfloat16": (torch.bfloat16, jnp.bfloat16),
+               "int32": (torch.int32, jnp.int32)}
+BITS = {2: (torch.int16, np.int16), 4: (torch.int32, np.int32)}
+
+
+@pytest.mark.parametrize("dtype", list(PACK_DTYPES))
 @pytest.mark.parametrize("n", [(4, 4, 4), (6, 5, 4), (8, 8, 8)])
-def test_pack_unpack_match_pallas_per_rank(n, rng):
-    f = _field(rng, n)
-    flat = halo_pack(torch.from_numpy(f)).numpy()
-    assert flat.shape == (R, offsets_of(n)[1])
+def test_pack_unpack_match_pallas_per_rank(n, dtype, rng):
+    tdt, jdt = PACK_DTYPES[dtype]
+    if dtype == "int32":
+        f = rng.randint(-1 << 20, 1 << 20, (R,) + n).astype(np.int32)
+    else:
+        f = _field(rng, n)
+    got = halo_pack(torch.from_numpy(f).to(tdt))
+    assert got.dtype == tdt and tuple(got.shape) == (R, offsets_of(n)[1])
+    tbits, nbits = BITS[got.element_size()]
+    flat = got.view(tbits).numpy()
     for r in range(R):
-        want = np.asarray(jax_halo_pack(jnp.asarray(f[r]), interpret=True))
-        np.testing.assert_array_equal(flat[r], want)
+        want = jax_halo_pack(jnp.asarray(f[r], dtype=jdt), interpret=True)
+        assert want.dtype == jdt
+        np.testing.assert_array_equal(flat[r], np.asarray(want).view(nbits))
+    if dtype != "float32":
+        return                                  # the unpack adds, in float32
     # unpack a received buffer that is NOT a packed field, so every
     # surface carries independent values into the shared cells
     recv = rng.standard_normal(flat.shape).astype(np.float32)
@@ -118,6 +139,53 @@ def test_cpu_wrappers_launch_no_kernel(rng):
     sig = torch.arange(12, dtype=torch.int32).reshape(3, 4)
     assert torch.equal(counter_bump(sig, sig), sig * 2)
     assert set(_build.LAUNCHES.values()) == {0}
+
+
+class _FakeLaunch:
+    """The kernel library as the pack wrapper calls it: records each
+    launch's arguments and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def halo_pack_launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int32,
+                                   torch.float64], ids=str)
+def test_cuda_pack_wrapper_takes_any_element_size(monkeypatch, dtype):
+    """On the card's route the pack wrapper refuses no 2-, 4- or 8-byte
+    dtype: it hands the kernel the element size (the kernel copies bytes)
+    and returns the field's dtype. The launch is faked and the device
+    check bypassed, so this runs without a card, on meta tensors; the
+    unpack, which adds, still takes float32 only."""
+    lib = _FakeLaunch()
+    monkeypatch.setattr(ops, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(ops._build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    n = (4, 3, 5)
+    _, total = offsets_of(n)
+    field = torch.zeros((2,) + n, dtype=dtype, device="meta")
+    _build.reset_launches()
+    flat = halo_pack(field)
+    parts = halo_pack_split(field)
+    assert flat.dtype == dtype and tuple(flat.shape) == (2, total)
+    assert [p.dtype for p in parts] == [dtype] * 26
+    # (src, R, nx, ny, nz, element bytes, ptrs, strides, stream)
+    assert [c[1:6] for c in lib.calls] == [(2,) + n + (field.element_size(),)
+                                           ] * 2
+    assert _build.LAUNCHES["halo_pack"] == 2
+    with pytest.raises(TypeError, match="2, 4 or 8 bytes"):
+        halo_pack(torch.zeros((2,) + n, dtype=torch.uint8, device="meta"))
+    with pytest.raises(TypeError, match="float32"):
+        halo_unpack(torch.zeros((2, total), dtype=dtype, device="meta"), n)
+    with pytest.raises(TypeError, match="float32"):
+        halo_unpack_split([p.to(dtype) for p in parts], n)
+    assert len(lib.calls) == 2
+    _build.reset_launches()
 
 
 def test_wrappers_reject_bad_inputs():
