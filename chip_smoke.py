@@ -28,7 +28,10 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  n=(64,64,64), (6,5,4), (6,5,3) and (1,3,2), the pack
                  also in bf16 and int32 at (64,64,64), the unpack
                  with and without the per-rank max and with a NaN in one
-                 surface; put_signal (gather, and the zero-filled scatter
+                 surface, and in bf16, int32 and float64 at each n
+                 (split and flat; the max in the float types, an integer
+                 max refused, as the plain norm refuses it);
+                 put_signal (gather, and the zero-filled scatter
                  of a non-periodic grid; float32, bf16 and int32; rows of
                  1, 3, 64 and 4096 elements, each also one element off a
                  16-byte boundary; with and without the signal); the
@@ -58,24 +61,40 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  unmerged}, fused, and packed (+ chunked) put schedules
                  on two nodes of four ranks; each against a numpy replay
                  of Faces with every post-counter slot (and, unpacked,
-                 every completion slot) equal to the iteration count;
+                 every completion slot) equal to the iteration count; st
+                 and fused (CUDA graphs) also bit for bit the eager
+                 emission of the same program, their second run (a
+                 replay) under ``torch.cuda.set_sync_debug_mode("error")``
+                 equal to the first and leaving it unchanged;
   4. full     — grid (4,4,4) = 64 ranks, n=(64,64,64) float32, 20
                  iterations in ST, host and fused modes: counters, bit-
-                 identical state across modes, the last exchange against a
-                 numpy exchange of the final blocks, every Faces kernel
-                 launched in every mode — per iteration one halo_pack, one
+                 identical state across modes and to the eager emission,
+                 the last exchange against a numpy exchange of the final
+                 blocks, every Faces kernel launched in the counted run
+                 of every mode — per iteration one halo_pack, one
                  halo_unpack, 26 put_signal and one counter_bump (the
                  merged post) in st and fused, 27 counter_bump in host
-                 (each completion its own bump) — and the ST and fused
-                 emission under
-                 ``torch.cuda.set_sync_debug_mode("error")`` (no hidden host
-                 synchronisation);
-  5. timing   — CUDA-event medians: per-iteration ms of each mode; from
-                 torch.profiler (full tables in ``chiprun_out/``) the
-                 device's busy time and idle share, the pack's and the
-                 unpack's device ms, and the device ops
-                 and host launch calls per iteration, beside the cost
-                 simulator's dispatch units; a fetch-granularity probe
+                 (each completion its own bump). st and fused replay one
+                 CUDA graph per program (fused: one per planned segment,
+                 the simulator's host dispatch count): the first run
+                 captures, outside the sync guard (``torch.cuda.graph``
+                 synchronizes on entry); the counted run is a replay
+                 under ``torch.cuda.set_sync_debug_mode("error")`` (no
+                 hidden host synchronisation), equal to the first, whose
+                 tensors it leaves unchanged;
+  5. timing   — CUDA-event medians: per-iteration ms of each mode, st
+                 and fused from graph replays, host eager, and the st
+                 program's eager emission beside them, in turns; each
+                 mode's first run (warm-up, capture, instantiation)
+                 apart; from torch.profiler (full tables in
+                 ``chiprun_out/``) the device's busy time and idle share,
+                 the pack's and the unpack's device ms, the device ops
+                 per iteration (the graphs' state copies apart: the
+                 program's own ops equal the eager emission's) and the
+                 host's launch calls (one cudaGraphLaunch per graph),
+                 beside the cost simulator's dispatch units; peak device
+                 memory of a run of each mode and the graphs' copies in
+                 and out alone; a fetch-granularity probe
                  (1, 8 or 16 floats, or the first and last, read per
                  256-byte row of a cold 67 MB buffer); each kernel's
                  device time
@@ -86,7 +105,8 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  turns, out of L2), its bound counted in distinct 32-byte
                  sectors of the field (bound_useful_bytes_ms beside it);
                  the unpack
-                 with the max beside it (with_max_ms), an empty kernel's
+                 with the max beside it (with_max_ms) and in bf16
+                 (bf16_ms), an empty kernel's
                  time beside the bump (launch_floor_ms), and put_signal
                  at Faces' face, edge and corner payloads beside the two
                  launches it replaces (index_select + add) and
@@ -96,10 +116,15 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  params from a seed, ~2.5 B), 8 slots, max_len 4096, 16
                  requests of seeded prompt lengths in {128, 256, 512,
                  1000}, 32 new tokens each, through ``ServingEngine``:
-                 tokens/s, prefill ms per dispatch, decode ms per step,
-                 each attention kernel's launches (must be 40 per prefill
-                 dispatch and 40 per decode step), the device idle share
-                 during decode (profiler). The attention kernels'
+                 tokens/s, prefill ms per dispatch, decode ms per step
+                 (the decode step replayed as one CUDA graph after its
+                 first, eager, call), each attention kernel's launches
+                 (must be 40 per prefill dispatch and 40 per decode
+                 step, replays counted), the device idle share during
+                 decode (profiler), the capture's ms, and the graph
+                 against the eager step on the same engine state over 8
+                 steps: ids equal bit for bit, the cache's largest
+                 difference, host ms per step of each. The attention kernels'
                  kernels-line rows follow (time at the serving shapes,
                  bound, plain version, and SDPA on the valid keys as the
                  yardstick; flash-decode's split count; the kernel, SDPA
@@ -167,14 +192,17 @@ function's SASS opcode counts (cuobjdump); the device time per call
 (``graph_ms`` of 5 calls, as the kernels-line rows) on the rows' bf16
 inputs at rwkv6-1.6b's and jamba's widths, B x S in AB_CASES; halo_pack
 at 64r warm and cold, halo_unpack at 64r and counter_bump; and the st
-and fused Faces 64r programs' ms per iteration with the device's busy
-ms, ops, and pack and unpack ms per iteration (profiler). The workers
+and fused Faces 64r programs' ms per iteration (CUDA-graph replays in
+a tree that has them, the first run apart) with the device's busy ms,
+ops, and pack and unpack ms per iteration (profiler); the unpack in
+bf16 where the tree takes it. The workers
 go other, this, this, other, so that a drift of the card's clock falls
 on both trees alike; the last JSON line holds each tree's median per
 case.
 """
 import argparse
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -377,8 +405,9 @@ def cold_ms(fn, inputs, inner=20):
 def device_profile(run, out_path):
     """One ``run()`` under torch.profiler: {"busy_ms": device time,
     "top": its largest entries, "device_ops": kernels, memsets and copies
-    the device ran, "host_calls": the CUDA launch/memset/copy API calls
-    the host made, by name}; the full table goes to ``out_path``.
+    the device ran ("ops": by name), "host_calls": the CUDA
+    launch/memset/copy API calls the host made, by name}; the full table
+    goes to ``out_path``.
     ``busy_ms`` is None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -387,7 +416,7 @@ def device_profile(run, out_path):
         run()
         torch.cuda.synchronize()
     avgs = prof.key_averages()
-    rows, device_ops, host_calls = [], 0, {}
+    rows, device_ops, host_calls, ops = [], 0, {}, {}
     for e in avgs:
         if e.device_type != DeviceType.CUDA:
             if e.key.startswith("cu") and any(
@@ -395,6 +424,7 @@ def device_profile(run, out_path):
                 host_calls[e.key] = e.count
             continue            # host ops; their kernels are rows of their own
         device_ops += e.count
+        ops[e.key] = ops.get(e.key, 0) + e.count
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
@@ -405,7 +435,7 @@ def device_profile(run, out_path):
         f.write(avgs.table(sort_by="self_cpu_time_total", row_limit=40))
     return {"busy_ms": sum(r[0] for r in rows) if rows else None,
             "top": rows[:6], "rows": rows, "device_ops": device_ops,
-            "host_calls": host_calls}
+            "ops": ops, "host_calls": host_calls}
 
 
 # the device functions each wrapper launches, as the profiler names them:
@@ -493,6 +523,9 @@ PUT_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 UNPACK_SHAPES = (N_FULL, (6, 5, 4), (6, 5, 3), (1, 3, 2))
 # the pack's other dtypes, at N_FULL (float32 at every UNPACK_SHAPES)
 PACK_DTYPES = (torch.bfloat16, torch.int32)
+# the unpack's other dtypes, at every UNPACK_SHAPES: it adds in the
+# surfaces' dtype, each add rounded to it, as the plain version
+UNPACK_DTYPES = (torch.bfloat16, torch.int32, torch.float64)
 
 
 def nan_equal(a, b):
@@ -565,6 +598,13 @@ def phase_kernels(dev, core, hp, hp_ref, cb, R=64):
               and flat.dtype == dtype, f"halo pack != plain pack in {dtype}")
     emit({"phase": "kernels", "n": list(N_FULL), "R": R,
           "pack_dtypes": [str(d) for d in PACK_DTYPES], "pack": "equal"})
+    for n in UNPACK_SHAPES:
+        errs["halo_unpack"] = max(errs["halo_unpack"], unpack_dtypes(
+            hp, hp_ref, max_abs, gen, dev, R, n))
+    emit({"phase": "kernels", "n": [list(n) for n in UNPACK_SHAPES], "R": R,
+          "unpack_dtypes": [str(d) for d in UNPACK_DTYPES],
+          "unpack": "equal, split and flat, with the max where a float",
+          "integer_with_max": "refused, as the plain norm refuses it"})
     sig = torch.randint(0, 1 << 20, (R, 26), generator=gen, device=dev,
                         dtype=torch.int32)
     upd = torch.randint(0, 3, (R, 26), generator=gen, device=dev,
@@ -606,25 +646,100 @@ def phase_kernels(dev, core, hp, hp_ref, cb, R=64):
     return errs
 
 
+def unpack_dtypes(hp, hp_ref, max_abs, gen, dev, R, n):
+    """The unpack in each of UNPACK_DTYPES at block ``n``, split and flat,
+    with and (floats) without the per-rank max, bit for bit against the
+    plain version on the same surfaces; an integer ``with_max`` must be
+    refused. Returns the largest difference seen (0.0)."""
+    err = 0.0
+    sizes, _, total = hp._geometry(tuple(n))
+    for dtype in UNPACK_DTYPES:
+        if dtype.is_floating_point:
+            flat = torch.randn((R, total), generator=gen, device=dev
+                               ).to(dtype)
+        else:
+            flat = torch.randint(-1 << 30, 1 << 30, (R, total),
+                                 generator=gen, device=dev, dtype=dtype)
+        parts = [p.contiguous() for p in torch.split(flat, list(sizes),
+                                                      dim=1)]
+        want = hp_ref.halo_unpack_ref(flat, n)
+        for got in (hp.halo_unpack(flat, n), hp.halo_unpack_split(parts, n)):
+            err = max(err, diff(got, want))
+            check(got.dtype == dtype and torch.equal(got, want),
+                  f"halo unpack != plain unpack in {dtype} at n={n}")
+        if not dtype.is_floating_point:
+            try:
+                hp.halo_unpack(flat, n, with_max=True)
+            except TypeError:
+                continue
+            fail(f"halo unpack took with_max in {dtype}")
+        for acc, m in (hp.halo_unpack(flat, n, with_max=True),
+                       hp.halo_unpack_split(parts, n, with_max=True)):
+            check(torch.equal(acc, want) and m.dtype == dtype
+                  and torch.equal(m, max_abs(want)),
+                  f"halo unpack with max != plain in {dtype} at n={n}")
+    return err
+
+
 def run_faces(core, dev, grid, n, niter, mode, src0, *, merged=True,
               throttle="adaptive", guard=False, ranks_per_node=None,
               **sched):
     """Build, allocate and run one Faces program through the port's entry
-    points; returns (state, stream)."""
+    points; returns (state, stream, the state handed in). With ``guard``
+    (st and fused: CUDA graphs) it runs twice: the first run captures the
+    program's graphs (``torch.cuda.graph`` synchronizes the device on
+    entry, once per program), the second replays them under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no hidden host
+    synchronisation) and must give the first run's state, leaving the
+    first result's tensors as they were."""
     stream = core.STStream(dev, AXES, grid_shape=grid)
     core.halo.build_faces_program(stream, n, niter, merged=merged,
                                   ranks_per_node=ranks_per_node)
     state = stream.allocate()
     state["faces.src"] = src0
     torch.cuda.synchronize()
-    if guard:
-        torch.cuda.set_sync_debug_mode("error")
+
+    def run():
+        return stream.synchronize(state, mode=mode, throttle=throttle,
+                                  resources=16, merged=merged, **sched)
+    if not guard:
+        return run(), stream, state
+    first = run()
+    kept = {k: v.clone() for k, v in first.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
     try:
-        out = stream.synchronize(state, mode=mode, throttle=throttle,
-                                 resources=16, merged=merged, **sched)
+        out = run()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    return out, stream
+    for k in first:
+        check(torch.equal(out[k], first[k]) and torch.equal(first[k],
+                                                            kept[k]),
+              f"{mode}: a second run gave another {k}, or changed the "
+              "first result's")
+    return out, stream, state
+
+
+def eager_emission(core, stream, mode, state, *, merged=True,
+                   throttle="adaptive", **sched):
+    """The st or fused program of ``stream`` emitted eagerly, descriptor
+    by descriptor (what the graphs capture), from ``state``."""
+    progs = stream.scheduled_programs(throttle=throttle, resources=16,
+                                      merged=merged, fused=mode == "fused",
+                                      **sched)
+    emit_fn = (core.engine._emit_fused if mode == "fused"
+               else core.backends._emit_st)
+    for prog in progs:
+        state = emit_fn(stream, prog, state)
+    torch.cuda.synchronize()
+    return state
+
+
+def program_graphs(stream, mode):
+    """The one ProgramGraph of a Faces stream's st or fused program."""
+    cache = stream._fused_cache if mode == "fused" else stream._compiled_cache
+    check(len(cache) == 1, f"{mode}: {len(cache)} program graphs, want 1")
+    return next(iter(cache.values()))
 
 
 def phase_parity(core, dev):
@@ -644,9 +759,19 @@ def phase_parity(core, dev):
     cases += [("st", "adaptive", True, node),
               ("fused", "adaptive", True, dict(node, chunk_bytes=32))]
     for mode, thr, merged, sched in cases:
-        out, _ = run_faces(core, dev, GRID_SMALL, N_SMALL, NITER_SMALL, mode,
-                           torch.from_numpy(src0).to(dev), merged=merged,
-                           throttle=thr, guard=mode != "host", **sched)
+        graphed = mode != "host"
+        out, stream, state = run_faces(
+            core, dev, GRID_SMALL, N_SMALL, NITER_SMALL, mode,
+            torch.from_numpy(src0).to(dev), merged=merged, throttle=thr,
+            guard=graphed, **sched)
+        if graphed:
+            opts = {k: v for k, v in sched.items() if k != "ranks_per_node"}
+            eager = eager_emission(core, stream, mode, state, merged=merged,
+                                   throttle=thr, **opts)
+            check(all(torch.equal(out[k], eager[k]) for k in out),
+                  f"{mode}/{thr}/merged={merged}/{sched}: the graph's state "
+                  "differs from the eager emission's")
+            stream.clear_graphs()
         np.testing.assert_allclose(out["faces.src"].cpu().numpy(), src_exp,
                                    rtol=1e-6)
         np.testing.assert_allclose(out["faces.acc"].cpu().numpy(), acc_exp,
@@ -658,32 +783,58 @@ def phase_parity(core, dev):
                   f"{mode}/{thr}/merged={merged}/{sched}: {c} != niter")
         emit({"phase": "parity", "mode": mode, "throttle": thr,
               "merged": merged, "sched": {k: v for k, v in sched.items()},
-              "ok": True})
+              "graphs": graphed, "ok": True})
 
 
 FACES_KERNELS = ("halo_pack", "halo_unpack", "counter_bump", "put_signal")
 
 
 def phase_full(core, _build, dev):
+    """64 ranks x 64^3, 20 iterations in each mode. st and fused are CUDA
+    graphs: their first run captures, and the counted run is a replay
+    under sync-debug "error", which must equal the first run and the
+    eager emission bit for bit and leave the first result unchanged;
+    host mode stays eager. The kernels' launches are counted over the
+    counted run alone."""
     halo = core.halo
     R = int(np.prod(GRID_FULL))
     gen = torch.Generator(device=dev).manual_seed(0)
     src0 = torch.rand((R,) + N_FULL, generator=gen, device=dev)
     outs, launches, dispatches = {}, {}, {}
     for mode in MODES:
-        _build.reset_launches()
-        out, stream = run_faces(core, dev, GRID_FULL, N_FULL, NITER_FULL,
-                                mode, src0, guard=mode != "host")
+        graphed = mode != "host"
+        stream = core.STStream(dev, AXES, grid_shape=GRID_FULL)
+        halo.build_faces_program(stream, N_FULL, NITER_FULL)
+        state = stream.allocate()
+        state["faces.src"] = src0
+
+        def run(stream=stream, state=state, mode=mode):
+            return stream.synchronize(state, mode=mode, resources=16)
+        line = {}
+        if graphed:
+            t0 = time.perf_counter()
+            first = run()                       # warm-up, capture, replay
+            line["first_run_s"] = time.perf_counter() - t0
+            kept = {k: v.clone() for k, v in first.items()}
+        torch.cuda.synchronize()
+        _build.reset_launches()                 # the counted run
+        d0 = stream.dispatches
+        if graphed:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         launches[mode] = dict(_build.LAUNCHES)
-        dispatches[mode] = stream.dispatches
+        dispatches[mode] = stream.dispatches - d0
         progs = stream.scheduled_programs(resources=16,
                                           fused=mode == "fused")
         if mode == "fused":
             want = sum(core.host_dispatch_count(p) for p in progs)
-            check(stream.dispatches == want,
-                  f"fused dispatches {stream.dispatches} != {want}")
+            check(dispatches[mode] == want,
+                  f"fused dispatches {dispatches[mode]} != {want}")
         if mode == "st":
-            check(stream.dispatches == sum(len(p.nodes) for p in progs),
+            check(dispatches[mode] == sum(len(p.nodes) for p in progs),
                   "st dispatches != descriptor count")
         for k in FACES_KERNELS:
             check(_build.LAUNCHES[k] > 0,
@@ -696,11 +847,34 @@ def phase_full(core, _build, dev):
         check(got == want, f"{mode}: launches per iteration {got} != {want}")
         for c in ("faces.post_sig", "faces.comp_sig"):
             check(bool((out[c] == NITER_FULL).all()), f"{mode}: {c} != niter")
+        if graphed:
+            g = program_graphs(stream, mode)
+            want = (sum(core.host_dispatch_count(p) for p in progs)
+                    if mode == "fused" else 1)
+            check(len(g.chain) == want, f"{mode}: {len(g.chain)} graphs "
+                  f"per program, want {want}")
+            for k in out:
+                check(torch.equal(out[k], first[k])
+                      and torch.equal(first[k], kept[k]),
+                      f"{mode}: the replay gave another {k}, or changed "
+                      "the first result's")
+            eager = eager_emission(core, stream, mode, state)
+            check(all(torch.equal(out[k], eager[k]) for k in out),
+                  f"{mode}: the graph's state differs from the eager "
+                  "emission's")
+            line.update(graphs_per_program=len(g.chain),
+                        warm_up_s=g.warm_up_seconds,
+                        capture_s=g.capture_seconds,
+                        equal_to_eager_emission=True,
+                        replay_under_sync_debug_error=True,
+                        first_result_unchanged=True)
+            del first, kept, eager
+            stream.clear_graphs()
         outs[mode] = out
-        emit({"phase": "full", "mode": mode, "grid": list(GRID_FULL),
-              "n": list(N_FULL), "niter": NITER_FULL,
-              "launches": launches[mode],
-              "sim_dispatch_units": stream.dispatches})
+        emit(dict({"phase": "full", "mode": mode, "grid": list(GRID_FULL),
+                   "n": list(N_FULL), "niter": NITER_FULL,
+                   "launches": launches[mode],
+                   "sim_dispatch_units": dispatches[mode]}, **line))
     for mode in ("host", "fused"):
         for k in outs["st"]:
             check(torch.equal(outs[mode][k], outs["st"][k]),
@@ -722,52 +896,143 @@ def phase_full(core, _build, dev):
     return launches, dispatches
 
 
-def phase_timing(core, hp, hp_ref, cb, lib_cb, dev, launches, dispatches,
-                 errs):
+# the kernels that copy a program graph's state in and out (a foreach
+# copy; a plain device-to-device copy where it splits), as the profiler
+# names them
+COPY_OPS = ("multi_tensor_apply", "Memcpy DtoD")
+
+
+def faces_timing(core, dev, dispatches):
+    """Per-iteration ms of the st, host and fused Faces 64r programs, as a
+    user runs them: st and fused replay their CUDA graphs, host mode is
+    eager; beside them the eager emission of the st program ("st_eager",
+    what the graph captures). The runs take turns. Each mode's first run
+    (for a graph: warm-up, capture, instantiation) is timed apart. From
+    the profiler: the device's busy time and idle share, the device ops
+    per iteration with the graphs' state copies apart (the program's own
+    ops must equal the eager emission's), and the host's launch calls (one
+    cudaGraphLaunch per program in st, one per segment in fused). Peak
+    device memory of a run of each and what its first run leaves
+    allocated (a graph's static inputs and pool), and the time of the
+    copies in and out alone."""
     R = int(np.prod(GRID_FULL))
     gen = torch.Generator(device=dev).manual_seed(2)
     src0 = torch.rand((R,) + N_FULL, generator=gen, device=dev)
-    runs = {}
-    for mode in MODES:
+    runs, first_ms, kept_mb, streams = {}, {}, {}, {}
+    for mode in MODES + ("st_eager",):
         stream = core.STStream(dev, AXES, grid_shape=GRID_FULL)
         core.halo.build_faces_program(stream, N_FULL, NITER_FULL)
         state = stream.allocate()
         state["faces.src"] = src0
-        runs[mode] = (lambda stream=stream, state=state, mode=mode:
-                      stream.synchronize(state, mode=mode, resources=16))
-        runs[mode]()                                    # warm-up
+        streams[mode] = (stream, state)
+        if mode == "st_eager":
+            prog, = stream.scheduled_programs(resources=16)
+            runs[mode] = (lambda stream=stream, state=state, prog=prog:
+                          core.backends._emit_st(stream, prog, state))
+        else:
+            runs[mode] = (lambda stream=stream, state=state, mode=mode:
+                          stream.synchronize(state, mode=mode, resources=16))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        runs[mode]()                                # warm-up / capture
+        torch.cuda.synchronize()
+        first_ms[mode] = 1e3 * (time.perf_counter() - t0)
+        # what the first run leaves allocated: a graph's static inputs
+        # and its pool; nothing for an eager run
+        kept_mb[mode] = (torch.cuda.memory_allocated() - before) / 1e6
     # the modes take turns (order reversed every round), so a slow
     # stretch of the shared host does not land on one mode only
-    times = {m: [] for m in MODES}
+    order = list(runs)
+    times = {m: [] for m in order}
     for rnd in range(7):
-        for mode in (MODES if rnd % 2 == 0 else MODES[::-1]):
+        for mode in (order if rnd % 2 == 0 else order[::-1]):
             times[mode].append(event_ms(runs[mode], reps=1, warm=False))
-    for mode in MODES:
+    program_ops = {}
+    for mode in ("st_eager",) + MODES:
         ts = sorted(times[mode])
         ms = statistics.median(ts)
         prof = device_profile(
             runs[mode], os.path.join(OUT_DIR, f"profile_faces_{mode}.txt"))
         busy = prof["busy_ms"]
         faces_ms = kernel_ms(prof, ("halo_pack", "halo_unpack"))
-        emit({"phase": "timing", "mode": mode, "iter_ms": ms / NITER_FULL,
-              "program_ms": ms, "program_ms_runs": ts, "niter": NITER_FULL,
-              # the cost simulator's accounting unit (one per descriptor,
-              # one per segment in fused mode), not a launch count
-              "sim_dispatch_units_per_iter": dispatches[mode] / NITER_FULL,
-              # what the host really issued: every device op was launched
-              # by one host call
-              "device_ops_per_iter": prof["device_ops"] / NITER_FULL,
-              "host_calls_per_iter": {k: v / NITER_FULL for k, v in
-                                      sorted(prof["host_calls"].items())},
-              "device_busy_ms": busy,
-              "device_busy_ms_per_iter": (None if busy is None
-                                          else busy / NITER_FULL),
-              "device_idle_share": None if busy is None else 1 - busy / ms,
-              "kernel_device_ms_per_iter": {k: v / NITER_FULL
-                                            for k, v in faces_ms.items()},
-              "top_device_ms": [[round(t, 4), k, c]
-                                for t, k, c in prof["top"]]})
+        copies = sum(c for k, c in prof["ops"].items()
+                     if any(w in k for w in COPY_OPS))
+        program_ops[mode] = (prof["device_ops"] - copies) / NITER_FULL
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runs[mode]()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        line = {"phase": "timing", "mode": mode,
+                "graphs": mode in ("st", "fused"),
+                "iter_ms": ms / NITER_FULL,
+                "program_ms": ms, "program_ms_runs": ts, "niter": NITER_FULL,
+                # warm-up + capture + instantiation + a replay for a graph
+                "first_run_ms": first_ms[mode],
+                "first_run_kept_mb": kept_mb[mode],
+                "device_ops_per_iter": prof["device_ops"] / NITER_FULL,
+                "state_copy_ops_per_program": copies,
+                "program_device_ops_per_iter": program_ops[mode],
+                # what the host really issued: one cudaGraphLaunch per
+                # graph, or one launch per device op
+                "host_calls_per_iter": {k: v / NITER_FULL for k, v in
+                                        sorted(prof["host_calls"].items())},
+                "host_calls_per_program": dict(sorted(
+                    prof["host_calls"].items())),
+                "device_busy_ms": busy,
+                "device_busy_ms_per_iter": (None if busy is None
+                                            else busy / NITER_FULL),
+                "device_idle_share": (None if busy is None
+                                      else 1 - busy / ms),
+                "kernel_device_ms_per_iter": {k: v / NITER_FULL
+                                              for k, v in faces_ms.items()},
+                # peak above what was allocated before the run (the state
+                # and, for a graph, its static inputs and pool)
+                "run_peak_mem_gb": (peak - base) / 1e9,
+                "resident_mem_gb": base / 1e9,
+                "top_device_ms": [[round(t, 4), k, c]
+                                  for t, k, c in prof["top"]]}
+        if mode != "st_eager":
+            # the cost simulator's accounting unit (one per descriptor,
+            # one per segment in fused mode), not a launch count
+            line["sim_dispatch_units_per_iter"] = (dispatches[mode]
+                                                   / NITER_FULL)
+        if mode in ("st", "fused"):
+            stream, state = streams[mode]
+            g = program_graphs(stream, mode)
+            launched = prof["host_calls"].get("cudaGraphLaunch", 0)
+            check(launched == len(g.chain), f"{mode}: the profiler saw "
+                  f"{launched} graph launches per program, want "
+                  f"{len(g.chain)}")
+            check(program_ops[mode] == program_ops["st_eager"],
+                  f"{mode}: {program_ops[mode]} device ops per iteration "
+                  f"in the graph, {program_ops['st_eager']} eager")
+            keys = list(g.out)
+            fresh = [torch.empty_like(g.out[k]) for k in keys]
+            line.update({
+                "graphs_per_program": len(g.chain),
+                "warm_up_ms": 1e3 * g.warm_up_seconds,
+                "capture_ms": 1e3 * g.capture_seconds,
+                "state_mb": sum(v.numel() * v.element_size()
+                                for v in state.values()) / 1e6,
+                # the copies in and out alone, per program
+                "copy_in_ms": event_ms(lambda: core.graphs._copy(
+                    [g.static[k] for k in state], list(state.values()))),
+                "copy_out_ms": event_ms(lambda: core.graphs._copy(
+                    fresh, [g.out[k] for k in keys]))})
+            del fresh
+        emit(line)
+    for stream, _ in streams.values():
+        stream.clear_graphs()
 
+
+def phase_timing(core, hp, hp_ref, cb, lib_cb, dev, launches, dispatches,
+                 errs):
+    faces_timing(core, dev, dispatches)
+    R = int(np.prod(GRID_FULL))
+    gen = torch.Generator(device=dev).manual_seed(3)
     field = torch.rand((R,) + N_FULL, generator=gen, device=dev)
     _, total = core.halo.offsets_of(N_FULL)
     cells = field[0].numel()
@@ -782,6 +1047,7 @@ def phase_timing(core, hp, hp_ref, cb, lib_cb, dev, launches, dispatches,
          for d in core.halo.DIRECTIONS]), device=dev)
     zero_acc = torch.zeros((R, cells), device=dev)
     recv = hp.halo_pack(torch.randn(field.shape, generator=gen, device=dev))
+    recv16 = recv.to(torch.bfloat16)
     sig = torch.zeros((R, 26), dtype=torch.int32, device=dev)
     upd = torch.ones((R, 26), dtype=torch.int32, device=dev)
     max_abs = core.halo._max_abs
@@ -842,7 +1108,16 @@ def phase_timing(core, hp, hp_ref, cb, lib_cb, dev, launches, dispatches,
          {"with_max_ms": lambda: graph_ms(
              lambda: hp.halo_unpack(recv, N_FULL, with_max=True)),
           "with_max_plain_ms": lambda: graph_ms(
-              lambda: max_abs(hp_ref.halo_unpack_ref(recv, N_FULL)))}),
+              lambda: max_abs(hp_ref.halo_unpack_ref(recv, N_FULL))),
+          # the dtypes the kernel adds since the repair, bf16 timed: the
+          # same cells, half the bytes
+          "dtypes": lambda: [str(d) for d in hp.UNPACK_DTYPES],
+          "bf16_ms": lambda: graph_ms(
+              lambda: hp.halo_unpack(recv16, N_FULL)),
+          "bf16_plain_ms": lambda: graph_ms(
+              lambda: hp_ref.halo_unpack_ref(recv16, N_FULL)),
+          "bf16_bound_ms": lambda: R * (total + cells) * 2
+          / HBM_BYTES_PER_S * 1e3}),
         # beside the bump, the launch floor: an empty kernel's time
         ("counter_bump", "src/repro_torch/csrc/counter_bump.cu",
          "src/repro/core/engine.py:67",
@@ -1458,6 +1733,52 @@ def count_dispatches(eng, _build):
     return per
 
 
+DECODE_COMPARE_STEPS = 8
+
+
+def decode_graph_vs_eager(eng, graphed, new_requests,
+                          steps=DECODE_COMPARE_STEPS):
+    """The decode graph against the eager step on the same engine state:
+    8 slots admitted, then per step the graph replays from the cache as
+    it is, the cache is put back, and the eager step function runs the
+    same batch. The ids must be equal bit for bit; the cache's largest
+    difference after the two is reported (a cuBLAS product that picked
+    another algorithm under capture would show there). Host ms per step
+    of each, the ids on the host included."""
+    for r in new_requests:
+        eng.submit(r)
+    eng.step()                                   # admission + a replay
+    leaves = [t for layer in eng.cache["layers"] for t in layer.values()]
+    t_graph, t_eager, cache_diff = [], [], 0.0
+    for _ in range(steps):
+        active = eng._active()
+        check(len(active) == SERVE_SLOTS, "a slot went idle")
+        batch = eng._decode_batch(active)
+        saved = [t.clone() for t in leaves]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids_g = graphed(eng.params, batch, eng.cache)[0].cpu()
+        t_graph.append(1e3 * (time.perf_counter() - t0))
+        after = [t.clone() for t in leaves]
+        for t, v in zip(leaves, saved):
+            t.copy_(v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids_e = graphed.fn(eng.params, batch, eng.cache)[0].cpu()
+        t_eager.append(1e3 * (time.perf_counter() - t0))
+        check(torch.equal(ids_g, ids_e), f"{eng.cfg.name}: the decode "
+              f"graph's ids {ids_g.tolist()} != eager {ids_e.tolist()}")
+        cache_diff = max(cache_diff, max(diff(a, b)
+                                         for a, b in zip(after, leaves)))
+        del saved, after
+        eng._record_decode(active, ids_e.numpy())
+    eng.run_until_drained()
+    return {"steps": steps, "ids_equal": True,
+            "cache_max_abs_diff": cache_diff,
+            "graph_ms_per_step": statistics.median(t_graph),
+            "eager_ms_per_step": statistics.median(t_eager)}
+
+
 def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
                 profile_rows=SERVE_SLOTS):
     """``cfg`` (a registered config, possibly cut in depth) at full width
@@ -1483,6 +1804,10 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
     init_s = time.perf_counter() - t0
     eng = eng_mod.ServingEngine(cfg, params, batch_slots=SERVE_SLOTS,
                                 max_len=SERVE_MAX_LEN, device=dev)
+    # the decode step, replayed from a CUDA graph after its first call
+    graphed = eng._decode_sample
+    check(isinstance(graphed, serving["graphs"].StepGraph),
+          f"{arch}: the engine's decode step is not a graph")
     rng = np.random.RandomState(0)
     Request = eng_mod.Request
 
@@ -1497,6 +1822,8 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
     for r in requests(2, (SERVE_LENGTHS[0], SERVE_LENGTHS[-1]), 3):
         eng.submit(r)
     eng.run_until_drained()
+    check(graphed.captures == 1, f"{arch}: {graphed.captures} decode graph "
+          "captures in the warm-up, want 1")
     before = eng.stats()
     reqs = requests(SERVE_REQUESTS)
     check(len({len(r.prompt) for r in reqs}) > 1, "one prompt length only")
@@ -1582,6 +1909,11 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
     eng.run_until_drained()
     busy = (None if prof["busy_ms"] is None
             else prof["busy_ms"] / DECODE_PROFILE_STEPS)
+    versus = decode_graph_vs_eager(
+        eng, graphed, requests(SERVE_SLOTS, [len(r.prompt) for r in reqs[:8]],
+                               3 + DECODE_COMPARE_STEPS))
+    check(graphed.captures == 1, f"{arch}: the decode step was captured "
+          f"{graphed.captures} times")
     # one prefill dispatch alone: profile_rows prompts of the longest
     # length, one token each (they complete at admission, so no decode
     # step runs)
@@ -1604,6 +1936,12 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
           "decode_kernel_device_ms_per_step": {
               n: ms / DECODE_PROFILE_STEPS
               for n, ms in kernel_ms(prof, names).items()},
+          "decode_host_calls_per_step": {
+              k: v / DECODE_PROFILE_STEPS
+              for k, v in sorted(prof["host_calls"].items())},
+          "decode_graph_captures": graphed.captures,
+          "decode_capture_ms": 1e3 * graphed.capture_seconds,
+          "decode_graph_vs_eager": versus,
           "prefill_profiled": [profile_rows, SERVE_LENGTHS[-1]],
           "prefill_device_busy_ms": pprof["busy_ms"],
           "prefill_kernel_device_ms": kernel_ms(pprof, names),
@@ -2052,9 +2390,11 @@ def sass_census(tool, lib):
 
 def faces_ab(dev, core, hp, bump):
     """The Faces path of one tree: halo_pack at 64r warm (graph_ms) and
-    cold (cold_ms, four fields in turns), halo_unpack at 64r and the
-    counter bump (graph_ms), and the st and fused Faces 64r programs' ms
-    per iteration (event_ms), with the device's busy ms and ops per
+    cold (cold_ms, four fields in turns), halo_unpack at 64r (and in
+    bf16 where the tree's unpack takes it) and the counter bump
+    (graph_ms), and the st and fused Faces 64r programs' ms per iteration
+    (event_ms; the first run, a graph's capture where the tree has
+    graphs, timed apart), with the device's busy ms and ops per
     iteration and the pack's and unpack's device ms per iteration from
     the profiler. Only APIs the parent shares."""
     R = int(np.prod(GRID_FULL))
@@ -2070,6 +2410,14 @@ def faces_ab(dev, core, hp, bump):
            "halo_unpack 64r ms": graph_ms(lambda: hp.halo_unpack(recv,
                                                                  N_FULL)),
            "counter_bump ms": graph_ms(lambda: bump(sig, upd))}
+    recv16 = recv.to(torch.bfloat16)
+    try:                        # a tree whose unpack takes bf16
+        hp.halo_unpack(recv16, N_FULL)
+    except TypeError:
+        pass
+    else:
+        out["halo_unpack 64r bf16 ms"] = graph_ms(
+            lambda: hp.halo_unpack(recv16, N_FULL))
     del fields
     src0 = torch.rand((R,) + N_FULL, generator=gen, device=dev)
     for mode in ("st", "fused"):
@@ -2080,7 +2428,10 @@ def faces_ab(dev, core, hp, bump):
 
         def run(stream=stream, state=state, mode=mode):
             return stream.synchronize(state, mode=mode, resources=16)
-        run()                                           # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()                           # warm-up (a graph's capture)
+        out[f"faces {mode} first run ms"] = 1e3 * (time.perf_counter() - t0)
         out[f"faces {mode} iter ms"] = event_ms(run, reps=5,
                                                 warm=False) / NITER_FULL
         prof = device_profile(run, os.path.join(
@@ -2207,7 +2558,10 @@ def main():
     kernels = phase_timing(core, hp, hp_ref, cb, _build.load("counter_bump"),
                            dev, launches, dispatches, errs)
     fetch_probe(dev, _build.load("halo_pack"))
-    serving = {"configs": cfgs, "models": models, "serving": serving_mod}
+    gc.collect()                    # the Faces streams and their graphs
+    torch.cuda.empty_cache()
+    serving = {"configs": cfgs, "models": models, "serving": serving_mod,
+               "graphs": core.graphs}
     cfg, serve_launches, counts, groups, _, params, reqs = phase_serve(
         dev, _build, serving, cfgs.get_config("granite-3-2b"),
         dict(num_layers=40, d_model=2048, num_heads=32, num_kv_heads=8,

@@ -5,20 +5,26 @@ produced and emit every descriptor through
 :func:`repro_torch.core.engine.emit_node`; they differ only in WHEN the
 host waits:
 
-  * :func:`run_compiled` (Fig. 9b, mode="st"): every descriptor is
-    enqueued eagerly on the current CUDA stream, in a topological order
-    of the DAG, with NO host synchronisation until
-    ``STStream.synchronize`` ends — the device runs the whole program
-    (all iterations) without the CPU in the loop. (Capturing it as one
-    CUDA graph is later work.)
+  * :func:`run_compiled` (Fig. 9b, mode="st"): the whole program (all
+    iterations) is ONE CUDA graph, captured at its first run and cached
+    on the stream as ``_compiled_cache`` (the JAX package's jitted
+    executable and its cache), keyed by ``prog.key()`` and each state
+    key's shape, dtype and stride. The capture emits every descriptor in
+    ``stream_interleaved_order``, a topological order of the DAG; a run
+    is one graph launch with NO host synchronisation until
+    ``STStream.synchronize`` ends — the device runs the program without
+    the CPU in the loop. On the CPU the same emission runs eagerly
+    (:func:`_emit_st`).
 
   * :func:`run_host` (Fig. 9a, mode="host"): the CPU-orchestrated
     standard active-RMA baseline — one dispatch per descriptor, the host
     blocking on the device at every epoch boundary (start/complete/wait).
-    A put's completion signal is its own counter bump after the payload
-    put, like the MPI runtime's completion handling; a wire completion
-    signal is also its own dispatch. Dependency edges are not
-    re-checked while dispatching: the serialized order must satisfy
+    It stays eager on the card too: the host in the loop is what it
+    measures (the JAX package dispatches one jitted executable per
+    descriptor there). A put's completion signal is its own counter bump
+    after the payload put, like the MPI runtime's completion handling; a
+    wire completion signal is also its own dispatch. Dependency edges are
+    not re-checked while dispatching: the serialized order must satisfy
     them, and :func:`_assert_dispatch_order` proves it does before the
     first dispatch.
 
@@ -26,26 +32,44 @@ Each executor adds its dispatch units, the cost simulator's accounting
 unit, to ``stream.dispatches``: one per descriptor (plus one per
 separately dispatched wire completion signal in host mode). A unit is
 not a device launch: start/complete/wait descriptors launch nothing; in
-st and fused mode a put is one launch, its permuted copy with its
-completion signal (``put_signal``); in host mode it is two, the copy and
-then a counter bump.
+st and fused mode a put is one kernel, its permuted copy with its
+completion signal (``put_signal``), inside the program's graph; in host
+mode it is two launches, the copy and then a counter bump.
 """
 from __future__ import annotations
 
+import weakref
+
+from repro_torch.core import graphs
 from repro_torch.core.compat import block
-from repro_torch.core.engine import _emit_completion_signal, emit_node
+from repro_torch.core.engine import (_emit_completion_signal, emit_node,
+                                     program_graph)
 from repro_torch.core.schedule import stream_interleaved_order
 
 
-def run_compiled(stream, prog, state):
-    # multi-stream schedules emit in a stream-interleaved topological
-    # order (program order within a stream; cross-stream ordering only
-    # where a real dependency edge ties it)
+def _emit_st(stream, prog, state):
+    """The ST program emitted eagerly, descriptor by descriptor, in
+    ``stream_interleaved_order`` (multi-stream schedules: program order
+    within a stream, cross-stream ordering only where a dependency edge
+    ties it). What :func:`run_compiled` captures; the CPU route, and the
+    yardstick the graph is held to on the card."""
     st = dict(state)
     for node in stream_interleaved_order(prog):
-        stream.dispatches += 1
         st = emit_node(stream, node, st)
     return st
+
+
+def run_compiled(stream, prog, state):
+    stream.dispatches += len(prog.nodes)
+    if not graphs.applies(stream.device):
+        return _emit_st(stream, prog, state)
+    # the graph, held by the stream, holds the stream weakly
+    ref = weakref.proxy(stream)
+    g = program_graph(
+        stream, stream._compiled_cache, prog, state,
+        f"the ST program ({len(prog.nodes)} descriptors)",
+        lambda: [lambda st: _emit_st(ref, prog, st)])
+    return g(state)
 
 
 _BLOCKING = ("start", "complete", "wait")

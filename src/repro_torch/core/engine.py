@@ -1,9 +1,10 @@
 """Descriptor emission (shared by every executor) and the fused executor.
 
 :func:`emit_node` applies one scheduled descriptor's state effect with
-eager PyTorch ops and the port's kernels; ``run_compiled`` and
-``run_host`` (:mod:`repro_torch.core.backends`) and :func:`run_fused`
-below all emit through it. The cost simulator in
+PyTorch ops and the port's kernels; ``run_compiled`` and ``run_host``
+(:mod:`repro_torch.core.backends`) and :func:`run_fused` below all emit
+through it (on the card, ``run_compiled`` and ``run_fused`` emit while a
+CUDA graph captures: :mod:`repro_torch.core.graphs`). The cost simulator in
 :mod:`repro_torch.core.throttle` walks the same DAG without emitting.
 
 Virtual ranks on one device: every state tensor holds all R ranks on its
@@ -42,9 +43,12 @@ helpers) can share storage safely.
 """
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
+from repro_torch.core import graphs
 from repro_torch.kernels.counter_bump.ops import (counter_bump, put_signal,
                                                   rank_rows)
 from repro_torch.kernels.halo_pack.ref import (chunk_gather, chunk_scatter,
@@ -207,31 +211,79 @@ def emit_node(stream, node, st, *, with_chained=True):
 
 
 # ---------------------------------------------------------------------------
+# the program graphs of the st and fused executors
+# ---------------------------------------------------------------------------
+
+def program_graph(stream, cache, prog, state, name, segments):
+    """The :class:`~repro_torch.core.graphs.ProgramGraph` of ``prog`` on
+    a state like ``state``, from ``cache`` (one of the stream's graph
+    caches) or made from ``segments()`` (its emission functions). Keyed
+    by ``prog.key()``, computed once per program object, and each state
+    key's shape, dtype and stride."""
+    memo = stream._program_keys.get(id(prog))
+    if memo is None:            # the entry holds prog: its id stays its own
+        memo = stream._program_keys[id(prog)] = (prog, prog.key())
+    key = (memo[1], tuple(state), graphs.tensor_key(list(state.values())))
+    g = cache.get(key)
+    if g is None:
+        g = cache[key] = graphs.ProgramGraph(name, segments())
+    return g
+
+
+# ---------------------------------------------------------------------------
 # fused executor: one emission unit per planned segment
 # ---------------------------------------------------------------------------
 
-def run_fused(stream, prog, state):
-    """Execute a fused-scheduled program through the progress engine:
-    the planner's segments are the emission units, emitted in wave order
-    (segments sorted by (wave, stream)), each segment's descriptor run
-    emitted whole — a topological order, since every cross-stream edge
-    points to a strictly earlier wave. ``stream.dispatches`` counts one
-    unit per segment, the cost simulator's accounting unit (for a
-    program scheduled with ``fused=True`` exactly
-    ``throttle.host_dispatch_count(prog)``). The emission itself is still
-    eager: the host launches every op of a segment on its own, so this
-    executor issues as many device launches as ``run_compiled``; one
-    launch per segment needs a persistent segment kernel or a CUDA graph
-    (ROADMAP Queue 1 items 11 and 13). Programs scheduled without
-    ``fused=True`` are planned here."""
+def _segment_nodes(prog):
+    """Each planned segment's descriptors, in wave order."""
     plan = prog.meta.get("segment_plan")
     if plan is None:
         from repro_torch.core.schedule import plan_segments
         plan = plan_segments(prog)
     by_id = {n.op_id: n for n in prog.nodes}
+    return [[by_id[oid] for oid in seg.op_ids] for seg in plan.segments]
+
+
+def _emit_segment(stream, nodes, state):
     st = dict(state)
-    for seg in plan.segments:
-        stream.dispatches += 1
-        for oid in seg.op_ids:
-            st = emit_node(stream, by_id[oid], st)
+    for node in nodes:
+        st = emit_node(stream, node, st)
     return st
+
+
+def _emit_fused(stream, prog, state):
+    """The fused program emitted eagerly, segment by segment in wave
+    order: what :func:`run_fused` captures, the CPU route, and the
+    yardstick the graphs are held to on the card."""
+    st = dict(state)
+    for nodes in _segment_nodes(prog):
+        st = _emit_segment(stream, nodes, st)
+    return st
+
+
+def run_fused(stream, prog, state):
+    """Execute a fused-scheduled program through the progress engine:
+    the planner's segments are the emission units, in wave order
+    (segments sorted by (wave, stream)), each segment's descriptor run
+    emitted whole — a topological order, since every cross-stream edge
+    points to a strictly earlier wave. On the card each segment is one
+    CUDA graph, captured at the program's first run in wave order into
+    one shared memory pool and cached on the stream as ``_fused_cache``
+    (the JAX package's per-program executable), so the host launches
+    exactly one graph per segment: for a program scheduled with
+    ``fused=True``, ``throttle.host_dispatch_count(prog)`` graphs, the
+    simulator's charge. ``stream.dispatches`` counts those units. On the
+    CPU the segments are emitted eagerly (:func:`_emit_fused`). Programs
+    scheduled without ``fused=True`` are planned here."""
+    if not graphs.applies(stream.device):
+        stream.dispatches += len(_segment_nodes(prog))
+        return _emit_fused(stream, prog, state)
+    # the graphs, held by the stream, hold the stream weakly
+    ref = weakref.proxy(stream)
+    g = program_graph(
+        stream, stream._fused_cache, prog, state,
+        f"the fused program ({len(prog.nodes)} descriptors)",
+        lambda: [lambda st, nodes=nodes: _emit_segment(ref, nodes, st)
+                 for nodes in _segment_nodes(prog)])
+    stream.dispatches += len(g.segments)
+    return g(state)

@@ -12,25 +12,27 @@ triggered-op IR (repro_torch.core.triggered):
 
 Stage-3 emitters all consume the SAME scheduled DAG:
 
-  * mode="st"   (Fig. 9b): the WHOLE queue (all iterations) is enqueued
-    on the device stream with no host round-trip; ``synchronize`` is the
-    single host sync at the end.
+  * mode="st"   (Fig. 9b): the WHOLE queue (all iterations) is one CUDA
+    graph, captured at its first run and replayed with no host
+    round-trip; ``synchronize`` is the single host sync at the end.
 
   * mode="host" (Fig. 9a): one dispatch per descriptor with the host
     blocking at every epoch boundary — the CPU-orchestrated standard
-    active-RMA baseline.
+    active-RMA baseline, eager on the card too.
 
   * mode="fused": the progress engine (core/engine.py) — the schedule
-    is planned into per-stream segments, emitted segment by segment and
-    counted as one dispatch unit per segment, not per descriptor (the
-    ops of a segment are still launched one by one).
+    is planned into per-stream segments, one CUDA graph each, and the
+    host launches one graph per segment.
 
   * the cost simulator (core/throttle.py) walks the identical schedule.
 
 Every rank of the process grid lives on one device (``device``), in
 state tensors with a leading rank dim; ``device=None`` (with an explicit
 ``grid_shape``) builds a device-free stream whose programs can be
-lowered, scheduled, and simulated but not executed.
+lowered, scheduled, and simulated but not executed. On the CPU the st
+and fused emitters run eagerly (:mod:`repro_torch.core.graphs` replays
+graphs on CUDA devices only). The graphs are cached on the stream and
+hold their memory while it lives (:meth:`STStream.clear_graphs`).
 """
 from __future__ import annotations
 
@@ -105,11 +107,25 @@ class STStream:
         self._perm_cache: Dict[tuple, list] = {}
         self._sched_cache: Dict[tuple, List[TriggeredProgram]] = {}
         self._device_tables: Dict[tuple, object] = {}
+        # the CUDA graphs of st and fused programs (core/graphs.py), by
+        # program and state layout; they hold their static inputs and
+        # memory pools until clear_graphs() or the stream is dropped (a
+        # graph refers to its stream weakly)
+        self._compiled_cache: Dict[tuple, object] = {}
+        self._fused_cache: Dict[tuple, object] = {}
+        self._program_keys: Dict[int, tuple] = {}
         # fn identity tokens: keyed by the function OBJECT (a strong ref,
         # so a collected closure can never alias a live token) and drawn
         # from a never-reset monotonic counter
         self._fn_tokens: Dict[Callable, int] = {}
         self._fn_token_counter = itertools.count()
+
+    def clear_graphs(self) -> None:
+        """Drop the captured program graphs and the device memory they
+        hold; the next run of a program captures it again."""
+        self._compiled_cache.clear()
+        self._fused_cache.clear()
+        self._program_keys.clear()
 
     # -- window management --------------------------------------------------
     def create_window(self, name, buffers, group, topology=None,
@@ -251,13 +267,14 @@ class STStream:
         """Execute the enqueued program; returns the new state dict (the
         one passed in is never modified).
 
-        mode="st": every descriptor enqueued on the device, one host
-        sync (at the end of this call). mode="host": per-descriptor
-        dispatch, blocking at epoch boundaries. mode="fused": the
-        progress engine — one dispatch unit per planned segment
-        (``fused=True`` scheduling is implied). ``pack`` and
-        ``chunk_bytes`` select packed and chunked put descriptors
-        (schedule.pack_puts / schedule.chunk_puts)."""
+        mode="st": the program replayed as one CUDA graph (captured at
+        its first run), one host sync (at the end of this call).
+        mode="host": per-descriptor dispatch, blocking at epoch
+        boundaries. mode="fused": the progress engine — one graph per
+        planned segment (``fused=True`` scheduling is implied). The
+        returned tensors are the caller's: a later call does not change
+        them. ``pack`` and ``chunk_bytes`` select packed and chunked put
+        descriptors (schedule.pack_puts / schedule.chunk_puts)."""
         if self.device is None:
             raise ValueError("cannot execute a device-free stream "
                              "(constructed with device=None)")

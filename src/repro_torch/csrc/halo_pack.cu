@@ -72,17 +72,32 @@
 //     (rank, x) plane with both kinds of rows in it stayed at about twice
 //     the bound, while the same blocks storing zeros alone reached it).
 //     Row and unit indices are a multiply-high and a shift, not a
-//     division. When nz % 4 != 0 the rows do not start on 16-byte
-//     boundaries and every cell takes a store of its own.
+//     division. A vector holds W = 16 / element size cells (4 in float32);
+//     when nz % W != 0 the rows do not start on 16-byte boundaries and
+//     every cell takes a store of its own.
+//     The accumulator takes the surfaces' dtype, as halo_unpack_fwd's
+//     does: float32, float64, bfloat16, float16, int32 or int64. Each add
+//     is rounded to that type, in DIRECTIONS order, as the plain version's
+//     `acc[...] += buf`: a 2-byte float's sum of two values is formed in
+//     float32, where it is exact, and rounded once to nearest even (what
+//     PyTorch's add does); integers wrap. So every dtype is bit for bit
+//     the plain unpack. Nothing else depends on the type.
 //   * unpack with the per-rank max|acc| (Faces' merged unpack+compare, paper
 //     §5.4): the same pass reduces the stored values' |bits| per warp and
-//     per block and lands one atomicMax per block on the rank's slot (as
+//     per block and lands one atomic max per block on the rank's slot (as
 //     unsigned bits, exact for values >= 0; a NaN's bits exceed +inf's, so
-//     a NaN wins, as in torch.linalg.vector_norm(ord=inf)). The
-//     accumulator is not read back.
+//     a NaN wins, as in torch.linalg.vector_norm(ord=inf)), in the
+//     accumulator's floating type: atomicMax on 4- and 8-byte bits, a
+//     compare-and-swap loop on 2-byte ones. Integer accumulators have no
+//     max (the plain version's norm refuses them). The accumulator is not
+//     read back.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -315,11 +330,11 @@ __host__ __device__ inline int ends(int n) { return n == 1 ? 1 : 2; }
 __host__ __device__ inline int inner(int n) { return n > 2 ? n - 2 : 0; }
 
 // A rank's block as rows: its nx * ny (x, y) rows of nz cells, cut into
-// units of W consecutive cells (W = 4 when nz % 4 == 0: one 16-byte
-// vector; else 1). Boundary rows (x or y on the boundary) are the ends(nx)
-// x-planes' ny rows, then the inner(nx) planes' ends(ny) y-rows; interior
-// rows are the rest. Each rank has gb blocks of boundary units and gi
-// blocks of interior units.
+// units of W consecutive cells (W cells = one 16-byte vector when
+// nz % W == 0; else W = 1). Boundary rows (x or y on the boundary) are
+// the ends(nx) x-planes' ny rows, then the inner(nx) planes' ends(ny)
+// y-rows; interior rows are the rest. Each rank has gb blocks of boundary
+// units and gi blocks of interior units.
 struct Rows {
   int nx, ny, nz;
   int nb, ni;         // boundary and interior rows of a rank
@@ -328,20 +343,122 @@ struct Rows {
   int gb, gi;
 };
 
-__device__ __forceinline__ unsigned abs_bits(float v) {
-  return __float_as_uint(v) & 0x7fffffffu;
+// The accumulator's element types: zero, the add rounded to the type
+// (the plain version's `+=`), and the bits (unsigned, of the element's
+// size) whose magnitude part orders |v| for a float.
+template <typename T> struct Elem;
+template <> struct Elem<float> {
+  using Bits = unsigned;
+  static constexpr bool kFloat = true;
+  static constexpr Bits kAbs = 0x7fffffffu;
+  __device__ static float zero() { return 0.0f; }
+  __device__ static float add(float a, float b) { return a + b; }
+  __device__ static Bits bits(float v) { return __float_as_uint(v); }
+};
+template <> struct Elem<double> {
+  using Bits = unsigned long long;
+  static constexpr bool kFloat = true;
+  static constexpr Bits kAbs = 0x7fffffffffffffffull;
+  __device__ static double zero() { return 0.0; }
+  __device__ static double add(double a, double b) { return a + b; }
+  __device__ static Bits bits(double v) {
+    return (Bits)__double_as_longlong(v);
+  }
+};
+template <> struct Elem<__nv_bfloat16> {
+  using Bits = unsigned short;
+  static constexpr bool kFloat = true;
+  static constexpr Bits kAbs = 0x7fff;
+  __device__ static __nv_bfloat16 zero() { return __ushort_as_bfloat16(0); }
+  __device__ static __nv_bfloat16 add(__nv_bfloat16 a, __nv_bfloat16 b) {
+    return __float2bfloat16(__bfloat162float(a) + __bfloat162float(b));
+  }
+  __device__ static Bits bits(__nv_bfloat16 v) {
+    return __bfloat16_as_ushort(v);
+  }
+};
+template <> struct Elem<__half> {
+  using Bits = unsigned short;
+  static constexpr bool kFloat = true;
+  static constexpr Bits kAbs = 0x7fff;
+  __device__ static __half zero() { return __ushort_as_half(0); }
+  __device__ static __half add(__half a, __half b) {
+    return __float2half(__half2float(a) + __half2float(b));
+  }
+  __device__ static Bits bits(__half v) { return __half_as_ushort(v); }
+};
+template <> struct Elem<int> {
+  using Bits = unsigned;
+  static constexpr bool kFloat = false;
+  static constexpr Bits kAbs = 0;
+  __device__ static int zero() { return 0; }
+  __device__ static int add(int a, int b) {
+    return (int)((unsigned)a + (unsigned)b);
+  }
+  __device__ static Bits bits(int v) { return (Bits)v; }
+};
+template <> struct Elem<long long> {
+  using Bits = unsigned long long;
+  static constexpr bool kFloat = false;
+  static constexpr Bits kAbs = 0;
+  __device__ static long long zero() { return 0; }
+  __device__ static long long add(long long a, long long b) {
+    return (long long)((unsigned long long)a + (unsigned long long)b);
+  }
+  __device__ static Bits bits(long long v) { return (Bits)v; }
+};
+
+// The running max of |bits|: 32 bits wide for 2- and 4-byte elements.
+template <typename T>
+using MaxBits = typename std::conditional<sizeof(T) == 8, unsigned long long,
+                                          unsigned>::type;
+
+template <typename T>
+__device__ __forceinline__ MaxBits<T> abs_bits(T v) {
+  return (MaxBits<T>)(Elem<T>::bits(v) & Elem<T>::kAbs);
 }
 
-// The W cells (x, y, z0 + i) of a boundary row: each 0.0f plus, in
+__device__ __forceinline__ unsigned warp_max(unsigned m) {
+  return __reduce_max_sync(0xffffffffu, m);
+}
+
+__device__ __forceinline__ unsigned long long warp_max(unsigned long long m) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    const unsigned long long v = __shfl_xor_sync(0xffffffffu, m, o);
+    m = v > m ? v : m;
+  }
+  return m;
+}
+
+// The rank's slot of rmax, an element of T holding the max |cell|'s bits.
+template <typename T>
+__device__ __forceinline__ void slot_max(void* rmax, long long r,
+                                         MaxBits<T> m) {
+  if constexpr (sizeof(T) == 2) {
+    unsigned short* p = static_cast<unsigned short*>(rmax) + r;
+    unsigned short old = *p, seen;
+    do {
+      seen = old;
+      if (seen >= m) return;
+      old = atomicCAS(p, seen, (unsigned short)m);
+    } while (old != seen);
+  } else {
+    atomicMax(static_cast<MaxBits<T>*>(rmax) + r, m);
+  }
+}
+
+// The W cells (x, y, z0 + i) of a boundary row: each zero plus, in
 // DIRECTIONS order (dx, then dy, then dz ascending), the element of each
 // surface that contains it. The (dx, dy, dz) loops are unrolled, so every
 // surface's address is known and the loads do not wait on one another.
-template <int W>
+template <typename T, int W>
 __device__ __forceinline__ void boundary_cells(const Surfaces& s, long long r,
                                                const Rows& h, int x, int y,
-                                               int z0, float (&a)[W]) {
+                                               int z0, T (&a)[W]) {
+  using E = Elem<T>;
 #pragma unroll
-  for (int i = 0; i < W; ++i) a[i] = 0.0f;
+  for (int i = 0; i < W; ++i) a[i] = E::zero();
 #pragma unroll
   for (int dx = -1; dx <= 1; ++dx) {
     if (dx < 0 ? x != 0 : (dx > 0 && x != h.nx - 1)) continue;
@@ -353,13 +470,13 @@ __device__ __forceinline__ void boundary_cells(const Surfaces& s, long long r,
         if (dx == 0 && dy == 0 && dz == 0) continue;   // no surface
         const int k = dir_index(dx, dy, dz);
         const int sy = extent(dy, h.ny), sz = extent(dz, h.nz);
-        const float* p = surface<const float>(s, k, r) +
-                         (long long)((dx ? 0 : x) * sy + (dy ? 0 : y)) * sz;
+        const T* p = surface<const T>(s, k, r) +
+                     (long long)((dx ? 0 : x) * sy + (dy ? 0 : y)) * sz;
 #pragma unroll
         for (int i = 0; i < W; ++i) {
           const int z = z0 + i;
           if (dz < 0 ? z == 0 : (dz > 0 ? z == h.nz - 1 : true))
-            a[i] += p[dz ? 0 : z];
+            a[i] = E::add(a[i], p[dz ? 0 : z]);
         }
       }
     }
@@ -371,25 +488,43 @@ __device__ __forceinline__ void boundary_cells(const Surfaces& s, long long r,
 // 4 x 512 bytes it stores, not per 512.
 constexpr int kInteriorUnits = 4;
 
-template <int W>
-__device__ __forceinline__ void store_unit(float* out, const float (&a)[W]) {
-  if constexpr (W == 4)
-    *reinterpret_cast<float4*>(out) = make_float4(a[0], a[1], a[2], a[3]);
-  else
+// 32-bit word i of a 16-byte vector of W cells.
+template <typename T, int W>
+__device__ __forceinline__ unsigned vector_word(const T (&a)[W], int i) {
+  using E = Elem<T>;
+  if constexpr (sizeof(T) == 2) {
+    return (unsigned)E::bits(a[2 * i]) |
+           ((unsigned)E::bits(a[2 * i + 1]) << 16);
+  } else if constexpr (sizeof(T) == 4) {
+    return (unsigned)E::bits(a[i]);
+  } else {
+    const unsigned long long b = E::bits(a[i / 2]);
+    return (unsigned)(i & 1 ? b >> 32 : b);
+  }
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void store_unit(T* out, const T (&a)[W]) {
+  if constexpr (W * sizeof(T) == 16) {
+    *reinterpret_cast<uint4*>(out) =
+        make_uint4(vector_word<T, W>(a, 0), vector_word<T, W>(a, 1),
+                   vector_word<T, W>(a, 2), vector_word<T, W>(a, 3));
+  } else {
     out[0] = a[0];
+  }
 }
 
 // grid: R * (gb + gi) blocks, the boundary blocks of all R ranks first, so
 // that their longer work runs beside the interior blocks' stores. A boundary
 // thread writes one unit; an interior thread kInteriorUnits units, a block
 // apart. In an interior row only z = 0 and z = nz - 1 are boundary cells,
-// each in one z-face (0.0f + that element); the rest are 0.0f. rmax
-// (kMax): the rank's max |cell| as float bits, zero on entry.
-template <int W, bool kMax>
+// each in one z-face (zero + that element); the rest are zero. rmax
+// (kMax): the rank's max |cell| as the bits of a T, zero on entry.
+template <typename T, int W, bool kMax>
 __global__ void __launch_bounds__(kThreads)
-unpack_kernel(float* __restrict__ acc, const Rows h,
-              const __grid_constant__ Surfaces s,
-              unsigned* __restrict__ rmax) {
+unpack_kernel(T* __restrict__ acc, const Rows h,
+              const __grid_constant__ Surfaces s, void* __restrict__ rmax) {
+  using E = Elem<T>;
   const int R = gridDim.x / (h.gb + h.gi);
   int bid = blockIdx.x;
   const bool boundary = bid < R * h.gb;
@@ -402,8 +537,8 @@ unpack_kernel(float* __restrict__ acc, const Rows h,
     r = bid / h.gi;
     bid -= (int)r * h.gi;
   }
-  float* const rank = acc + r * h.nx * h.ny * (long long)h.nz;
-  unsigned m = 0;
+  T* const rank = acc + r * h.nx * h.ny * (long long)h.nz;
+  MaxBits<T> m = 0;
   if (boundary) {
     const int u = bid * blockDim.x + threadIdx.x;
     if (u < h.nb * h.upr) {
@@ -419,21 +554,21 @@ unpack_kernel(float* __restrict__ acc, const Rows h,
         x = 1 + b / e;
         y = b % e ? h.ny - 1 : 0;
       }
-      float a[W];
-      boundary_cells<W>(s, r, h, x, y, z0, a);
-      store_unit<W>(rank + (x * h.ny + y) * (long long)h.nz + z0, a);
-      if (kMax) {
+      T a[W];
+      boundary_cells<T, W>(s, r, h, x, y, z0, a);
+      store_unit<T, W>(rank + (x * h.ny + y) * (long long)h.nz + z0, a);
+      if constexpr (kMax) {
 #pragma unroll
         for (int i = 0; i < W; ++i) m = max(m, abs_bits(a[i]));
       }
     }
   } else {
-    const float* zlo = surface<const float>(s, kZlo, r);
-    const float* zhi = surface<const float>(s, kZhi, r);
+    const T* zlo = surface<const T>(s, kZlo, r);
+    const T* zhi = surface<const T>(s, kZhi, r);
     const int units = h.ni * h.upr;
     long long at[kInteriorUnits];      // the unit's first cell in the rank
     int z0[kInteriorUnits];
-    float lo[kInteriorUnits], hi[kInteriorUnits];
+    T lo[kInteriorUnits], hi[kInteriorUnits];
 #pragma unroll
     for (int k = 0; k < kInteriorUnits; ++k) {
       const int u = (bid * kInteriorUnits + k) * blockDim.x + threadIdx.x;
@@ -442,34 +577,35 @@ unpack_kernel(float* __restrict__ acc, const Rows h,
       const int x = 1 + xi, y = 1 + row - xi * inner(h.ny);
       z0[k] = u < units ? (u - row * h.upr) * W : -1;   // -1: no unit
       at[k] = (x * h.ny + y) * (long long)h.nz + z0[k];
-      lo[k] = z0[k] == 0 ? zlo[x * h.ny + y] : 0.0f;
-      hi[k] = z0[k] >= 0 && z0[k] + W == h.nz ? zhi[x * h.ny + y] : 0.0f;
+      lo[k] = z0[k] == 0 ? zlo[x * h.ny + y] : E::zero();
+      hi[k] = z0[k] >= 0 && z0[k] + W == h.nz ? zhi[x * h.ny + y]
+                                               : E::zero();
     }
 #pragma unroll
     for (int k = 0; k < kInteriorUnits; ++k) {
       if (z0[k] < 0) continue;
-      float a[W];
+      T a[W];
 #pragma unroll
       for (int i = 0; i < W; ++i) {
         const int z = z0[k] + i;
-        float v = 0.0f;
-        if (z == 0) v = v + lo[k];
-        if (z == h.nz - 1) v = v + hi[k];
+        T v = E::zero();
+        if (z == 0) v = E::add(v, lo[k]);
+        if (z == h.nz - 1) v = E::add(v, hi[k]);
         a[i] = v;
-        if (kMax) m = max(m, abs_bits(v));
+        if constexpr (kMax) m = max(m, abs_bits(v));
       }
-      store_unit<W>(rank + at[k], a);
+      store_unit<T, W>(rank + at[k], a);
     }
   }
-  if (kMax) {
-    __shared__ unsigned wmax[kThreads / 32];
-    m = __reduce_max_sync(0xffffffffu, m);
+  if constexpr (kMax) {
+    __shared__ MaxBits<T> wmax[kThreads / 32];
+    m = warp_max(m);
     if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
     __syncthreads();
     if (threadIdx.x < 32) {
-      m = threadIdx.x < blockDim.x / 32 ? wmax[threadIdx.x] : 0u;
-      m = __reduce_max_sync(0xffffffffu, m);
-      if (threadIdx.x == 0 && m != 0) atomicMax(rmax + r, m);
+      m = threadIdx.x < blockDim.x / 32 ? wmax[threadIdx.x] : 0;
+      m = warp_max(m);
+      if (threadIdx.x == 0 && m != 0) slot_max<T>(rmax, r, m);
     }
   }
 }
@@ -534,6 +670,43 @@ cudaError_t launch_pack(const void* src, const Pack& p, const Surfaces& s,
   return cudaGetLastError();
 }
 
+template <typename T, int W, bool kMax>
+cudaError_t launch_unpack(void* acc, const Rows& h, const Surfaces& s,
+                          void* rmax, unsigned grid, cudaStream_t st) {
+  unpack_kernel<T, W, kMax><<<grid, kThreads, 0, st>>>(
+      static_cast<T*>(acc), h, s, rmax);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t unpack_typed(void* acc, int R, int nx, int ny, int nz,
+                         const Surfaces& s, void* rmax, cudaStream_t st) {
+  constexpr int kW = 16 / (int)sizeof(T);
+  const int W = nz % kW == 0 ? kW : 1;
+  Rows h;
+  h.nx = nx; h.ny = ny; h.nz = nz;
+  h.nb = ends(nx) * ny + inner(nx) * ends(ny);
+  h.ni = inner(nx) * inner(ny);
+  h.upr = nz / W;
+  h.fu = make_fastdiv(h.upr);
+  h.fy = make_fastdiv(inner(ny) > 0 ? inner(ny) : 1);
+  h.gb = cdiv(h.nb * h.upr, kThreads);
+  h.gi = cdiv(h.ni * h.upr, kThreads * kInteriorUnits);
+  if ((long long)R * (h.gb + h.gi) >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(R * (h.gb + h.gi));
+  if (rmax != nullptr) {
+    if constexpr (Elem<T>::kFloat) {
+      return W == kW ? launch_unpack<T, kW, true>(acc, h, s, rmax, grid, st)
+                     : launch_unpack<T, 1, true>(acc, h, s, rmax, grid, st);
+    } else {
+      return cudaErrorInvalidValue;      // an integer has no max |acc|
+    }
+  }
+  return W == kW ? launch_unpack<T, kW, false>(acc, h, s, rmax, grid, st)
+                 : launch_unpack<T, 1, false>(acc, h, s, rmax, grid, st);
+}
+
 }  // namespace
 
 // src: contiguous (R, nx, ny, nz) elements of es = 2, 4 or 8 bytes;
@@ -568,40 +741,30 @@ extern "C" int halo_pack_launch(const void* src, int R, int nx, int ny,
   return (int)launch_pack<unsigned long long>(src, p, s, (unsigned)grid, st);
 }
 
-// acc: contiguous (R, nx, ny, nz) float32 output, every cell written once;
-// rmax: NULL, or R float32 slots (zero on entry) that receive each rank's
-// max |acc|.
-extern "C" int halo_unpack_launch(float* acc, int R, int nx, int ny, int nz,
-                                  const uint64_t* ptrs,
-                                  const int64_t* strides, float* rmax,
+// acc: contiguous (R, nx, ny, nz) output of the surfaces' dtype, every
+// cell written once; dtype: 0 float32, 1 float64, 2 bfloat16, 3 float16,
+// 4 int32, 5 int64; rmax: NULL, or R slots of that (floating) dtype, zero
+// on entry, that receive each rank's max |acc|.
+extern "C" int halo_unpack_launch(void* acc, int dtype, int R, int nx, int ny,
+                                  int nz, const uint64_t* ptrs,
+                                  const int64_t* strides, void* rmax,
                                   void* stream) {
   if (R == 0) return 0;
   if (!shape_ok(R, nx, ny, nz)) return (int)cudaErrorInvalidValue;
   const Surfaces s = make_surfaces(ptrs, strides);
-  const int W = nz % 4 == 0 ? 4 : 1;
-  Rows h;
-  h.nx = nx; h.ny = ny; h.nz = nz;
-  h.nb = ends(nx) * ny + inner(nx) * ends(ny);
-  h.ni = inner(nx) * inner(ny);
-  h.upr = nz / W;
-  h.fu = make_fastdiv(h.upr);
-  h.fy = make_fastdiv(inner(ny) > 0 ? inner(ny) : 1);
-  h.gb = cdiv(h.nb * h.upr, kThreads);
-  h.gi = cdiv(h.ni * h.upr, kThreads * kInteriorUnits);
-  if ((long long)R * (h.gb + h.gi) >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)(R * (h.gb + h.gi));
   const cudaStream_t st = (cudaStream_t)stream;
-  unsigned* m = reinterpret_cast<unsigned*>(rmax);
-  if (W == 4 && m != nullptr)
-    unpack_kernel<4, true><<<grid, kThreads, 0, st>>>(acc, h, s, m);
-  else if (W == 4)
-    unpack_kernel<4, false><<<grid, kThreads, 0, st>>>(acc, h, s, m);
-  else if (m != nullptr)
-    unpack_kernel<1, true><<<grid, kThreads, 0, st>>>(acc, h, s, m);
-  else
-    unpack_kernel<1, false><<<grid, kThreads, 0, st>>>(acc, h, s, m);
-  return (int)cudaGetLastError();
+  switch (dtype) {
+    case 0: return (int)unpack_typed<float>(acc, R, nx, ny, nz, s, rmax, st);
+    case 1: return (int)unpack_typed<double>(acc, R, nx, ny, nz, s, rmax, st);
+    case 2:
+      return (int)unpack_typed<__nv_bfloat16>(acc, R, nx, ny, nz, s, rmax,
+                                              st);
+    case 3: return (int)unpack_typed<__half>(acc, R, nx, ny, nz, s, rmax, st);
+    case 4: return (int)unpack_typed<int>(acc, R, nx, ny, nz, s, rmax, st);
+    case 5:
+      return (int)unpack_typed<long long>(acc, R, nx, ny, nz, s, rmax, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // buf: rows contiguous 256-byte rows of 64 floats; out: rows floats.

@@ -38,8 +38,9 @@ LIBRARIES = {
         # (src, R, nx, ny, nz, element bytes, ptrs, strides, stream)
         "halo_pack_launch": (_PTR, _INT, _INT, _INT, _INT, _INT, _PTRS,
                              _STRIDES, _PTR),
-        # (acc, R, nx, ny, nz, ptrs, strides, rank max or NULL, stream)
-        "halo_unpack_launch": (_PTR, _INT, _INT, _INT, _INT, _PTRS,
+        # (acc, dtype, R, nx, ny, nz, ptrs, strides, rank max or NULL,
+        #  stream)
+        "halo_unpack_launch": (_PTR, _INT, _INT, _INT, _INT, _INT, _PTRS,
                                _STRIDES, _PTR, _PTR),
         # (buf, rows, floats per row, out, stream): chip_smoke.py's probe
         "fetch_probe_launch": (_PTR, _INT, _INT, _PTR, _PTR),

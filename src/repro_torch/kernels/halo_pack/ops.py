@@ -5,7 +5,9 @@ on a CUDA tensor it launches the hand-written kernel (or raises), on a
 CPU tensor it runs the plain version from :mod:`.ref`. There is no
 fallback between the two. All four forms are batched over the leading
 rank dim R and use the same two kernels. The pack is a pure copy and
-takes any dtype of 2, 4 or 8 bytes; the unpack adds, in float32:
+takes any dtype of 2, 4 or 8 bytes; the unpack adds in the surfaces'
+dtype (float32, float64, bfloat16, float16, int32 or int64), each add
+rounded to it in ``DIRECTIONS`` order, as the plain version:
 
   * :func:`halo_pack_split` — (R, nx, ny, nz) -> 26 contiguous (R, s_d)
     send buffers, one launch (Faces' merged ``pack_all``);
@@ -58,10 +60,28 @@ def _check_cuda(t: torch.Tensor, what: str, device=None):
                          "kernel launches on the current device")
 
 
-def _check_float32(t: torch.Tensor, what: str):
-    """The unpack adds, in float32."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{what}: the kernel takes float32, got {t.dtype}")
+# the unpack kernel's accumulator types, by the C entry's dtype code
+UNPACK_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
+                 torch.float16: 3, torch.int32: 4, torch.int64: 5}
+
+
+def _check_unpack_dtype(t: torch.Tensor, what: str, dtype: torch.dtype):
+    """The unpack adds in one of UNPACK_DTYPES, every surface in the
+    first one's."""
+    if t.dtype not in UNPACK_DTYPES:
+        raise TypeError(f"{what}: the kernel adds float32, float64, "
+                        f"bfloat16, float16, int32 or int64, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: is {t.dtype}, the first surface "
+                        f"{dtype}; the surfaces must share one dtype")
+
+
+def _check_with_max(dtype: torch.dtype):
+    """The per-rank max|acc| exists where the plain ``_max_abs`` (an
+    infinity norm) takes the dtype: floating types only."""
+    if not dtype.is_floating_point:
+        raise TypeError(f"halo unpack: with_max takes a floating "
+                        f"accumulator (the norm refuses {dtype})")
 
 
 def _rows(t: torch.Tensor, s: int, what: str) -> torch.Tensor:
@@ -114,14 +134,15 @@ def _unpack(R, n, device, with_max, src_tensors, src_strides,
             src_offsets=None):
     """New accumulator (and, ``with_max``, the per-rank max|acc|) from one
     launch of the unpack kernel."""
-    acc = torch.empty((R,) + n, dtype=torch.float32, device=device)
+    dtype = src_tensors[0].dtype
+    acc = torch.empty((R,) + n, dtype=dtype, device=device)
     # the kernel lands each block's max on its rank's slot: zero first
-    rmax = torch.zeros((R, 1), dtype=torch.float32, device=device) \
+    rmax = torch.zeros((R, 1), dtype=dtype, device=device) \
         if with_max else None
     if R:
         ptrs, strd = _pointer_table(src_tensors, src_strides, src_offsets)
         rc = _build.load("halo_pack").halo_unpack_launch(
-            acc.data_ptr(), R, *n, ptrs, strd,
+            acc.data_ptr(), UNPACK_DTYPES[dtype], R, *n, ptrs, strd,
             None if rmax is None else rmax.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
         _build.check(rc, "halo_unpack")
@@ -165,10 +186,11 @@ def halo_pack(field):
 
 def halo_unpack_split(recvs, n, with_max=False):
     """26 surfaces (each (R, s_d), ``DIRECTIONS`` order) -> new
-    (R, nx, ny, nz) accumulator: every cell is 0.0 plus, in
-    ``DIRECTIONS`` order, each surface that contains it. ``with_max``
-    returns ``(acc, max)``, max the per-rank max|acc| as (R, 1), from the
-    same launch."""
+    (R, nx, ny, nz) accumulator of their dtype: every cell is zero plus,
+    in ``DIRECTIONS`` order, each surface that contains it, rounded to
+    the dtype after each add. ``with_max`` returns ``(acc, max)``, max
+    the per-rank max|acc| as (R, 1), from the same launch (floating
+    dtypes only)."""
     n = tuple(int(x) for x in n)
     if len(recvs) != NDIR:
         raise ValueError(f"halo unpack: expected {NDIR} surfaces, got "
@@ -179,29 +201,34 @@ def halo_unpack_split(recvs, n, with_max=False):
         if r.numel() != R * s or r.shape[0] != R:
             raise ValueError(f"halo unpack: surface {d} has shape "
                              f"{tuple(r.shape)}, expected ({R}, {s})")
+    if with_max:
+        _check_with_max(recvs[0].dtype)
     if recvs[0].device.type == "cpu":
         return _plain_unpack(ref.halo_unpack_split_ref(recvs, n), with_max)
     rows = []
     for d, s, r in zip(DIRECTIONS, sizes, recvs):
         _check_cuda(r, f"halo unpack: surface {d}", recvs[0].device)
-        _check_float32(r, f"halo unpack: surface {d}")
+        _check_unpack_dtype(r, f"halo unpack: surface {d}", recvs[0].dtype)
         rows.append(_rows(r, s, f"halo unpack: surface {d}"))
     return _unpack(R, n, recvs[0].device, with_max, rows,
                    [r.stride(0) for r in rows])
 
 
 def halo_unpack(flat, n, with_max=False):
-    """flat (R, total) float32 -> new (R, nx, ny, nz) accumulator (and,
-    ``with_max``, the per-rank max|acc|, as :func:`halo_unpack_split`)."""
+    """flat (R, total) -> new (R, nx, ny, nz) accumulator of its dtype
+    (and, ``with_max``, the per-rank max|acc|, as
+    :func:`halo_unpack_split`)."""
     n = tuple(int(x) for x in n)
     _, offs, total = _geometry(n)
     if flat.dim() != 2 or flat.shape[1] != total:
         raise ValueError(f"halo unpack: flat must be (R, {total}), got "
                          f"{tuple(flat.shape)}")
+    if with_max:
+        _check_with_max(flat.dtype)
     if flat.device.type == "cpu":
         return _plain_unpack(ref.halo_unpack_ref(flat, n), with_max)
     _check_cuda(flat, "halo unpack: flat")
-    _check_float32(flat, "halo unpack: flat")
+    _check_unpack_dtype(flat, "halo unpack: flat", flat.dtype)
     R = flat.shape[0]
     flat = _rows(flat, total, "halo unpack: flat")
     return _unpack(R, n, flat.device, with_max, [flat] * NDIR,

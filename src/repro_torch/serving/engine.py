@@ -27,7 +27,16 @@ Differences from the reference, neither visible in the tokens:
     request's state: for mamba, its last 3 conv inputs and its SSM
     state);
   * the decode step updates the cache in place (the reference donates
-    it to a jitted step).
+    it to a jitted step). On a CUDA device the (batch_slots, 1) decode
+    step is replayed as one CUDA graph, the counterpart of the
+    reference's jitted step (:class:`repro_torch.core.graphs.StepGraph`):
+    the first decode step runs eagerly and is the warm-up, the second is
+    captured, and every later step copies the tokens and positions into
+    the graph's static buffers and replays it. The graph reads the
+    weights and reads and writes the cache at their addresses, which
+    prefill, eager, writes between replays. Prefill stays eager: its
+    shapes change with every length group. On the CPU the decode step
+    runs eagerly.
 
 ST-routed decode (``st_mode`` "st" / "host" / "fused") is not ported
 yet: ROADMAP Queue 1 item 8b.
@@ -48,6 +57,7 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import graphs
 from repro_torch.core.compat import resolve_device
 from repro_torch.models import cache_specs
 from repro_torch.models.params import zeros_from_specs
@@ -95,6 +105,11 @@ class ServingEngine:
         self._prefill_sample = make_prefill_sample_step(
             cfg, max_len=max_len, moe_impl=moe_impl)
         self._decode_sample = make_decode_sample_step(cfg, moe_impl=moe_impl)
+        if graphs.applies(self.device):
+            # (params, batch, cache): the batch is copied, the rest held
+            self._decode_sample = graphs.StepGraph(
+                self._decode_sample, f"the {cfg.name} decode step",
+                copied=(1,))
         specs = cache_specs(cfg, batch_slots, max_len)
         self.cache = zeros_from_specs(specs, self.device)
         # per layer, the cache leaves without a sequence axis: a
@@ -204,18 +219,28 @@ class ServingEngine:
         active = self._active()
         if not active:
             return 0
-        toks = np.zeros((self.B, 1), np.int32)
-        for i in active:
-            toks[i, 0] = self.slot_req[i].out_tokens[-1]
-        batch = {"tokens": torch.as_tensor(toks, device=self.device),
-                 "positions": torch.as_tensor(self.slot_pos[:, None],
-                                              device=self.device)}
+        batch = self._decode_batch(active)
         t0 = time.perf_counter()
         ids, self.cache = self._decode_sample(self.params, batch,
                                                  self.cache)
         ids_np = ids.cpu().numpy()
         self.decode_seconds += time.perf_counter() - t0
         self.decode_steps += 1
+        self._record_decode(active, ids_np)
+        return len(active)
+
+    def _decode_batch(self, active):
+        """The (B, 1) decode batch: each active slot's last token at its
+        position (idle slots decode token 0 and are ignored)."""
+        toks = np.zeros((self.B, 1), np.int32)
+        for i in active:
+            toks[i, 0] = self.slot_req[i].out_tokens[-1]
+        return {"tokens": torch.as_tensor(toks, device=self.device),
+                "positions": torch.as_tensor(self.slot_pos[:, None],
+                                             device=self.device)}
+
+    def _record_decode(self, active, ids_np):
+        """Append each active slot's new token; recycle finished slots."""
         for i in active:
             req = self.slot_req[i]
             nxt = int(ids_np[i])
@@ -229,7 +254,6 @@ class ServingEngine:
                 req.done_at = time.monotonic()
                 self.completed.append(req)
                 self.slot_req[i] = None
-        return len(active)
 
     def run_until_drained(self, max_steps: int = 10_000):
         steps = 0

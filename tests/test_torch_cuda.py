@@ -72,12 +72,8 @@ def test_halo_kernels_equal_plain_versions(dev, n, R, dtype):
         assert torch.equal(a, b) and a.dtype == dtype
     flat = halo_pack(field)
     assert torch.equal(flat, ref.halo_pack_ref(field)) and flat.dtype == dtype
-    if dtype != torch.float32:
-        with pytest.raises(TypeError, match="float32"):
-            halo_unpack(flat, n)                # the unpack adds, in float32
-        assert _build.LAUNCHES["halo_pack"] == 2
-        return
-    recv = torch.randn(flat.shape, generator=gen, device=dev)
+    # the unpack adds in the surfaces' dtype, as the plain version
+    recv = _pack_field(gen, flat.shape, dtype, dev)
     assert torch.equal(halo_unpack(recv, n), ref.halo_unpack_ref(recv, n))
     parts = [p.contiguous() for p in
              torch.split(recv, [p.shape[1] for p in
@@ -105,6 +101,58 @@ def test_halo_pack_off_16_byte_alignment(dev, dtype):
     assert torch.equal(flat, ref.halo_pack_ref(field))
     for a, b in zip(halo_pack_split(field), ref.halo_pack_split_ref(field)):
         assert torch.equal(a, b)
+
+
+UNPACK_DTYPES = [torch.float32, torch.bfloat16, torch.float16,
+                 torch.float64, torch.int32, torch.int64]
+
+
+def _unpack_recv(gen, shape, dtype, dev):
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    # large enough that the 7 adds of a corner cell wrap
+    return torch.randint(-1 << 30, 1 << 30, shape, generator=gen,
+                         device=dev, dtype=dtype) << (
+        32 if dtype == torch.int64 else 0)
+
+
+@pytest.mark.parametrize("dtype", UNPACK_DTYPES, ids=str)
+@pytest.mark.parametrize("n", [(1, 3, 2), (6, 5, 3), (6, 5, 4), (16, 8, 8),
+                               (64, 64, 64)])
+def test_halo_unpack_in_each_dtype_equals_the_plain_version(dev, n, dtype):
+    """The unpack in every dtype it takes, split and flat, bit for bit
+    the plain version (each add rounded to the dtype in DIRECTIONS order,
+    integers wrapping); with the per-rank max in the accumulator's dtype
+    for a float, a NaN propagated to its rank; an integer max refused, as
+    the plain norm refuses it."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    R = 5
+    total = halo.offsets_of(n)[1]
+    flat = _unpack_recv(gen, (R, total), dtype, dev)
+    sizes = [halo.surface_size(n, d) for d in halo.DIRECTIONS]
+    parts = [p.contiguous() for p in torch.split(flat, sizes, dim=1)]
+    want = ref.halo_unpack_ref(flat, n)
+    _build.reset_launches()
+    for got in (halo_unpack(flat, n), halo_unpack_split(parts, n)):
+        assert got.dtype == dtype and torch.equal(got, want)
+    assert _build.LAUNCHES["halo_unpack"] == 2
+    if not dtype.is_floating_point:
+        with pytest.raises(TypeError, match="with_max"):
+            halo_unpack(flat, n, with_max=True)
+        with pytest.raises(RuntimeError):
+            _max_abs(want)                  # the plain version refuses too
+        return
+    parts[7] = parts[7].clone()
+    parts[7][2, -1] = float("nan")
+    want = ref.halo_unpack_split_ref(parts, n)
+    for got, m in (halo_unpack_split(parts, n, with_max=True),
+                   halo_unpack(torch.cat(parts, dim=1), n, with_max=True)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True)
+        assert m.dtype == dtype
+        torch.testing.assert_close(m, _max_abs(want), rtol=0, atol=0,
+                                   equal_nan=True)
+        assert bool(m[2].isnan()) and not m[[0, 1, 3, 4]].isnan().any()
 
 
 def test_halo_unpack_takes_rank_strided_surfaces(dev):
@@ -281,6 +329,88 @@ def test_faces_on_the_card_equals_the_cpu(dev, mode, merged, sched):
     cpu, gpu = outs["cpu"], outs[str(dev)]
     for k in cpu:
         assert torch.equal(cpu[k], gpu[k].cpu()), k
+
+
+# the parity configurations: st and fused replay CUDA graphs
+GRAPH_CASES = [("st", True, {}), ("st", False, {}), ("fused", True, {}),
+               ("st", True, PACK), ("fused", True, PACK),
+               ("st", True, dict(PACK, chunk_bytes=32)),
+               ("fused", True, dict(PACK, chunk_bytes=32)),
+               ("fused", True, dict(nstreams=2))]
+
+
+@pytest.mark.parametrize("mode,merged,sched", GRAPH_CASES,
+                         ids=lambda v: "-".join(map(str, v))
+                         if isinstance(v, dict) else None)
+def test_faces_graphs_equal_the_eager_emission_and_host_mode(dev, mode,
+                                                             merged, sched):
+    """st and fused replay their program's CUDA graphs: bit for bit the
+    eager emission of the same program and host mode (eager); a second
+    synchronize replays (no recapture) under sync-debug "error" and
+    leaves the first result's tensors unchanged; per program one graph
+    in st, one per planned segment in fused."""
+    from repro_torch.core import host_dispatch_count
+    from repro_torch.core.backends import _emit_st
+    from repro_torch.core.engine import _emit_fused
+    src0 = np.random.RandomState(1).rand(8, 4, 3, 5).astype(np.float32)
+    nodes = 4 if sched.get("pack") else None
+    opts = dict(merged=merged, **sched)
+
+    def stream_state():
+        stream = STStream(dev, ("x", "y", "z"), grid_shape=(2, 2, 2))
+        halo.build_faces_program(stream, (4, 3, 5), 3, merged=merged,
+                                 ranks_per_node=nodes)
+        state = stream.allocate()
+        state["faces.src"] = torch.from_numpy(src0).to(dev)
+        return stream, state
+    stream, state = stream_state()
+    first = stream.synchronize(state, mode=mode, **opts)
+    kept = {k: v.clone() for k, v in first.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = stream.synchronize(state, mode=mode, **opts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cache = (stream._fused_cache if mode == "fused"
+             else stream._compiled_cache)
+    g, = cache.values()
+    prog, = stream.scheduled_programs(fused=mode == "fused", **opts)
+    assert len(g.chain) == (host_dispatch_count(prog) if mode == "fused"
+                            else 1)
+    emit = _emit_fused if mode == "fused" else _emit_st
+    eager = emit(stream, prog, state)
+    host_stream, host_state = stream_state()
+    host = host_stream.synchronize(host_state, mode="host",
+                                   **{k: v for k, v in opts.items()
+                                      if k != "nstreams"})
+    for k in first:
+        assert torch.equal(first[k], kept[k]), k
+        assert torch.equal(second[k], first[k]), k
+        assert torch.equal(eager[k], first[k]), k
+        assert torch.equal(host[k], first[k]), k
+
+
+def test_faces_graph_launch_counts_and_freed_graphs(dev):
+    """The replay accounting on the card: a synchronize adds each Faces
+    kernel's launches once per iteration, as the eager emission; a
+    stream's graphs are dropped by clear_graphs."""
+    from repro_torch.core.backends import _emit_st
+    stream = STStream(dev, ("x", "y", "z"), grid_shape=(2, 2, 2))
+    halo.build_faces_program(stream, (4, 4, 4), 3)
+    state = stream.allocate()
+    prog, = stream.scheduled_programs()
+    _build.reset_launches()
+    _emit_st(stream, prog, state)
+    once = dict(_build.LAUNCHES)
+    stream.synchronize(state)                   # warm-up, capture, replay
+    _build.reset_launches()
+    for _ in range(2):
+        stream.synchronize(state)
+    assert _build.LAUNCHES == {k: 2 * v for k, v in once.items()}
+    assert once["put_signal"] == 26 * 3 and once["halo_unpack"] == 3
+    stream.clear_graphs()
+    assert not stream._compiled_cache
 
 
 # ---------------------------------------------------------------------------
@@ -882,3 +1012,59 @@ def test_jamba_engine_on_the_card_equals_the_cpu_and_launches_the_kernels(
             assert _build.LAUNCHES["decode_attention"] == \
                 n_attn * eng.decode_steps
     assert tokens[str(dev)] == tokens["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# the decode step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _graph_vs_eager_decode(eng, prompts, steps=8):
+    """Admit ``prompts``; then per step replay the decode graph, put the
+    cache back and run the eager step on the same batch: the ids and the
+    cache must be equal."""
+    from repro_torch.core.graphs import StepGraph
+    from repro_torch.serving import Request
+    g = eng._decode_sample
+    assert isinstance(g, StepGraph)
+    for p in prompts:
+        eng.submit(Request(prompt=p, max_new_tokens=steps + 4))
+    eng.step()                          # admission + the eager warm-up
+    eng.step()                          # capture + replay
+    assert g.captures == 1
+    leaves = [t for layer in eng.cache["layers"] for t in layer.values()]
+    for _ in range(steps):
+        active = eng._active()
+        batch = eng._decode_batch(active)
+        saved = [t.clone() for t in leaves]
+        ids_g = g(eng.params, batch, eng.cache)[0].cpu()
+        after = [t.clone() for t in leaves]
+        for t, v in zip(leaves, saved):
+            t.copy_(v)
+        ids_e = g.fn(eng.params, batch, eng.cache)[0].cpu()
+        assert torch.equal(ids_g, ids_e)
+        for a, b in zip(after, leaves):
+            assert torch.equal(a, b)
+        eng._record_decode(active, ids_e.numpy())
+    assert g.captures == 1
+
+
+@pytest.mark.parametrize("arch,moe_impl", [
+    ("granite-3-2b", "dense"), ("rwkv6-1.6b", "dense"),
+    ("jamba-1.5-large-398b", "dense"), ("jamba-1.5-large-398b", "gshard")])
+def test_decode_graph_equals_eager_decode(dev, arch, moe_impl):
+    """Each reduced model's decode step replayed from its CUDA graph
+    gives the eager step's ids and cache bit for bit, 8 steps on the same
+    engine state, in bf16 (the served dtype); the gshard MoE, whose
+    capacity comes from shapes, captures too."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.serving import ServingEngine
+    cfg = get_config(arch).reduced()
+    params = init_params(model_specs(cfg), torch.Generator(
+        device=dev).manual_seed(0), dev, torch.bfloat16)
+    eng = ServingEngine(dataclasses.replace(cfg), params, batch_slots=4,
+                        max_len=64, moe_impl=moe_impl, device=dev)
+    rng = np.random.RandomState(2)
+    _graph_vs_eager_decode(eng, [rng.randint(1, cfg.vocab_size, L)
+                                 .astype(np.int32) for L in (5, 9, 5, 12)])

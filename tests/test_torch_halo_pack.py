@@ -64,7 +64,7 @@ def test_pack_unpack_match_pallas_per_rank(n, dtype, rng):
         assert want.dtype == jdt
         np.testing.assert_array_equal(flat[r], np.asarray(want).view(nbits))
     if dtype != "float32":
-        return                                  # the unpack adds, in float32
+        return              # the unpack's other dtypes: the test below
     # unpack a received buffer that is NOT a packed field, so every
     # surface carries independent values into the shared cells
     recv = rng.standard_normal(flat.shape).astype(np.float32)
@@ -74,6 +74,39 @@ def test_pack_unpack_match_pallas_per_rank(n, dtype, rng):
         want = np.asarray(jax_halo_unpack(jnp.asarray(recv[r]), n,
                                           interpret=True))
         np.testing.assert_array_equal(acc[r], want)
+
+
+UNPACK_DTYPES = {"bfloat16": (torch.bfloat16, jnp.bfloat16),
+                 "float16": (torch.float16, jnp.float16),
+                 "int32": (torch.int32, jnp.int32)}
+
+
+@pytest.mark.parametrize("dtype", list(UNPACK_DTYPES))
+@pytest.mark.parametrize("n", [(4, 4, 4), (6, 5, 4), (8, 8, 8)])
+def test_unpack_in_each_dtype_matches_pallas_per_rank(n, dtype, rng):
+    """``halo_unpack_fwd`` accumulates in its input's dtype, each add
+    rounded to it; so does the plain unpack (the card's kernel is held to
+    the plain version in tests/test_torch_cuda.py): bit for bit, integers
+    wrapping alike."""
+    tdt, jdt = UNPACK_DTYPES[dtype]
+    total = offsets_of(n)[1]
+    if dtype == "int32":
+        recv = torch.from_numpy(
+            rng.randint(-1 << 30, 1 << 30, (R, total)).astype(np.int32))
+    else:
+        recv = torch.from_numpy(
+            rng.standard_normal((R, total)).astype(np.float32)).to(tdt)
+    acc = halo_unpack(recv, n)
+    assert acc.dtype == tdt and tuple(acc.shape) == (R,) + n
+    tbits, nbits = BITS[acc.element_size()]
+    for r in range(R):
+        want = jax_halo_unpack(
+            jnp.asarray(recv[r].view(tbits).numpy().view(nbits)).view(jdt)
+            if dtype != "int32" else jnp.asarray(recv[r].numpy()),
+            n, interpret=True)
+        assert want.dtype == jdt
+        np.testing.assert_array_equal(acc[r].view(tbits).numpy(),
+                                      np.asarray(want).view(nbits))
 
 
 @pytest.mark.parametrize("n", [(4, 4, 4), (6, 5, 4)])
@@ -142,14 +175,19 @@ def test_cpu_wrappers_launch_no_kernel(rng):
 
 
 class _FakeLaunch:
-    """The kernel library as the pack wrapper calls it: records each
-    launch's arguments and reports success."""
+    """The kernel library as the pack and unpack wrappers call it:
+    records each launch's arguments and reports success."""
 
     def __init__(self):
         self.calls = []
+        self.unpacks = []
 
     def halo_pack_launch(self, *args):
         self.calls.append(args)
+        return 0
+
+    def halo_unpack_launch(self, *args):
+        self.unpacks.append(args)
         return 0
 
 
@@ -158,9 +196,12 @@ class _FakeLaunch:
 def test_cuda_pack_wrapper_takes_any_element_size(monkeypatch, dtype):
     """On the card's route the pack wrapper refuses no 2-, 4- or 8-byte
     dtype: it hands the kernel the element size (the kernel copies bytes)
-    and returns the field's dtype. The launch is faked and the device
-    check bypassed, so this runs without a card, on meta tensors; the
-    unpack, which adds, still takes float32 only."""
+    and returns the field's dtype. The unpack, which adds, takes the
+    dtypes the plain version adds: it hands the kernel the surfaces'
+    dtype code and returns an accumulator (and, for a float, a per-rank
+    max) of that dtype; uint8 and an integer ``with_max`` (the plain
+    norm refuses it) stay refused. The launch is faked and the device
+    check bypassed, so this runs without a card, on meta tensors."""
     lib = _FakeLaunch()
     monkeypatch.setattr(ops, "_check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(ops._build, "load", lambda name: lib)
@@ -180,11 +221,31 @@ def test_cuda_pack_wrapper_takes_any_element_size(monkeypatch, dtype):
     assert _build.LAUNCHES["halo_pack"] == 2
     with pytest.raises(TypeError, match="2, 4 or 8 bytes"):
         halo_pack(torch.zeros((2,) + n, dtype=torch.uint8, device="meta"))
-    with pytest.raises(TypeError, match="float32"):
-        halo_unpack(torch.zeros((2, total), dtype=dtype, device="meta"), n)
-    with pytest.raises(TypeError, match="float32"):
-        halo_unpack_split([p.to(dtype) for p in parts], n)
+    acc = halo_unpack(flat, n)
+    acc2 = halo_unpack_split(parts, n)
+    for a in (acc, acc2):
+        assert a.dtype == dtype and tuple(a.shape) == (2,) + n
+    # (acc, dtype code, R, nx, ny, nz, ptrs, strides, rank max, stream)
+    code = ops.UNPACK_DTYPES[dtype]
+    assert [c[1:6] for c in lib.unpacks] == [(code, 2) + n] * 2
+    assert [c[8] for c in lib.unpacks] == [None] * 2
+    assert _build.LAUNCHES["halo_unpack"] == 2
+    if dtype.is_floating_point:
+        acc, res = halo_unpack_split(parts, n, with_max=True)
+        assert res.dtype == dtype and tuple(res.shape) == (2, 1)
+        assert lib.unpacks[-1][8] is not None
+    else:
+        with pytest.raises(TypeError, match="with_max"):
+            halo_unpack(flat, n, with_max=True)
+        with pytest.raises(TypeError, match="with_max"):
+            halo_unpack_split(parts, n, with_max=True)
+    with pytest.raises(TypeError, match="int64"):
+        halo_unpack(torch.zeros((2, total), dtype=torch.uint8,
+                                device="meta"), n)
+    with pytest.raises(TypeError, match="one dtype"):
+        halo_unpack_split([parts[0].float()] + list(parts[1:]), n)
     assert len(lib.calls) == 2
+    assert len(lib.unpacks) == 2 + dtype.is_floating_point
     _build.reset_launches()
 
 
