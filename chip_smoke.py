@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's four main paths and the eight hand-written CUDA
-kernels they run: the Faces 26-neighbour halo exchange through
+Drives the port's main paths and the eight hand-written CUDA kernels
+they run: the Faces 26-neighbour halo exchange through
 ``repro_torch``'s ST, host and fused executors (merged halo pack, merged
 halo unpack with the per-rank max, counter bump, and the put that
 carries its completion signal), granite-3-2b at full width served by the
@@ -10,7 +10,9 @@ port's continuous-batching engine (flash attention for prefill,
 flash-decode), rwkv6-1.6b at full width served by the same engine (the
 WKV6 recurrence), and jamba-1.5-large-398b at full width cut to 4
 layers served by the same engine (the Mamba selective scan, flash
-attention and flash-decode).
+attention and flash-decode); granite and jamba also with ST-routed
+decode, each decode step's collectives on the serve program through the
+ST, host and fused executors (put_signal and the counter bump).
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
@@ -30,7 +32,9 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  with and without the per-rank max and with a NaN in one
                  surface, and in bf16, int32 and float64 at each n
                  (split and flat; the max in the float types, an integer
-                 max refused, as the plain norm refuses it);
+                 max refused, as the plain norm refuses it); the pack in
+                 uint8 and int8 and the unpack in uint8, int8 and int16
+                 (wrapping adds) at (64,64,64) and (6,5,3);
                  put_signal (gather, and the zero-filled scatter
                  of a non-periodic grid; float32, bf16 and int32; rows of
                  1, 3, 64 and 4096 elements, each also one element off a
@@ -129,6 +133,27 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  bound, plain version, and SDPA on the valid keys as the
                  yardstick; flash-decode's split count; the kernel, SDPA
                  and bound at jamba's attention shapes too);
+  6b. st      — ST-routed decode: ``st_router``, the decode router alone
+                 at 4 virtual ranks with MoE dispatch at granite's and
+                 jamba's payload widths in st, host and fused mode (the
+                 committed ids and KV rows equal the staged ones, the
+                 hidden block the host's float32 sum in the reference's
+                 order, bit for bit); then one ``st_serve`` line per
+                 engine on granite's weights and 16 requests: a baseline
+                 engine, then st, host and fused with st_config "auto"
+                 (tuned afresh: the tuned cache is a file under
+                 ``chiprun_out/`` removed first) at 4 ranks, each warmed
+                 up through every slot bucket: served tokens equal to
+                 the baseline's bit for bit, decode ms per step (counted
+                 run and steady) and the router's host ms per step,
+                 tokens/s, device busy/idle, ops and host calls per step
+                 (profiler), exactly 2 put_signal and 1 counter_bump
+                 launches per decode step (host: 3 counter_bump), the
+                 model's kernels launched as in phase 6, and per slot
+                 bucket the tuned label, dispatches, descriptors,
+                 program graphs and tuning seconds; ``st_traffic``: 16
+                 Poisson requests at 20/s over granite's st engine
+                 (latency and TTFT p50/p99);
   7. replay   — the served tokens replayed teacher-forced (prompts of
                  one length prefilled together, as the engine's length
                  groups) through the kernel path and the plain path on
@@ -168,6 +193,9 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  and 3 mamba_scan in every decode step; its prefill
                  profiled at 4 x 1000; the mamba_scan kernels-line row
                  (with at_b1, as wkv6's);
+                 ``st_serve`` as in phase 6b (baseline and st; 5
+                 put_signal launches per decode step: the KV row, the
+                 ids and the hidden block on three shifts);
                  the bf16 replay of phase 7 with every scan launch held
                  to the plain version (its float32 copy, 92 GB, does not
                  fit); then phase 7 in bf16 and float32 on a no-expert
@@ -526,6 +554,11 @@ PACK_DTYPES = (torch.bfloat16, torch.int32)
 # the unpack's other dtypes, at every UNPACK_SHAPES: it adds in the
 # surfaces' dtype, each add rounded to it, as the plain version
 UNPACK_DTYPES = (torch.bfloat16, torch.int32, torch.float64)
+# the 1- and 2-byte integers, at these blocks: the pack in SMALL_PACK
+# (1-byte moves), the unpack in SMALL_UNPACK (adds that wrap)
+SMALL_SHAPES = (N_FULL, (6, 5, 3))
+SMALL_PACK = (torch.uint8, torch.int8)
+SMALL_UNPACK = (torch.uint8, torch.int8, torch.int16)
 
 
 def nan_equal(a, b):
@@ -605,6 +638,23 @@ def phase_kernels(dev, core, hp, hp_ref, cb, R=64):
           "unpack_dtypes": [str(d) for d in UNPACK_DTYPES],
           "unpack": "equal, split and flat, with the max where a float",
           "integer_with_max": "refused, as the plain norm refuses it"})
+    # 1- and 2-byte integers over their whole range (the unpack's adds
+    # wrap, as torch's do)
+    for n in SMALL_SHAPES:
+        for dtype in SMALL_PACK:
+            field = int_draw(gen, dev, (R,) + n, dtype)
+            want = hp_ref.halo_pack_split_ref(field)
+            split, flat = hp.halo_pack_split(field), hp.halo_pack(field)
+            check(all(torch.equal(a, b) for a, b in zip(split, want))
+                  and torch.equal(flat, torch.cat(want, dim=1))
+                  and flat.dtype == dtype,
+                  f"halo pack != plain pack in {dtype} at n={n}")
+        errs["halo_unpack"] = max(errs["halo_unpack"], unpack_dtypes(
+            hp, hp_ref, max_abs, gen, dev, R, n, SMALL_UNPACK))
+    emit({"phase": "kernels", "n": [list(n) for n in SMALL_SHAPES], "R": R,
+          "pack_dtypes": [str(d) for d in SMALL_PACK], "pack": "equal",
+          "unpack_dtypes": [str(d) for d in SMALL_UNPACK],
+          "unpack": "equal, split and flat, wrapping; with_max refused"})
     sig = torch.randint(0, 1 << 20, (R, 26), generator=gen, device=dev,
                         dtype=torch.int32)
     upd = torch.randint(0, 3, (R, 26), generator=gen, device=dev,
@@ -646,20 +696,29 @@ def phase_kernels(dev, core, hp, hp_ref, cb, R=64):
     return errs
 
 
-def unpack_dtypes(hp, hp_ref, max_abs, gen, dev, R, n):
-    """The unpack in each of UNPACK_DTYPES at block ``n``, split and flat,
+def int_draw(gen, dev, shape, dtype):
+    """Uniform integers of ``dtype``: its whole range for 1 and 2 bytes,
+    [-2^30, 2^30) for wider ones."""
+    info = torch.iinfo(dtype)
+    lo, hi = ((info.min, info.max + 1) if info.bits <= 16
+              else (-1 << 30, 1 << 30))
+    return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                         dtype=dtype)
+
+
+def unpack_dtypes(hp, hp_ref, max_abs, gen, dev, R, n, dtypes=UNPACK_DTYPES):
+    """The unpack in each of ``dtypes`` at block ``n``, split and flat,
     with and (floats) without the per-rank max, bit for bit against the
     plain version on the same surfaces; an integer ``with_max`` must be
     refused. Returns the largest difference seen (0.0)."""
     err = 0.0
     sizes, _, total = hp._geometry(tuple(n))
-    for dtype in UNPACK_DTYPES:
+    for dtype in dtypes:
         if dtype.is_floating_point:
             flat = torch.randn((R, total), generator=gen, device=dev
                                ).to(dtype)
         else:
-            flat = torch.randint(-1 << 30, 1 << 30, (R, total),
-                                 generator=gen, device=dev, dtype=dtype)
+            flat = int_draw(gen, dev, (R, total), dtype)
         parts = [p.contiguous() for p in torch.split(flat, list(sizes),
                                                       dim=1)]
         want = hp_ref.halo_unpack_ref(flat, n)
@@ -1955,6 +2014,240 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
     return cfg, launches, d, groups, per, params, reqs
 
 
+# ---------------------------------------------------------------------------
+# ST-routed decode: the serve pattern through the ST, host and fused
+# executors beside the decode step
+# ---------------------------------------------------------------------------
+
+ST_RANKS = 4                    # virtual ranks of the decode collective
+ST_TUNED = os.path.join(OUT_DIR, "tuned_torch_smoke.json")
+
+
+def phase_router(dev, serving):
+    """The router alone on the card at ST_RANKS ranks with MoE dispatch,
+    at granite's and jamba's payload widths (kv_dim, d_model), 8 slots:
+    the committed ids and KV rows equal the staged payload, and the
+    combined hidden block the host's float32 sum in the reference's order
+    (h = hid; h = h + recvh_k for k = 1..R-1), bit for bit."""
+    from repro_torch.core.autotune import ScheduleConfig
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    for arch, kv_dim, d_model in (("granite-3-2b", 512, 2048),
+                                  ("jamba-1.5-large-398b", 1024, 8192)):
+        for mode in MODES:
+            router = serving["serving"].STDecodeRouter(
+                kv_dim=kv_dim, d_model=d_model, moe=True,
+                slot_cap=SERVE_SLOTS, mode=mode, config=ScheduleConfig(),
+                ndev=ST_RANKS, device=dev)
+            for A in (SERVE_SLOTS, 5):
+                kv = torch.randn(A, kv_dim, generator=gen, device=dev)
+                ids = torch.randint(0, 1 << 20, (A,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+                hid = torch.randn(A, d_model, generator=gen, device=dev
+                                  ).bfloat16()
+                tok, mirror, hmir = router.dispatch(kv, ids, hid=hid)
+                want = hid.float().cpu().numpy()
+                h = want.copy()
+                for _ in range(1, ST_RANKS):
+                    h = h + want
+                check(np.array_equal(tok, ids.cpu().numpy())
+                      and np.array_equal(mirror, kv.cpu().numpy())
+                      and np.array_equal(hmir, h),
+                      f"router at {arch}'s widths, {mode}, A={A}: the "
+                      "committed buffers differ from the staged payload")
+            out[f"{arch}:{mode}"] = "equal"
+            del router
+    emit({"phase": "st_router", "ranks": ST_RANKS, "slots": SERVE_SLOTS,
+          "payloads": {"granite-3-2b": [512, 2048],
+                       "jamba-1.5-large-398b": [1024, 8192]},
+          "committed_vs_staged": out})
+
+
+def phase_st_serve(dev, _build, serving, cfg, params, reqs, kernels, modes):
+    """ST-routed decode on ``cfg`` at full width, the weights and the 16
+    requests of its ``phase_serve``: a baseline engine and one engine per
+    mode of ``modes`` (st_config "auto", tuned afresh into ST_TUNED, at
+    ST_RANKS ranks), each warmed up through every slot bucket (8 one-
+    length requests finishing one after another), then the counted run
+    (the 16 requests; launches zeroed before, read after), then 8 steady
+    decode steps timed and 8 profiled. Every mode's served tokens must
+    equal the baseline's bit for bit; every put of the serve program is
+    one put_signal launch, every post signal one counter_bump (host mode:
+    plus one a put), and the model's kernels launch as in phase_serve.
+    Returns {mode: put_signal and counter_bump launches per decode
+    step}."""
+    models, eng_mod = serving["models"], serving["serving"]
+    Request = eng_mod.Request
+    mixers = [m for m, _ in cfg.layer_specs()]
+    if os.path.exists(ST_TUNED):
+        os.remove(ST_TUNED)
+    rng = np.random.RandomState(11)
+    lengths = [len(r.prompt) for r in reqs]
+    base_tokens = None
+    per_step, lines = {}, []
+    for mode in (None,) + tuple(modes):
+        eng = eng_mod.ServingEngine(
+            cfg, params, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+            st_mode=mode, st_config="auto", tuned_path=ST_TUNED,
+            st_ranks=ST_RANKS, device=dev)
+        tune = {}
+        if mode is not None:
+            router = eng._router
+            resolve = router._resolve
+
+            def timed(bucket, resolve=resolve):
+                t0 = time.perf_counter()
+                spec = resolve(bucket)
+                tune[bucket] = time.perf_counter() - t0
+                return spec
+            router._resolve = timed
+        # warm-up: every bucket's program captured, the decode step too
+        for k in range(SERVE_SLOTS):
+            eng.submit(Request(prompt=rng.randint(
+                1, cfg.vocab_size, SERVE_LENGTHS[0]).astype(np.int32),
+                max_new_tokens=2 + k))
+        eng.run_until_drained()
+        before = eng.stats()
+        run = [Request(prompt=r.prompt, max_new_tokens=SERVE_NEW)
+               for r in reqs]
+        torch.cuda.synchronize()
+        _build.reset_launches()                 # the counted main-path run
+        t0 = time.perf_counter()
+        for r in run:
+            eng.submit(r)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        st = eng.stats()
+        d = {k: st[k] - before[k] for k in (
+            "prefill_dispatches", "decode_steps", "tokens_generated",
+            "decode_seconds")}
+        tokens = [r.out_tokens for r in run]
+        if mode is None:
+            base_tokens = tokens
+        check(tokens == base_tokens, f"{cfg.name}: st_mode={mode} served "
+              "other tokens than the baseline engine")
+        steps, pre = d["decode_steps"], d["prefill_dispatches"]
+        for kind, want_per in (("prefill", pre), ("decode", steps)):
+            for k, mixer in kernels[kind].items():
+                want = mixers.count(mixer) * (
+                    pre + steps if k in kernels["prefill"]
+                    and k in kernels["decode"] else want_per)
+                check(launches[k] == want, f"{cfg.name} st_mode={mode}: "
+                      f"{launches[k]} {k} launches, want {want}")
+        line = {"phase": "st_serve", "arch": cfg.name, "st_mode": mode,
+                "ranks": ST_RANKS, "requests": len(run),
+                "tokens_equal_baseline": True,
+                "tokens_equal_serve_phase": tokens == [
+                    r.out_tokens for r in reqs],
+                "prompt_lengths": lengths, "engine_wall_s": wall,
+                "tokens_per_s": d["tokens_generated"] / wall,
+                "decode_steps": steps,
+                "decode_ms_per_step": 1e3 * d["decode_seconds"] / steps}
+        if mode is not None:
+            rst = st["st"]
+            puts = 2 + (ST_RANKS - 1 if rst["moe"] else 0)
+            want = {"put_signal": puts,
+                    "counter_bump": 1 + (puts if mode == "host" else 0)}
+            for k, n in want.items():
+                check(launches[k] == n * steps, f"{cfg.name} {mode}: "
+                      f"{launches[k]} {k} launches over {steps} decode "
+                      f"steps, want {n} a step")
+            per_step[mode] = {k: launches[k] / steps for k in want}
+            entries = eng._router._entries
+            graphs_per = {}
+            for b, e in entries.items():
+                cache = {"st": e.stream._compiled_cache,
+                         "fused": e.stream._fused_cache}.get(mode)
+                graphs_per[b] = (0 if cache is None else
+                                 sum(len(g.chain) for g in cache.values()))
+            line.update({
+                "st_dispatch_ms_per_step": 1e3 * (
+                    st["st_dispatch_seconds"]
+                    - before["st_dispatch_seconds"]) / steps,
+                "moe_dispatch": rst["moe"],
+                "launches_per_decode_step": per_step[mode],
+                "buckets": {b: {"config": m["config"],
+                                "dispatches": m["dispatches"],
+                                "descriptors": m["descriptors"],
+                                "puts": m["puts"],
+                                "segments": m.get("segments"),
+                                "program_graphs": graphs_per[b],
+                                "tune_s": tune.get(b)}
+                            for b, m in rst["buckets"].items()},
+                "tune_s": sum(tune.values())})
+        # steady decode: 8 slots at the run's first 8 lengths
+        for L in lengths[:SERVE_SLOTS]:
+            eng.submit(Request(prompt=rng.randint(1, cfg.vocab_size, L)
+                               .astype(np.int32),
+                               max_new_tokens=3 + 2 * DECODE_PROFILE_STEPS))
+        eng.step()                              # admission + one decode
+        s0 = eng.stats()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_PROFILE_STEPS):
+            eng.step()
+        step_ms = 1e3 * (time.perf_counter() - t0) / DECODE_PROFILE_STEPS
+        s1 = eng.stats()
+
+        def decode_steps():
+            for _ in range(DECODE_PROFILE_STEPS):
+                eng.step()
+        tag = cfg.name.split("-")[0]
+        prof = device_profile(decode_steps, os.path.join(
+            OUT_DIR, f"profile_st_serve_{tag}_{mode or 'baseline'}.txt"))
+        check(len(eng._active()) == SERVE_SLOTS, "a steady slot went idle")
+        eng.run_until_drained()
+        busy = (None if prof["busy_ms"] is None
+                else prof["busy_ms"] / DECODE_PROFILE_STEPS)
+        line.update({
+            "decode_ms_per_step_steady": step_ms,
+            "decode_device_busy_ms_per_step": busy,
+            "decode_device_idle_share": None if busy is None
+            else 1 - busy / step_ms,
+            "decode_device_ops_per_step": prof["device_ops"]
+            / DECODE_PROFILE_STEPS,
+            "decode_host_calls_per_step": {
+                k: v / DECODE_PROFILE_STEPS
+                for k, v in sorted(prof["host_calls"].items())}})
+        if mode is not None:
+            line["st_dispatch_ms_per_step_steady"] = 1e3 * (
+                s1["st_dispatch_seconds"] - s0["st_dispatch_seconds"]
+            ) / DECODE_PROFILE_STEPS
+        emit(line)
+        lines.append(line)
+        if mode == "st" and cfg.name == "granite-3-2b":
+            phase_traffic(eng)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return per_step
+
+
+def phase_traffic(eng):
+    """One short Poisson run over ``eng`` (granite's ST engine): 16
+    requests at 20 requests/s, prompts of 128 to 1000 tokens, 8 to 32 new
+    tokens (uniform), seed 0."""
+    from repro_torch.launch.traffic import TrafficConfig, run_traffic
+    tcfg = TrafficConfig(requests=16, rate=20.0, replicas=1,
+                         batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                         prompt_len=(SERVE_LENGTHS[0], SERVE_LENGTHS[-1]),
+                         max_new=(8, SERVE_NEW), seed=0,
+                         arch=eng.cfg.name, st_mode=eng.st_mode,
+                         st_ranks=ST_RANKS)
+    s = run_traffic(tcfg, engines=[eng])
+    check(s["queue_drained"] and s["completed"] == tcfg.requests,
+          "the traffic run did not drain")
+    emit({"phase": "st_traffic", "arch": eng.cfg.name,
+          "st_mode": eng.st_mode, "requests": s["requests"],
+          "rate_per_s": tcfg.rate, "slots": SERVE_SLOTS,
+          "wall_s": s["wall_s"], "tokens": s["tokens"],
+          "tokens_per_s": s["tokens_per_s"],
+          "latency_p50_ms": s["latency_p50_ms"],
+          "latency_p99_ms": s["latency_p99_ms"],
+          "ttft_p50_ms": s["ttft_p50_ms"], "ttft_p99_ms": s["ttft_p99_ms"]})
+
+
 def wkv6_reordered(r, k, v, logw, u, s0):
     """The plain WKV6 version with the kernel's order of the sums
     (y_t = r_t S + (sum_i r_t u k_t) v_t; S = w_t S + k_t^T v_t), in
@@ -2562,12 +2855,20 @@ def main():
     torch.cuda.empty_cache()
     serving = {"configs": cfgs, "models": models, "serving": serving_mod,
                "graphs": core.graphs}
+    granite_kernels = {"prefill": {"flash_attention": "attn"},
+                       "decode": {"decode_attention": "attn"}}
     cfg, serve_launches, counts, groups, _, params, reqs = phase_serve(
         dev, _build, serving, cfgs.get_config("granite-3-2b"),
         dict(num_layers=40, d_model=2048, num_heads=32, num_kv_heads=8,
-             d_ff=8192, vocab_size=49155),
-        {"prefill": {"flash_attention": "attn"},
-         "decode": {"decode_attention": "attn"}})
+             d_ff=8192, vocab_size=49155), granite_kernels)
+    phase_router(dev, serving)
+    st_launches = {cfg.name: phase_st_serve(
+        dev, _build, serving, cfg, params, reqs, granite_kernels, MODES)}
+    for row in kernels:             # the serve program's launches too
+        if row["name"] in ("counter_bump", "put_signal"):
+            row["st_serve_launches_per_decode_step"] = {
+                f"{cfg.name}:{m}": v[row["name"]]
+                for m, v in st_launches[cfg.name].items()}
     kernels += attention_rows(dev, *attn, cfg, serve_launches, counts,
                               groups, attn_errs)
     for row in kernels:
@@ -2597,15 +2898,22 @@ def main():
                    "mamba")
     jamba = dataclasses.replace(cfgs.get_config("jamba-1.5-large-398b"),
                                 num_layers=JAMBA_LAYERS)
+    jamba_kernels = {
+        "prefill": {"flash_attention": "attn", "mamba_scan": "mamba"},
+        "decode": {"decode_attention": "attn", "mamba_scan": "mamba"}}
     cfg, _, counts, groups, per, params, reqs = phase_serve(
         dev, _build, serving, jamba,
         dict(num_layers=JAMBA_LAYERS, d_model=8192, num_heads=64,
              num_kv_heads=8, head_dim=128, d_ff=24576, vocab_size=65536,
              moe=cfgs.MoEConfig(num_experts=16, top_k=2, expert_ff=24576),
              mamba=cfgs.MambaConfig(d_state=16, d_conv=4, expand=2)),
-        {"prefill": {"flash_attention": "attn", "mamba_scan": "mamba"},
-         "decode": {"decode_attention": "attn", "mamba_scan": "mamba"}},
-        redraw=mamba_redraw, profile_rows=JAMBA_PROFILE_ROWS)
+        jamba_kernels, redraw=mamba_redraw, profile_rows=JAMBA_PROFILE_ROWS)
+    jamba_st = phase_st_serve(dev, _build, serving, cfg, params, reqs,
+                              jamba_kernels, ("st",))
+    for row in kernels:
+        if row["name"] in ("counter_bump", "put_signal"):
+            row["st_serve_launches_per_decode_step"][f"{cfg.name}:st"] = \
+                jamba_st["st"][row["name"]]
     kernels.append(mamba_scan_row(dev, mamba_scan, mamba_scan_ref, cfg,
                                   counts, per, groups, scan_kernel_errs))
     emit(dict(kernels[-1], phase="kernel_row"))

@@ -13,9 +13,12 @@ stats) is shared.
 Built-in patterns (registered by their home modules on first use):
 
   * ``"faces"`` — 26-neighbor 3-D halo exchange (repro_torch.core.halo)
+  * ``"serve"`` — the serving decode step's KV mirror, sampled ids and
+    MoE hidden dispatch as one access epoch per generated token
+    (repro_torch.core.serve_decode)
 
-The JAX package also registers ring, a2a, broadcast and serve; the port
-adds them with their transports (ROADMAP Queue 1 items 6-8).
+The JAX package also registers ring, a2a and broadcast; the port adds
+them with their transports (ROADMAP Queue 1 items 6 and 7c).
 
 A topology owns the *direction algebra* that stage-1 lowering needs:
 which peers a window signals at post(), and which counter slot a put's
@@ -101,6 +104,23 @@ class PatternTopology:
         return link, deltas
 
 
+def ring_topology(grid_axes=("data",),
+                  ranks_per_node: Optional[int] = None) -> PatternTopology:
+    """1-D double-ended ring: send +1, receive from -1."""
+    return PatternTopology("ring", tuple(grid_axes), ((1,), (-1,)),
+                           ranks_per_node=ranks_per_node)
+
+
+def shifts_topology(n: int, grid_axes=("model",),
+                    ranks_per_node: Optional[int] = None) -> PatternTopology:
+    """All-to-all on a periodic 1-D grid: every nonzero shift 1..n-1.
+    Opposite is modular (-k == n-k) so the group is closed."""
+    return PatternTopology("shifts", tuple(grid_axes),
+                           tuple((k,) for k in range(1, n)),
+                           modular_opposite=True, grid_shape=(n,),
+                           ranks_per_node=ranks_per_node)
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
@@ -135,7 +155,7 @@ def register_pattern(name: str, *, grid_axes, default_grid, doc: str = ""):
 
 def _ensure_builtins():
     # constructors live with their transports; importing registers them
-    from repro_torch.core import halo  # noqa: F401
+    from repro_torch.core import halo, serve_decode  # noqa: F401
 
 
 def available_patterns() -> List[str]:
@@ -160,10 +180,6 @@ def build_pattern(stream, name: str, niter: int, **kw):
 # device-free programs + derived cost (shared by tests, CI, benchmarks)
 # ---------------------------------------------------------------------------
 
-_NO_TUNER = ("config= needs the schedule tuner, which is not ported yet "
-             "(ROADMAP Queue 1 item 5, the tuner)")
-
-
 def pattern_programs(name: str, niter: int, *, grid=None,
                      throttle: str = "adaptive", resources: int = 16,
                      merged: bool = True, ordered: bool = False,
@@ -172,7 +188,9 @@ def pattern_programs(name: str, niter: int, *, grid=None,
                      ranks_per_node: Optional[int] = None,
                      node_aware: bool = False, coalesce: bool = False,
                      pack: bool = False, chunk_bytes: int = 0,
-                     fused: bool = False, config=None,
+                     fused: bool = False,
+                     config=None, tuned_path: Optional[str] = None,
+                     size: Optional[str] = None,
                      **build_kw):
     """Lower+schedule a pattern on a device-free stream — the same
     constructor and passes the executors use, minus a device. ``nstreams>1``
@@ -190,26 +208,47 @@ def pattern_programs(name: str, niter: int, *, grid=None,
     (schedule.plan_segments) — the simulator then charges host dispatch
     per SEGMENT.
 
-    ``config`` (a tuned schedule config, or ``"auto"``) raises
-    ``NotImplementedError`` until the tuner is ported."""
+    ``config`` overrides the individual knobs above with a tuned
+    :class:`~repro_torch.core.autotune.ScheduleConfig` (or its dict form) —
+    including the BUILD-time knobs double_buffer and multicast. The
+    string ``"auto"`` consults the tuned cache (``tuned_path`` or
+    ``results/tuned_torch.json``) under the ``(name, grid,
+    ranks_per_node, size)`` key, autotuning on a miss; ``size`` is the
+    explicit message-size token of that key (e.g. ``"b4"``)."""
     from repro_torch.core.stream import STStream
 
-    if config is not None:
-        raise NotImplementedError(_NO_TUNER)
     p = get_pattern(name)
     grid = tuple(grid) if grid is not None else p.default_grid
+    if config is not None:
+        from repro_torch.core.autotune import resolve_config
+        cfg = resolve_config(config, name, grid=grid,
+                             ranks_per_node=ranks_per_node, size=size,
+                             path=tuned_path, **build_kw)
+        throttle, resources = cfg.throttle, cfg.resources
+        merged, ordered = cfg.merged, cfg.ordered
+        nstreams, node_aware = cfg.nstreams, cfg.node_aware
+        coalesce, pack = cfg.coalesce, cfg.pack
+        chunk_bytes = cfg.chunk_bytes
+        double_buffer = cfg.double_buffer
+        fused = cfg.fused
+        if cfg.multicast is not None:
+            build_kw = dict(build_kw, multicast=cfg.multicast)
     stream = STStream(None, p.grid_axes, grid_shape=grid)
     p.build(stream, niter, merged=merged, host_sync_every=host_sync_every,
             double_buffer=double_buffer, ranks_per_node=ranks_per_node,
             **build_kw)
-    return stream.scheduled_programs(throttle=throttle,
-                                     resources=resources,
-                                     merged=merged, ordered=ordered,
-                                     nstreams=nstreams,
-                                     node_aware=node_aware,
-                                     coalesce=coalesce, pack=pack,
-                                     chunk_bytes=chunk_bytes,
-                                     fused=fused)
+    progs = stream.scheduled_programs(throttle=throttle,
+                                      resources=resources,
+                                      merged=merged, ordered=ordered,
+                                      nstreams=nstreams,
+                                      node_aware=node_aware,
+                                      coalesce=coalesce, pack=pack,
+                                      chunk_bytes=chunk_bytes,
+                                      fused=fused)
+    if config is not None:
+        for prog in progs:
+            prog.meta["config"] = cfg.to_dict()
+    return progs
 
 
 def simulate_pattern(name: str, niter: int, *, policy: str = "adaptive",
@@ -220,7 +259,9 @@ def simulate_pattern(name: str, niter: int, *, policy: str = "adaptive",
                      ranks_per_node: Optional[int] = None,
                      node_aware: bool = False, coalesce: bool = False,
                      pack: bool = False, chunk_bytes: int = 0,
-                     fused: bool = False, config=None,
+                     fused: bool = False,
+                     config=None, tuned_path: Optional[str] = None,
+                     size: Optional[str] = None,
                      **build_kw) -> float:
     """Derived critical-path time of ``niter`` pattern iterations.
 
@@ -236,9 +277,20 @@ def simulate_pattern(name: str, niter: int, *, policy: str = "adaptive",
     one NIC injection per group); ``chunk_bytes`` splits larger off-node
     puts into pipelined chunk chains (per-chunk beta, first-chunk-only
     alpha). ``cm`` is a :class:`~repro_torch.core.throttle.CostModel`
-    (the default constants when None); ``config`` raises
-    ``NotImplementedError`` until the tuner is ported."""
+    (the default constants when None); ``cm="calibrated"`` (the JAX
+    package's measured-constants model) raises ``NotImplementedError``:
+    ``core/calibrate.py`` is not ported (ROADMAP item 3).
+
+    ``config`` overrides the schedule/build knobs with a tuned
+    :class:`~repro_torch.core.autotune.ScheduleConfig` (``"auto"``
+    consults the tuned cache — see :func:`pattern_programs`); a config
+    wins over ``policy`` for the throttle choice."""
     from repro_torch.core.throttle import simulate_pipeline
+
+    if isinstance(cm, str):
+        raise NotImplementedError(
+            f"cm={cm!r} needs core/calibrate.py, which is not ported yet "
+            "(ROADMAP item 3, the bench harness and calibration)")
 
     host_sync_every = 1 if policy == "application" else 0
     throttle = "static" if policy == "application" else policy
@@ -250,5 +302,6 @@ def simulate_pattern(name: str, niter: int, *, policy: str = "adaptive",
                              ranks_per_node=ranks_per_node,
                              node_aware=node_aware, coalesce=coalesce,
                              pack=pack, chunk_bytes=chunk_bytes,
-                             fused=fused, config=config, **build_kw)
+                             fused=fused, config=config,
+                             tuned_path=tuned_path, size=size, **build_kw)
     return simulate_pipeline(progs, cm, host_orchestrated)

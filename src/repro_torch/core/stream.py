@@ -237,11 +237,29 @@ class STStream:
         """Lower the op queue and run the schedule passes; one scheduled
         descriptor DAG per host_sync-delimited segment. Cached per
         (queue, options) so repeated synchronize calls reuse programs.
-        ``config`` (a tuned schedule config) raises NotImplementedError
-        until the tuner is ported."""
+
+        ``config`` (a :class:`repro_torch.core.autotune.ScheduleConfig`
+        or its dict form) expands into the schedule-pass knobs above
+        BEFORE the cache key is computed, so a tuned config and its
+        spelled-out kwargs share one cache entry. Build-time knobs the
+        config may carry (double_buffer, multicast) are ignored here —
+        the queue is already built; rebuild via
+        ``pattern_programs(config=...)`` to apply those. The string
+        ``"auto"`` is rejected: a raw stream does not know its (pattern,
+        topology, size) cache key — resolve it with
+        ``repro_torch.core.autotune.tuned_config`` or
+        ``pattern_programs(config="auto")`` instead."""
         if config is not None:
-            from repro_torch.core.patterns import _NO_TUNER
-            raise NotImplementedError(_NO_TUNER)
+            from repro_torch.core.autotune import ScheduleConfig
+            if isinstance(config, str):
+                raise ValueError(
+                    "scheduled_programs(config='auto') is ambiguous on a "
+                    "raw stream (no pattern/topology/size key); resolve "
+                    "it via repro_torch.core.autotune.tuned_config or "
+                    "pattern_programs(config='auto')")
+            if isinstance(config, dict):
+                config = ScheduleConfig.from_dict(config)
+            return self.scheduled_programs(**config.sched_kwargs())
         key = (tuple(op.cache_key() for op in self.program),
                throttle, resources, merged, ordered, nstreams,
                node_aware, coalesce, pack, chunk_bytes, fused)
@@ -274,7 +292,10 @@ class STStream:
         planned segment (``fused=True`` scheduling is implied). The
         returned tensors are the caller's: a later call does not change
         them. ``pack`` and ``chunk_bytes`` select packed and chunked put
-        descriptors (schedule.pack_puts / schedule.chunk_puts)."""
+        descriptors (schedule.pack_puts / schedule.chunk_puts).
+        ``config`` expands a tuned
+        :class:`~repro_torch.core.autotune.ScheduleConfig` into the
+        schedule knobs (see :meth:`scheduled_programs`)."""
         if self.device is None:
             raise ValueError("cannot execute a device-free stream "
                              "(constructed with device=None)")

@@ -37,7 +37,8 @@
 //         x-plane and the four x-y edges, runs of nz), streamed in 16-byte
 //         stores aligned on the destination, loaded 16 bytes at a time
 //         where the source's alignment matches and narrower where it does
-//         not, the ragged ends of a run 2 bytes at a time;
+//         not, the ragged ends of a run 2 bytes at a time (1 byte for
+//         1-byte elements);
 //       - end-sector blocks: one thread a row loads both end cells, then
 //         writes the z-faces (index x * ny + y: a warp's stores are
 //         coalesced) and, where x or y is on the boundary, the dz != 0
@@ -50,8 +51,9 @@
 //         there took 0.021 ms against 0.016; cold, .cs is ~6 % slower.
 //     A block's role and rank come from blockIdx ranges, its runs and rows
 //     from a multiply-high: no search, division or modulo per element.
-//     Elements of 2, 4 or 8 bytes are copied as bytes, so any dtype of
-//     those sizes packs; a pure copy, bit for bit the plain pack.
+//     Elements of 1, 2, 4 or 8 bytes are copied as bytes, so any dtype of
+//     those sizes packs (a 16-byte vector holds 16 one-byte cells); a pure
+//     copy, bit for bit the plain pack.
 //   * unpack: one launch that writes every cell of the accumulator exactly
 //     once, in full 16-byte stores along z. The accumulator is ~95% interior
 //     zeros at n = 64^3 and does not stay in the 50 MB L2, so a zero fill
@@ -76,11 +78,12 @@
 //     when nz % W != 0 the rows do not start on 16-byte boundaries and
 //     every cell takes a store of its own.
 //     The accumulator takes the surfaces' dtype, as halo_unpack_fwd's
-//     does: float32, float64, bfloat16, float16, int32 or int64. Each add
-//     is rounded to that type, in DIRECTIONS order, as the plain version's
-//     `acc[...] += buf`: a 2-byte float's sum of two values is formed in
-//     float32, where it is exact, and rounded once to nearest even (what
-//     PyTorch's add does); integers wrap. So every dtype is bit for bit
+//     does: float32, float64, bfloat16, float16, int32, int64, uint8, int8
+//     or int16. Each add is rounded to that type, in DIRECTIONS order, as
+//     the plain version's `acc[...] += buf`: a 2-byte float's sum of two
+//     values is formed in float32, where it is exact, and rounded once to
+//     nearest even (what PyTorch's add does); integers of every width wrap,
+//     as PyTorch's do. So every dtype is bit for bit
 //     the plain unpack. Nothing else depends on the type.
 //   * unpack with the per-rank max|acc| (Faces' merged unpack+compare, paper
 //     §5.4): the same pass reduces the stored values' |bits| per warp and
@@ -202,10 +205,19 @@ __device__ __forceinline__ void run_at(const Pack& p, int q, int j, int& k,
   }
 }
 
-// 16 bytes from s, in the widest loads its alignment allows (s is even:
-// elements are 2, 4 or 8 bytes).
+// 16 bytes from s, in the widest loads its alignment allows (s is odd
+// only for 1-byte elements).
 __device__ __forceinline__ uint4 load16(const char* s) {
   const unsigned m = (unsigned)(uintptr_t)s & 15u;
+  if (m & 1) {
+    const unsigned char* q = reinterpret_cast<const unsigned char*>(s);
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = (unsigned)q[4 * i] | ((unsigned)q[4 * i + 1] << 8) |
+             ((unsigned)q[4 * i + 2] << 16) | ((unsigned)q[4 * i + 3] << 24);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
   if (m == 0) return *reinterpret_cast<const uint4*>(s);
   if ((m & 7) == 0) {
     const uint2* q = reinterpret_cast<const uint2*>(s);
@@ -228,7 +240,7 @@ __device__ __forceinline__ uint4 load16(const char* s) {
 // u / slots; chunk c of a run whose destination starts at byte d covers
 // destination bytes [a + 16c, a + 16c + 16) of the run, a = d rounded down
 // to 16. A whole chunk is one 16-byte store; a chunk the run's ends cut
-// (at most two a run) is copied 2 bytes at a time.
+// (at most two a run) is copied 2 bytes at a time (1 for 1-byte elements).
 __device__ __forceinline__ void copy_runs(const char* src, const Pack& p,
                                           const Surfaces& s, int q,
                                           long long r, int b, int es) {
@@ -254,6 +266,12 @@ __device__ __forceinline__ void copy_runs(const char* src, const Pack& p,
     if (lo >= d && lo + 16 <= end) {
       v[i] = load16(from + (lo - d));
       to[i] = lo;
+    } else if (es == 1) {
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        char* a = lo + t;
+        if (a >= d && a < end) *a = from[a - d];
+      }
     } else {
 #pragma unroll
       for (int t = 0; t < 16; t += 2) {
@@ -397,6 +415,19 @@ template <> struct Elem<int> {
   }
   __device__ static Bits bits(int v) { return (Bits)v; }
 };
+// 1- and 2-byte integers: added as unsigned values of their width, so
+// the sum wraps.
+template <typename T, typename U> struct SmallInt {
+  using Bits = U;
+  static constexpr bool kFloat = false;
+  static constexpr Bits kAbs = 0;
+  __device__ static T zero() { return 0; }
+  __device__ static T add(T a, T b) { return (T)(U)((U)a + (U)b); }
+  __device__ static Bits bits(T v) { return (Bits)v; }
+};
+template <> struct Elem<uint8_t> : SmallInt<uint8_t, uint8_t> {};
+template <> struct Elem<int8_t> : SmallInt<int8_t, uint8_t> {};
+template <> struct Elem<int16_t> : SmallInt<int16_t, unsigned short> {};
 template <> struct Elem<long long> {
   using Bits = unsigned long long;
   static constexpr bool kFloat = false;
@@ -492,7 +523,12 @@ constexpr int kInteriorUnits = 4;
 template <typename T, int W>
 __device__ __forceinline__ unsigned vector_word(const T (&a)[W], int i) {
   using E = Elem<T>;
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 1) {
+    return (unsigned)E::bits(a[4 * i]) |
+           ((unsigned)E::bits(a[4 * i + 1]) << 8) |
+           ((unsigned)E::bits(a[4 * i + 2]) << 16) |
+           ((unsigned)E::bits(a[4 * i + 3]) << 24);
+  } else if constexpr (sizeof(T) == 2) {
     return (unsigned)E::bits(a[2 * i]) |
            ((unsigned)E::bits(a[2 * i + 1]) << 16);
   } else if constexpr (sizeof(T) == 4) {
@@ -709,14 +745,15 @@ cudaError_t unpack_typed(void* acc, int R, int nx, int ny, int nz,
 
 }  // namespace
 
-// src: contiguous (R, nx, ny, nz) elements of es = 2, 4 or 8 bytes;
+// src: contiguous (R, nx, ny, nz) elements of es = 1, 2, 4 or 8 bytes;
 // ptrs/strides: host arrays of 26 surface base pointers (device addresses)
 // and rank strides in elements. Every address is a multiple of es.
 extern "C" int halo_pack_launch(const void* src, int R, int nx, int ny,
                                 int nz, int es, const uint64_t* ptrs,
                                 const int64_t* strides, void* stream) {
   if (R == 0) return 0;
-  if (!shape_ok(R, nx, ny, nz) || (es != 2 && es != 4 && es != 8) ||
+  if (!shape_ok(R, nx, ny, nz) ||
+      (es != 1 && es != 2 && es != 4 && es != 8) ||
       (long long)ny * nz * es + 32 >= (1LL << 31) ||
       (long long)(2 * nx + 4) * ((long long)nz * es / 16 + 2) >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -734,6 +771,8 @@ extern "C" int halo_pack_launch(const void* src, int R, int nx, int ny,
   if (grid >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const Surfaces s = make_surfaces(ptrs, strides);
   const cudaStream_t st = (cudaStream_t)stream;
+  if (es == 1)
+    return (int)launch_pack<unsigned char>(src, p, s, (unsigned)grid, st);
   if (es == 2)
     return (int)launch_pack<unsigned short>(src, p, s, (unsigned)grid, st);
   if (es == 4)
@@ -743,7 +782,8 @@ extern "C" int halo_pack_launch(const void* src, int R, int nx, int ny,
 
 // acc: contiguous (R, nx, ny, nz) output of the surfaces' dtype, every
 // cell written once; dtype: 0 float32, 1 float64, 2 bfloat16, 3 float16,
-// 4 int32, 5 int64; rmax: NULL, or R slots of that (floating) dtype, zero
+// 4 int32, 5 int64, 6 uint8, 7 int8, 8 int16; rmax: NULL, or R slots of
+// that (floating) dtype, zero
 // on entry, that receive each rank's max |acc|.
 extern "C" int halo_unpack_launch(void* acc, int dtype, int R, int nx, int ny,
                                   int nz, const uint64_t* ptrs,
@@ -763,6 +803,10 @@ extern "C" int halo_unpack_launch(void* acc, int dtype, int R, int nx, int ny,
     case 4: return (int)unpack_typed<int>(acc, R, nx, ny, nz, s, rmax, st);
     case 5:
       return (int)unpack_typed<long long>(acc, R, nx, ny, nz, s, rmax, st);
+    case 6: return (int)unpack_typed<uint8_t>(acc, R, nx, ny, nz, s, rmax, st);
+    case 7: return (int)unpack_typed<int8_t>(acc, R, nx, ny, nz, s, rmax, st);
+    case 8:
+      return (int)unpack_typed<int16_t>(acc, R, nx, ny, nz, s, rmax, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

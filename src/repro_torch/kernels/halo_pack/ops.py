@@ -5,9 +5,10 @@ on a CUDA tensor it launches the hand-written kernel (or raises), on a
 CPU tensor it runs the plain version from :mod:`.ref`. There is no
 fallback between the two. All four forms are batched over the leading
 rank dim R and use the same two kernels. The pack is a pure copy and
-takes any dtype of 2, 4 or 8 bytes; the unpack adds in the surfaces'
-dtype (float32, float64, bfloat16, float16, int32 or int64), each add
-rounded to it in ``DIRECTIONS`` order, as the plain version:
+takes any dtype of 1, 2, 4 or 8 bytes; the unpack adds in the surfaces'
+dtype (float32, float64, bfloat16, float16, int32, int64, uint8, int8 or
+int16), each add rounded to it in ``DIRECTIONS`` order (integers wrap),
+as the plain version:
 
   * :func:`halo_pack_split` — (R, nx, ny, nz) -> 26 contiguous (R, s_d)
     send buffers, one launch (Faces' merged ``pack_all``);
@@ -62,7 +63,8 @@ def _check_cuda(t: torch.Tensor, what: str, device=None):
 
 # the unpack kernel's accumulator types, by the C entry's dtype code
 UNPACK_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
-                 torch.float16: 3, torch.int32: 4, torch.int64: 5}
+                 torch.float16: 3, torch.int32: 4, torch.int64: 5,
+                 torch.uint8: 6, torch.int8: 7, torch.int16: 8}
 
 
 def _check_unpack_dtype(t: torch.Tensor, what: str, dtype: torch.dtype):
@@ -70,7 +72,8 @@ def _check_unpack_dtype(t: torch.Tensor, what: str, dtype: torch.dtype):
     first one's."""
     if t.dtype not in UNPACK_DTYPES:
         raise TypeError(f"{what}: the kernel adds float32, float64, "
-                        f"bfloat16, float16, int32 or int64, got {t.dtype}")
+                        f"bfloat16, float16, int32, int64, uint8, int8 or "
+                        f"int16, got {t.dtype}")
     if t.dtype != dtype:
         raise TypeError(f"{what}: is {t.dtype}, the first surface "
                         f"{dtype}; the surfaces must share one dtype")
@@ -116,9 +119,9 @@ def _launch_pack(field, dst_tensors, dst_strides, dst_offsets=None):
     _check_cuda(field, "halo pack: field")
     es = field.element_size()
     # a pure copy: the kernel moves elements as bytes, whatever their type
-    if es not in (2, 4, 8):
-        raise TypeError("halo pack: the kernel takes elements of 2, 4 or 8 "
-                        f"bytes, got {field.dtype}")
+    if es not in (1, 2, 4, 8):
+        raise TypeError("halo pack: the kernel takes elements of 1, 2, 4 or "
+                        f"8 bytes, got {field.dtype}")
     if not field.is_contiguous() or field.data_ptr() % es:
         raise ValueError("halo pack: field must be contiguous and aligned "
                          "to its element size")
@@ -156,7 +159,7 @@ def _plain_unpack(acc, with_max):
 def halo_pack_split(field):
     """(R, nx, ny, nz) -> tuple of the 26 surfaces, each a new contiguous
     (R, s_d) tensor of the field's dtype, in ``DIRECTIONS`` order (on the
-    card: any dtype of 2, 4 or 8 bytes)."""
+    card: any dtype of 1, 2, 4 or 8 bytes)."""
     _check_field(field)
     if field.device.type == "cpu":
         return ref.halo_pack_split_ref(field)
@@ -171,8 +174,8 @@ def halo_pack_split(field):
 
 def halo_pack(field):
     """(R, nx, ny, nz) -> flat (R, total) merged surface buffer of the
-    field's dtype at ``offsets_of`` offsets (on the card: any dtype of 2,
-    4 or 8 bytes)."""
+    field's dtype at ``offsets_of`` offsets (on the card: any dtype of 1,
+    2, 4 or 8 bytes)."""
     _check_field(field)
     if field.device.type == "cpu":
         return ref.halo_pack_ref(field)

@@ -15,9 +15,20 @@ yet and raises). The full 72-layer jamba (398.6 B params) fits no
 single card and is not cut here: on a card its init fails with the
 allocator's out-of-memory error (chip_smoke.py serves a 4-layer cut).
 
-Params are random (seed 0), in the config's compute dtype. The
-reference's ``--st-*`` flags (ST-routed decode) are not ported yet
-(ROADMAP Queue 1 item 8b).
+Params are random (seed 0), in the config's compute dtype.
+
+``--st-mode st|host|fused`` routes the decode step's collectives
+through scheduled triggered-op programs (repro_torch.serving.st_decode),
+one cached schedule per active-slot bucket, on ``--st-ranks`` virtual
+ranks of the device; ``--st-config auto`` resolves each bucket's
+schedule from the tuned cache (``--tuned``, default
+``results/tuned_torch.json``; autotuning on a miss), ``--st-config
+default`` pins the default ScheduleConfig, and a JSON object gives one.
+rwkv6-1.6b keeps no KV rows and refuses ``--st-mode``, as the
+reference does.
+
+  python -m repro_torch.launch.serve --arch granite-3-2b --st-mode st \
+      --st-ranks 4
 """
 from __future__ import annotations
 
@@ -40,6 +51,17 @@ def main():
                     choices=["dense", "gshard", "a2a"])
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
+    ap.add_argument("--st-mode", default=None,
+                    choices=["st", "host", "fused"],
+                    help="route decode collectives through scheduled "
+                         "triggered-op programs (default: the baseline)")
+    ap.add_argument("--st-config", default="auto",
+                    help="'auto' (tuned cache), 'default', or a "
+                         "ScheduleConfig JSON object")
+    ap.add_argument("--tuned", default=None,
+                    help="tuned-cache path for --st-config auto")
+    ap.add_argument("--st-ranks", type=int, default=1,
+                    help="virtual ranks of the decode collective")
     args = ap.parse_args()
 
     from repro_torch.configs import get_config
@@ -54,8 +76,18 @@ def main():
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(model_specs(cfg), gen, device,
                          getattr(torch, cfg.compute_dtype))
+    st_config = args.st_config
+    if st_config == "default":
+        from repro_torch.core.autotune import ScheduleConfig
+        st_config = ScheduleConfig()
+    elif st_config != "auto":
+        import json
+        from repro_torch.core.autotune import ScheduleConfig
+        st_config = ScheduleConfig.from_dict(json.loads(st_config))
     eng = ServingEngine(cfg, params, batch_slots=args.slots,
                         max_len=args.max_len, moe_impl=args.moe_impl,
+                        st_mode=args.st_mode, st_config=st_config,
+                        tuned_path=args.tuned, st_ranks=args.st_ranks,
                         device=device)
 
     rng = np.random.RandomState(0)
@@ -76,6 +108,11 @@ def main():
           f"({new_toks/max(dt,1e-9):.1f} tok/s) on {name}")
     print(f"latency p50={np.percentile(lat,50)*1e3:.0f}ms "
           f"p99={np.percentile(lat,99)*1e3:.0f}ms")
+    if args.st_mode:
+        st = eng.stats()["st"]
+        buckets = {b: m["dispatches"] for b, m in st["buckets"].items()}
+        print(f"st decode path: mode={st['mode']} pattern={st['pattern']}"
+              f" dispatches per slot bucket {buckets}")
 
 
 if __name__ == "__main__":

@@ -38,13 +38,27 @@ Differences from the reference, neither visible in the tokens:
     shapes change with every length group. On the CPU the decode step
     runs eagerly.
 
-ST-routed decode (``st_mode`` "st" / "host" / "fused") is not ported
-yet: ROADMAP Queue 1 item 8b.
+``st_mode`` ("st", "host" or "fused") routes the decode step's
+collectives — the new KV-cache row, the sampled token ids and (for MoE
+models) the hidden block — through scheduled triggered-op programs of
+the ``"serve"`` pattern (:class:`repro_torch.serving.st_decode.
+STDecodeRouter`): one cached schedule per power-of-two active-slot
+bucket, resolved through the tuner when ``st_config="auto"``, the token
+ids committed back THROUGH the transport (bit-identical to the baseline
+by construction), program meta surfaced in :meth:`stats`. On the card
+a step is then two graphs replayed in turn, the decode step's and the
+router's program (st; fused: one per segment; host mode stays eager),
+never one captured inside the other. The reference's rank count is its
+device count; here ``st_ranks`` virtual ranks share the engine's device.
+``st_mode=None`` is the baseline.
 
 Requests carry the timestamps: ``submitted_at`` (queue entry),
 ``admitted_at`` (prefill dispatch), ``first_token_at`` (TTFT),
 ``done_at`` (completion). ``stats()`` adds the host seconds spent in
-prefill and decode dispatches, each ending when its ids reach the host.
+prefill and decode dispatches, each ending when its ids reach the host,
+and in ST mode the host seconds of the router's dispatches
+(``st_dispatch_seconds``: payload gather and staging, the program, the
+committed ids back on the host).
 """
 from __future__ import annotations
 
@@ -85,15 +99,21 @@ class ServingEngine:
     ``from_reference``) on ``device``. ``device`` defaults to CUDA and
     raises without a card; pass ``"cpu"`` for the plain path on the
     CPU. ``moe_impl`` is the MoE layers' implementation ("dense", the
-    reference engine's default, or "gshard"; "a2a" raises)."""
+    reference engine's default, or "gshard"; "a2a" raises).
+
+    ``st_mode``, ``st_config`` (``"auto"``, a ``ScheduleConfig`` or its
+    dict), ``tuned_path`` and ``ranks_per_node`` are the reference's
+    ST-routed decode arguments; ``st_ranks`` is the number of virtual
+    ranks of the decode collective (the reference's device count). A
+    model without a KV cache (rwkv) has no payload to route: ``st_mode``
+    raises ``ValueError`` there, as in the reference."""
 
     def __init__(self, cfg, params, *, batch_slots: int = 4,
                  max_len: int = 256, moe_impl: str = "dense",
-                 st_mode: Optional[str] = None, device="cuda"):
-        if st_mode is not None:
-            raise NotImplementedError(
-                f"st_mode={st_mode!r}: ST-routed decode is not ported yet "
-                "(ROADMAP Queue 1 item 8b); the baseline is st_mode=None")
+                 st_mode: Optional[str] = None, st_config="auto",
+                 tuned_path: Optional[str] = None,
+                 ranks_per_node: Optional[int] = None, st_ranks: int = 1,
+                 device="cuda"):
         self.device = resolve_device(device)
         if self.device is None:
             raise ValueError("ServingEngine needs a device ('cuda' or "
@@ -126,7 +146,44 @@ class ServingEngine:
         self.tokens_generated = 0
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
+        self.st_dispatch_seconds = 0.0
         self.st_mode = st_mode
+        self._router = None
+        if st_mode is not None:
+            from repro_torch.serving.st_decode import STDecodeRouter
+            self._kv_leaf = self._find_kv_leaf(specs)
+            self._router = STDecodeRouter(
+                kv_dim=self._kv_leaf[2], d_model=cfg.d_model,
+                moe=getattr(cfg, "moe", None) is not None,
+                slot_cap=batch_slots, mode=st_mode, config=st_config,
+                tuned_path=tuned_path, ndev=st_ranks,
+                ranks_per_node=ranks_per_node, device=self.device)
+
+    # -- ST payload extraction ------------------------------------------------
+    @staticmethod
+    def _find_kv_leaf(specs):
+        """(layer, leaf name, flattened row width) of the first KV-cache
+        leaf with a sequence axis (the first layer's ``k``, where the
+        reference's search lands too); ValueError when the model keeps
+        no KV rows (rwkv)."""
+        for i, layer in enumerate(specs["layers"]):
+            for name in sorted(layer):
+                sp = layer[name]
+                if "kv_seq" in sp.axes:
+                    width = int(np.prod(sp.shape[sp.axes.index("kv_seq")
+                                                 + 1:]))
+                    return i, name, max(width, 1)
+        raise ValueError("serving: st_mode needs a KV-cache leaf with a "
+                         "sequence axis, and this model has none")
+
+    def _extract(self, idx):
+        """(A, width) float32 on the device: the cache rows the last
+        decode step wrote, ``idx`` = (2, A) device tensor of the active
+        slots and the positions they wrote, flattened — the per-slot KV
+        payload the serve program mirrors to the replica's peers."""
+        layer, name, _ = self._kv_leaf
+        x = self.cache["layers"][layer][name]          # (B, max_len, ...)
+        return x[idx[0], idx[1]].reshape(idx.shape[1], -1).float()
 
     # -- admission ------------------------------------------------------------
     def submit(self, req: Request):
@@ -221,11 +278,26 @@ class ServingEngine:
             return 0
         batch = self._decode_batch(active)
         t0 = time.perf_counter()
-        ids, self.cache = self._decode_sample(self.params, batch,
-                                                 self.cache)
+        ids, hid, self.cache = self._decode_sample(self.params, batch,
+                                                   self.cache)
         ids_np = ids.cpu().numpy()
         self.decode_seconds += time.perf_counter() - t0
         self.decode_steps += 1
+        if self._router is not None:
+            t0 = time.perf_counter()
+            # the active slots and the rows this decode wrote (their
+            # positions advance in _record_decode), in one upload
+            idx = torch.as_tensor(np.stack([np.asarray(active, np.int64),
+                                            self.slot_pos[active]]),
+                                  device=self.device)
+            act = idx[0]
+            committed, _, _ = self._router.dispatch(
+                self._extract(idx), ids[act],
+                hid=hid[act] if self._router.moe_on else None)
+            # the transported ids are authoritative: serving reads its
+            # tokens off the committed window buffer
+            ids_np[active] = committed
+            self.st_dispatch_seconds += time.perf_counter() - t0
         self._record_decode(active, ids_np)
         return len(active)
 
@@ -264,12 +336,16 @@ class ServingEngine:
 
     # -- reporting ------------------------------------------------------------
     def stats(self) -> dict:
-        return {"batch_slots": self.B, "max_len": self.max_len,
-                "queued": len(self.queue), "active": len(self._active()),
-                "completed": len(self.completed),
-                "prefill_dispatches": self.prefill_dispatches,
-                "decode_steps": self.decode_steps,
-                "tokens_generated": self.tokens_generated,
-                "prefill_seconds": self.prefill_seconds,
-                "decode_seconds": self.decode_seconds,
-                "st_mode": self.st_mode}
+        d = {"batch_slots": self.B, "max_len": self.max_len,
+             "queued": len(self.queue), "active": len(self._active()),
+             "completed": len(self.completed),
+             "prefill_dispatches": self.prefill_dispatches,
+             "decode_steps": self.decode_steps,
+             "tokens_generated": self.tokens_generated,
+             "prefill_seconds": self.prefill_seconds,
+             "decode_seconds": self.decode_seconds,
+             "st_mode": self.st_mode}
+        if self._router is not None:
+            d["st_dispatch_seconds"] = self.st_dispatch_seconds
+            d["st"] = self._router.stats()
+        return d

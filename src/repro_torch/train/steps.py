@@ -49,16 +49,16 @@ def make_prefill_sample_step(cfg, max_len: Optional[int] = None,
 
 
 def make_decode_sample_step(cfg, moe_impl: str = "gshard"):
-    """decode_sample_step(params, batch, cache) -> (ids (B,), cache): one
-    decode step plus device-side greedy sampling. (The reference's step
-    also returns the last-position hidden block, the MoE-dispatch payload
-    of ST-routed decode, which comes with that slice: ROADMAP Queue 1
-    item 8b.) ``moe_impl`` goes to ``forward``."""
+    """decode_sample_step(params, batch, cache) -> (ids (B,), hid (B, D),
+    cache): one decode step plus device-side greedy sampling. The
+    last-position hidden block ``hid`` rides along as the MoE-dispatch
+    payload of ST-routed decode (the baseline ignores it). ``moe_impl``
+    goes to ``forward``."""
 
     def decode_sample_step(params, batch, cache):
         x, cache, _ = forward(cfg, params, batch, cache=cache,
                               moe_impl=moe_impl)
         logits = logits_from_hidden(cfg, params, x, last_only=True)
-        return _greedy_ids(cfg, logits), cache
+        return _greedy_ids(cfg, logits), x[:, -1, :], cache
 
     return decode_sample_step

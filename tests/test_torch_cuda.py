@@ -49,12 +49,17 @@ def dev():
 HALO_SHAPES = [(1, 1, 1), (1, 3, 2), (2, 1, 3), (3, 3, 1), (3, 3, 3),
                (4, 4, 4), (6, 5, 3), (6, 5, 4), (5, 7, 5), (16, 8, 4),
                (64, 64, 64)]
-PACK_DTYPES = [torch.float32, torch.bfloat16, torch.int32]
+PACK_DTYPES = [torch.float32, torch.bfloat16, torch.int32, torch.uint8,
+               torch.int8]
 
 
 def _pack_field(gen, shape, dtype, dev):
     if dtype == torch.int32:
         return torch.randint(-1 << 20, 1 << 20, shape, generator=gen,
+                             device=dev, dtype=dtype)
+    if not dtype.is_floating_point:        # a 1-byte integer's whole range
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max + 1, shape, generator=gen,
                              device=dev, dtype=dtype)
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
@@ -63,8 +68,9 @@ def _pack_field(gen, shape, dtype, dev):
 @pytest.mark.parametrize("R", [1, 5, 64])
 @pytest.mark.parametrize("n", HALO_SHAPES)
 def test_halo_kernels_equal_plain_versions(dev, n, R, dtype):
-    """The pack (a copy of any 2-, 4- or 8-byte dtype), split and flat,
-    and in float32 the unpack: bit for bit their plain versions."""
+    """The pack (a copy of any 1-, 2-, 4- or 8-byte dtype), split and
+    flat, and the unpack in the same dtype: bit for bit their plain
+    versions."""
     gen = torch.Generator(device=dev).manual_seed(0)
     field = _pack_field(gen, (R,) + n, dtype, dev)
     _build.reset_launches()
@@ -104,12 +110,17 @@ def test_halo_pack_off_16_byte_alignment(dev, dtype):
 
 
 UNPACK_DTYPES = [torch.float32, torch.bfloat16, torch.float16,
-                 torch.float64, torch.int32, torch.int64]
+                 torch.float64, torch.int32, torch.int64, torch.uint8,
+                 torch.int8, torch.int16]
 
 
 def _unpack_recv(gen, shape, dtype, dev):
     if dtype.is_floating_point:
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    info = torch.iinfo(dtype)
+    if info.bits <= 16:                    # the whole range: adds wrap
+        return torch.randint(info.min, info.max + 1, shape, generator=gen,
+                             device=dev, dtype=dtype)
     # large enough that the 7 adds of a corner cell wrap
     return torch.randint(-1 << 30, 1 << 30, shape, generator=gen,
                          device=dev, dtype=dtype) << (
@@ -1068,3 +1079,127 @@ def test_decode_graph_equals_eager_decode(dev, arch, moe_impl):
     rng = np.random.RandomState(2)
     _graph_vs_eager_decode(eng, [rng.randint(1, cfg.vocab_size, L)
                                  .astype(np.int32) for L in (5, 9, 5, 12)])
+
+
+# ---------------------------------------------------------------------------
+# ST-routed decode on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["st", "host", "fused"])
+def test_st_router_on_the_card_equals_its_cpu_route(dev, mode):
+    """The router at 4 virtual ranks with MoE dispatch, on the card and on
+    the CPU, the same payloads (bf16 KV rows and hidden blocks on the
+    card, staged as float32): the committed ids, KV rows and combined
+    hidden blocks equal bit for bit; the puts ride put_signal (st and
+    fused: with their completion signal) and every post signal a
+    counter_bump, and st and fused replay their program graphs."""
+    from repro_torch.core.autotune import ScheduleConfig
+    from repro_torch.serving import STDecodeRouter
+    cfg = ScheduleConfig(nstreams=2, double_buffer=True)
+    routers = {d: STDecodeRouter(kv_dim=512, d_model=2048, moe=True,
+                                 slot_cap=8, mode=mode, config=cfg, ndev=4,
+                                 device=d) for d in (dev, "cpu")}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    # a graph's first run warms up eagerly before its capture, so the
+    # launches are counted once buckets 8 and 1 have each run
+    for i, A in enumerate((8, 8, 1, 5, 8, 1, 8)):
+        if i == 3:
+            _build.reset_launches()
+        kv = torch.randn(A, 512, generator=gen, device=dev).bfloat16()
+        ids = torch.randint(0, 49155, (A,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        hid = torch.randn(A, 2048, generator=gen, device=dev).bfloat16()
+        got = routers[dev].dispatch(kv, ids, hid=hid)
+        want = routers["cpu"].dispatch(kv.cpu(), ids.cpu(), hid=hid.cpu())
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(got[0], ids.cpu().numpy())
+    # per epoch: kv, ids and three hidden blocks
+    assert _build.LAUNCHES["put_signal"] == 4 * 5
+    assert _build.LAUNCHES["counter_bump"] == (
+        4 * (1 + 5) if mode == "host" else 4)
+    entry = routers[dev]._entries[8]
+    cache = {"st": entry.stream._compiled_cache,
+             "fused": entry.stream._fused_cache,
+             "host": {}}[mode]
+    assert len(cache) == (0 if mode == "host" else 1)
+
+
+@pytest.mark.parametrize("mode", ["st", "fused"])
+def test_serve_program_graph_equals_its_eager_emission(dev, mode):
+    """The serve program's CUDA graph (st: one; fused: one per segment),
+    replayed under sync-debug "error", equals the eager emission of the
+    same program and leaves the first result unchanged."""
+    from repro_torch.core import get_pattern
+    from repro_torch.core.backends import _emit_st
+    from repro_torch.core.engine import _emit_fused
+    stream = STStream(dev, ("data",), grid_shape=(4,))
+    win, _ = get_pattern("serve").build(stream, 2, slots=4, kv_dim=64,
+                                        d_model=128, moe=True)
+    state = stream.allocate()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for name in ("kv", "hid"):
+        state[win.qual(name)] = torch.randn(state[win.qual(name)].shape,
+                                            generator=gen, device=dev)
+    state[win.qual("tok")] = torch.randint(
+        0, 1 << 20, state[win.qual("tok")].shape, generator=gen,
+        device=dev, dtype=torch.int32)
+    first = stream.synchronize(state, mode=mode)
+    kept = {k: v.clone() for k, v in first.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = stream.synchronize(state, mode=mode)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    prog, = stream.scheduled_programs(fused=mode == "fused")
+    eager = (_emit_fused if mode == "fused" else _emit_st)(stream, prog,
+                                                           state)
+    for k in first:
+        assert torch.equal(first[k], kept[k]), k
+        assert torch.equal(second[k], first[k]), k
+        assert torch.equal(eager[k], first[k]), k
+    # rank r commits what rank r - 1 put on the +1 shift
+    assert torch.equal(first[win.qual("outtok")],
+                       torch.roll(state[win.qual("tok")], 1, 0))
+    assert first[win.qual("step")].eq(2).all()
+
+
+@pytest.mark.parametrize("mode", ["st", "host", "fused"])
+def test_granite_st_engine_serves_its_baseline_tokens(dev, mode):
+    """A granite-shaped engine (the reduced config, bf16 weights on the
+    card, 4 slots, 4 virtual ranks): the ST engine's tokens over more
+    than 8 decode steps equal the baseline engine's on the same weights;
+    its decode step is still one graph, and the router's program ran
+    through its own graph (st, fused) beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.autotune import ScheduleConfig
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.serving import Request, ServingEngine
+    cfg = get_config("granite-3-2b").reduced()
+    params = init_params(model_specs(cfg), torch.Generator(
+        device=dev).manual_seed(0), dev, torch.bfloat16)
+    tokens, engines = {}, {}
+    for st_mode in (None, mode):
+        eng = ServingEngine(cfg, params, batch_slots=4, max_len=64,
+                            st_mode=st_mode, st_config=ScheduleConfig(),
+                            st_ranks=4, device=dev)
+        rng = np.random.RandomState(3)
+        reqs = [Request(prompt=rng.randint(1, cfg.vocab_size, L)
+                        .astype(np.int32), max_new_tokens=m)
+                for L, m in ((5, 10), (9, 12), (5, 3), (12, 10), (7, 6))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        tokens[st_mode], engines[st_mode] = [r.out_tokens for r in reqs], eng
+    eng = engines[mode]
+    assert eng.decode_steps > 8
+    assert tokens[mode] == tokens[None]
+    assert eng._decode_sample.captures == 1
+    st = eng.stats()["st"]
+    assert sum(m["dispatches"] for m in st["buckets"].values()) == \
+        eng.decode_steps
+    for b, e in eng._router._entries.items():
+        graphs = {"st": e.stream._compiled_cache,
+                  "fused": e.stream._fused_cache, "host": None}[mode]
+        assert graphs is None or len(graphs) == 1

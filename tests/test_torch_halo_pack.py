@@ -192,16 +192,19 @@ class _FakeLaunch:
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int32,
-                                   torch.float64], ids=str)
+                                   torch.float64, torch.uint8, torch.int8,
+                                   torch.int16], ids=str)
 def test_cuda_pack_wrapper_takes_any_element_size(monkeypatch, dtype):
-    """On the card's route the pack wrapper refuses no 2-, 4- or 8-byte
-    dtype: it hands the kernel the element size (the kernel copies bytes)
-    and returns the field's dtype. The unpack, which adds, takes the
-    dtypes the plain version adds: it hands the kernel the surfaces'
-    dtype code and returns an accumulator (and, for a float, a per-rank
-    max) of that dtype; uint8 and an integer ``with_max`` (the plain
-    norm refuses it) stay refused. The launch is faked and the device
-    check bypassed, so this runs without a card, on meta tensors."""
+    """On the card's route the pack wrapper refuses no 1-, 2-, 4- or
+    8-byte dtype: it hands the kernel the element size (the kernel copies
+    bytes) and returns the field's dtype. The unpack, which adds, takes
+    the dtypes the plain version adds, the 1- and 2-byte integers too: it
+    hands the kernel the surfaces' dtype code and returns an accumulator
+    (and, for a float, a per-rank max) of that dtype; a 16-byte element
+    (complex128), a bool accumulator and an integer ``with_max`` (the
+    plain norm refuses it) stay refused. The launch is faked and the
+    device check bypassed, so this runs without a card, on meta
+    tensors."""
     lib = _FakeLaunch()
     monkeypatch.setattr(ops, "_check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(ops._build, "load", lambda name: lib)
@@ -219,8 +222,9 @@ def test_cuda_pack_wrapper_takes_any_element_size(monkeypatch, dtype):
     assert [c[1:6] for c in lib.calls] == [(2,) + n + (field.element_size(),)
                                            ] * 2
     assert _build.LAUNCHES["halo_pack"] == 2
-    with pytest.raises(TypeError, match="2, 4 or 8 bytes"):
-        halo_pack(torch.zeros((2,) + n, dtype=torch.uint8, device="meta"))
+    with pytest.raises(TypeError, match="1, 2, 4 or 8 bytes"):
+        halo_pack(torch.zeros((2,) + n, dtype=torch.complex128,
+                              device="meta"))
     acc = halo_unpack(flat, n)
     acc2 = halo_unpack_split(parts, n)
     for a in (acc, acc2):
@@ -239,8 +243,8 @@ def test_cuda_pack_wrapper_takes_any_element_size(monkeypatch, dtype):
             halo_unpack(flat, n, with_max=True)
         with pytest.raises(TypeError, match="with_max"):
             halo_unpack_split(parts, n, with_max=True)
-    with pytest.raises(TypeError, match="int64"):
-        halo_unpack(torch.zeros((2, total), dtype=torch.uint8,
+    with pytest.raises(TypeError, match="int16, got torch.bool"):
+        halo_unpack(torch.zeros((2, total), dtype=torch.bool,
                                 device="meta"), n)
     with pytest.raises(TypeError, match="one dtype"):
         halo_unpack_split([parts[0].float()] + list(parts[1:]), n)

@@ -215,9 +215,14 @@ def test_sample_steps_match_jax_greedy_ids(models, variant):
         tk = np.asarray(tids, np.int32)[:, None]
         jids, jhid, jcache = jstep(jp, {"tokens": jnp.asarray(tk),
                                         "positions": jnp.asarray(p)}, jcache)
-        tids, tcache = tstep(tp, {"tokens": torch.from_numpy(tk),
-                                  "positions": torch.from_numpy(p)}, tcache)
+        tids, thid, tcache = tstep(tp, {"tokens": torch.from_numpy(tk),
+                                        "positions": torch.from_numpy(p)},
+                                   tcache)
         np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+        # the last-position hidden block, ST-routed decode's MoE payload;
+        # it attends over the bf16 caches, so the caches' tolerance
+        assert thid.shape == (B, tc.d_model)
+        _close(thid, jhid, BF16_TOL)
         # the bf16 caches after the step: float32 values equal to ~1e-7
         # may round to neighbouring bf16 values, so a bf16 tolerance
         for layer in range(tc.num_layers):

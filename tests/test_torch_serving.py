@@ -251,12 +251,6 @@ def test_submit_refuses_prompts_the_cache_cannot_hold(tiny_model):
     assert len(eng.completed[0].out_tokens) == 1    # the cache is full
 
 
-def test_st_routed_decode_is_not_ported_yet(tiny_model):
-    cfg, params = tiny_model
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        ServingEngine(cfg, params, st_mode="st", device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # recurrent state in the cache: rwkv6 and jamba
 # ---------------------------------------------------------------------------
