@@ -1,7 +1,9 @@
 """The ST communication core of the port: triggered-op IR, lowering,
 schedule passes, the ST / host / fused executors, the cost simulator,
-the schedule tuner (``core.autotune``), the Faces halo exchange and the
-serving decode transport (``core.serve_decode``)."""
+the schedule tuner (``core.autotune``), the Faces halo exchange, the
+broadcast, ring and expert-parallel a2a transports (``core.broadcast``,
+``core.ring``, ``core.ep_a2a``) and the serving decode transport
+(``core.serve_decode``)."""
 from repro_torch.core.stream import STStream, counters_expected
 from repro_torch.core.window import STWindow
 from repro_torch.core.triggered import (ResourcePool, TriggeredOp,

@@ -27,13 +27,18 @@ leading dim, so
     hand-written kernel on CUDA). A put's chained completion signal, wire
     or local, lands in the SAME launch as the put's permuted copy
     (``put_signal``): the signal's only readers are later launches on the
-    same stream, which see the payload too. Only the host-orchestrated
-    baseline (``backends.run_host``) keeps the completion a bump of its
-    own, as the MPI runtime's completion handling is.
+    same stream, which see the payload too. A multicast put (the JAX
+    package's one ``ppermute`` per branch plus the completion tree) is ONE
+    launch too (``put_multicast``): the payload read once, every branch's
+    landing buffer written, and the tree's update over all branch slots.
+    Only the host-orchestrated baseline (``backends.run_host``) keeps the
+    completion a bump of its own, as the MPI runtime's completion
+    handling is.
 
 Index tensors, masks and counter updates are device tables built once
-per direction when the stream allocates its state
-(:func:`prepare_tables`), so emission copies nothing from the host.
+per direction (and per multicast branch set) when the stream allocates
+its state (:func:`prepare_tables`), so emission copies nothing from the
+host.
 
 Nothing here writes into a tensor that a state key may alias: every
 effect rebinds the key to a new tensor (the only in-place op fills a
@@ -49,7 +54,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import graphs
-from repro_torch.kernels.counter_bump.ops import (counter_bump, put_signal,
+from repro_torch.kernels.counter_bump.ops import (counter_bump,
+                                                  put_multicast, put_signal,
                                                   rank_rows)
 from repro_torch.kernels.halo_pack.ref import (chunk_gather, chunk_scatter,
                                                pack_flat, unpack_flat)
@@ -70,6 +76,18 @@ def _perm_index(stream, direction):
         for src, dst in stream.perm_for(tuple(direction)):
             idx[dst] = src
         t = torch.as_tensor(idx, device=stream.device)
+        stream._device_tables[key] = t
+    return t
+
+
+def _mcast_index(stream, directions):
+    """(nb, R) int64 device table of a multicast put: row ``b`` is the
+    :func:`_perm_index` of branch direction ``directions[b]``."""
+    dirs = tuple(tuple(d) for d in directions)
+    key = ("mcast", dirs)
+    t = stream._device_tables.get(key)
+    if t is None:
+        t = torch.stack([_perm_index(stream, d) for d in dirs])
         stream._device_tables[key] = t
     return t
 
@@ -102,7 +120,9 @@ def prepare_tables(stream) -> None:
     """Build every device table a window's protocol uses: the permuted-
     copy index of each group direction, the single-slot counter update
     of each direction (unfused post signals, chained completions) and
-    the merged post update of the whole group."""
+    the merged post update of the whole group; and for each multicast put
+    enqueued on the stream, its branch table and its completion tree's
+    update (the branches' slots, as lowering orders them)."""
     for win in stream.windows.values():
         npeers = max(len(win.group), 1)
         merged = []
@@ -112,6 +132,14 @@ def prepare_tables(stream) -> None:
             _counter_update(stream, ((slot, tuple(d)),), npeers)
             merged.append((slot, tuple(d)))
         _counter_update(stream, tuple(merged), npeers)
+    for op in stream.program:
+        if op.kind == "put" and "directions" in op.put:
+            win, dirs = op.window, op.put["directions"]
+            _mcast_index(stream, dirs)
+            _counter_update(stream,
+                            tuple((win.opposite_index(d), tuple(d))
+                                  for d in dirs),
+                            max(len(win.group), 1))
 
 
 # ---------------------------------------------------------------------------
@@ -169,16 +197,32 @@ def emit_node(stream, node, st, *, with_chained=True):
             payload = pack_flat([st[s] for s in node.srcs])
         else:
             payload = st[node.src]
-        if node.mcast_dirs:
-            raise NotImplementedError(
-                "multicast puts come with the broadcast pattern, not "
-                "ported yet (ROADMAP Queue 1 item 6)")
         if not payload.is_contiguous() and rank_rows(payload) is None:
-            # an unmerged pack's strided surface view: put_signal copies
-            # rows whose elements are contiguous
+            # an unmerged pack's strided surface view: the puts copy rows
+            # whose elements are contiguous
             payload = payload.contiguous()
-        perm = _perm_index(stream, node.direction)
         ch = node.chained if with_chained else None
+        if node.mcast_dirs:
+            # multicast descriptor: ONE launch reads the payload once and
+            # writes every branch's landing buffer (and, chained, the
+            # completion tree over every branch's slot)
+            perms = _mcast_index(stream, node.mcast_dirs)
+            if ch is None:
+                arrivals = put_multicast(payload, perms)
+            else:
+                cnt = st[ch.counter]
+                arrivals, st[ch.counter] = put_multicast(
+                    payload, perms, cnt, _counter_update(
+                        stream, _completion_slots(node), cnt.shape[1]))
+            for dname, arrived in zip(node.dsts, arrivals):
+                if chunked:
+                    st[dname], = chunk_scatter(arrived, [st[dname]],
+                                               node.chunk_offset,
+                                               node.chunk_elems)
+                else:
+                    st[dname] = arrived
+            return st
+        perm = _perm_index(stream, node.direction)
         if ch is None:
             arrived = put_signal(payload, perm)
         else:

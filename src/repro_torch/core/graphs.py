@@ -14,7 +14,10 @@ replays it: the host launches one graph where it launched every kernel.
     previous one's outputs at fixed addresses). The caller's tensors are
     copied into static inputs before each replay and the outputs copied
     out after it, so a state handed in is never modified and a result the
-    caller holds never changes when the graph is replayed again. The
+    caller holds never changes when the graph is replayed again. A key
+    that no descriptor writes (its output is its static input: emission
+    rebinds every key it writes to a new tensor) is returned as the
+    caller's own tensor, which equals it by construction. The
     first call warms up: it runs the function once eagerly on the static
     copies and throws the result away (kernel libraries and CUDA modules
     loaded, the caching allocator grown, all outside the capture), then
@@ -178,7 +181,8 @@ class ProgramGraph:
     """``segments`` (functions state dict -> new state dict, run in order)
     replayed from one CUDA graph each. Built by its first call; every
     call copies the state in, replays the chain and returns fresh copies
-    of the outputs."""
+    of the outputs it wrote, and the caller's tensors for the keys it did
+    not (``written``, known after the capture)."""
 
     def __init__(self, name: str, segments: Sequence[Callable]):
         self.name = name
@@ -186,6 +190,7 @@ class ProgramGraph:
         self.static: Dict[str, torch.Tensor] = {}
         self.chain: List[_Captured] = []
         self.out: Dict[str, torch.Tensor] = {}
+        self.written: List[str] = []
         # host seconds of the first call's warm-up (to the device's end)
         # and of its captures
         self.warm_up_seconds = self.capture_seconds = 0.0
@@ -197,10 +202,17 @@ class ProgramGraph:
             _copy([self.static[k] for k in state], list(state.values()))
         for g in self.chain:
             g.replay()
-        keys = list(self.out)
-        fresh = [_fresh(self.out[k]) for k in keys]
-        _copy(fresh, [self.out[k] for k in keys])
-        return dict(zip(keys, fresh))
+        fresh = {k: _fresh(self.out[k]) for k in self.written}
+        _copy(list(fresh.values()), [self.out[k] for k in fresh])
+        return {k: fresh[k] if k in fresh else state[k] for k in self.out}
+
+    def copied_bytes(self) -> Dict[str, int]:
+        """Bytes one call copies into the graph's static inputs ("in")
+        and out of its outputs ("out")."""
+        def nbytes(ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+        return {"in": nbytes(self.static.values()),
+                "out": nbytes(self.out[k] for k in self.written)}
 
     def _capture(self, state):
         t0 = time.perf_counter()
@@ -221,6 +233,8 @@ class ProgramGraph:
             self.chain.append(g)
             st = g.out
         self.out = st
+        self.written = [k for k, t in st.items()
+                        if t is not self.static.get(k)]
         self.capture_seconds = sum(g.seconds for g in self.chain)
 
 

@@ -40,6 +40,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from repro_torch.core.dtypes import dtype_name, dtype_size
 from repro_torch.core.triggered import TriggeredOp, TriggeredProgram
 
 
@@ -50,15 +51,16 @@ def window_buffer_spec(windows, qualified: str):
     program (the segment planner's arena layout); (0, "") when no
     window owns the key (counter names, staging keys). Window specs
     hold numpy dtype names ("float32"), never torch dtypes, so
-    ``np.dtype`` gives the JAX package's names and sizes."""
+    :mod:`~repro_torch.core.dtypes` gives the JAX package's names and
+    sizes."""
     for win in windows.values():
         prefix = win.name + "."
         if qualified.startswith(prefix):
             spec = win.spec_of(qualified[len(prefix):])
             if spec is not None:
                 shape, dtype = spec
-                nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
-                return nbytes, np.dtype(dtype).name
+                nbytes = int(np.prod(shape)) * dtype_size(dtype)
+                return nbytes, dtype_name(dtype)
     return 0, ""
 
 

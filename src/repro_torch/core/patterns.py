@@ -13,12 +13,18 @@ stats) is shared.
 Built-in patterns (registered by their home modules on first use):
 
   * ``"faces"`` — 26-neighbor 3-D halo exchange (repro_torch.core.halo)
+  * ``"ring"``  — ring-attention KV rotation: per ring step one
+    post/compute/start/put/complete/wait epoch with the block-attention
+    kernel as the overlapped launch (repro_torch.core.ring)
+  * ``"a2a"``   — expert-parallel MoE combine as an aggregated-put
+    access epoch: each shard's partial output is put to every peer and
+    summed, replacing the psum collective (repro_torch.core.ep_a2a)
+  * ``"broadcast"`` — SUMMA-style row fanout: each rank's tile goes to
+    every peer of its process row, either as one MULTICAST descriptor
+    or as a unicast-per-peer fanout baseline (repro_torch.core.broadcast)
   * ``"serve"`` — the serving decode step's KV mirror, sampled ids and
     MoE hidden dispatch as one access epoch per generated token
     (repro_torch.core.serve_decode)
-
-The JAX package also registers ring, a2a and broadcast; the port adds
-them with their transports (ROADMAP Queue 1 items 6 and 7c).
 
 A topology owns the *direction algebra* that stage-1 lowering needs:
 which peers a window signals at post(), and which counter slot a put's
@@ -121,6 +127,20 @@ def shifts_topology(n: int, grid_axes=("model",),
                            ranks_per_node=ranks_per_node)
 
 
+def row_broadcast_topology(rows: int, cols: int, grid_axes=("row", "col"),
+                           ranks_per_node: Optional[int] = None
+                           ) -> PatternTopology:
+    """Row fanout on a (rows, cols) grid: every nonzero column shift
+    (0, k), k in 1..cols-1 — each rank reaches its whole process row.
+    Opposite is modular on the column axis ((0, k) -> (0, cols-k)), so
+    the group is closed; the one-to-many broadcast pattern multicasts
+    over exactly this group."""
+    return PatternTopology("row_broadcast", tuple(grid_axes),
+                           tuple((0, k) for k in range(1, cols)),
+                           modular_opposite=True, grid_shape=(rows, cols),
+                           ranks_per_node=ranks_per_node)
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
@@ -155,7 +175,8 @@ def register_pattern(name: str, *, grid_axes, default_grid, doc: str = ""):
 
 def _ensure_builtins():
     # constructors live with their transports; importing registers them
-    from repro_torch.core import halo, serve_decode  # noqa: F401
+    from repro_torch.core import (broadcast, ep_a2a, halo,  # noqa: F401
+                                  ring, serve_decode)
 
 
 def available_patterns() -> List[str]:

@@ -83,6 +83,7 @@ from typing import Dict, FrozenSet, Tuple
 
 import numpy as np
 
+from repro_torch.core.dtypes import dtype_size
 from repro_torch.core.triggered import (ResourcePool, TriggeredOp,
                                         TriggeredProgram)
 
@@ -358,7 +359,7 @@ def chunk_puts(prog: TriggeredProgram,
                 or n.nbytes <= chunk_bytes):
             out.append(n)
             continue
-        itemsize = np.dtype(n.dtype).itemsize
+        itemsize = dtype_size(n.dtype)
         total = n.nbytes // itemsize
         per = max(1, int(chunk_bytes) // itemsize)
         nchunks = -(-total // per)

@@ -48,7 +48,7 @@ from repro_torch.core.compat import block, resolve_device
 from repro_torch.core.lower import lower_segment, split_segments
 from repro_torch.core.schedule import schedule
 from repro_torch.core.triggered import TriggeredProgram
-from repro_torch.core.window import STWindow
+from repro_torch.core.window import STWindow, torch_dtype
 
 
 @dataclass
@@ -143,16 +143,33 @@ class STStream:
             specs.update(win.state_specs(self.num_ranks))
         return specs
 
-    def allocate(self) -> Dict[str, torch.Tensor]:
-        """Zeroed state of every window on the stream's device. Also
-        builds the device tables emission reads (put index tensors,
-        counter updates), so no host-to-device copy happens later."""
+    def allocate(self, init: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """Zeroed state of every window on the stream's device, except the
+        keys of ``init``, which are taken as given (held, not copied: a
+        view of a model's weights stays a view). Also builds the device
+        tables emission reads (put index tensors, counter updates), so no
+        host-to-device copy happens later."""
         if self.device is None:
             raise ValueError("cannot allocate on a device-free stream "
                              "(constructed with device=None)")
+        init = dict(init or {})
+        specs = self.state_specs()
         state = {}
-        for win in self.windows.values():
-            state.update(win.allocate(self.num_ranks, self.device))
+        for k, (shape, dtype) in specs.items():
+            t = init.pop(k, None)
+            if t is None:
+                t = torch.zeros(shape, dtype=torch_dtype(dtype),
+                                device=self.device)
+            elif (tuple(t.shape) != shape or t.dtype != torch_dtype(dtype)
+                  or t.device != self.device):
+                raise ValueError(
+                    f"allocate: init[{k!r}] is {tuple(t.shape)} {t.dtype} "
+                    f"on {t.device}, the window's {shape} {dtype} on "
+                    f"{self.device}")
+            state[k] = t
+        if init:
+            raise ValueError(f"allocate: no state key {sorted(init)[:6]}")
         engine.prepare_tables(self)
         return state
 
@@ -178,6 +195,21 @@ class STStream:
         self.program.append(_Op("put", window=win, phase=phase,
                                 put=dict(src=src, dst=dst,
                                          direction=tuple(direction))))
+
+    def put_multicast(self, win: STWindow, src: str, dsts, directions,
+                      phase: int = 0):
+        """One-to-many put: ONE source payload fans out to the rank in
+        each of ``directions``, landing in the matching buffer of
+        ``dsts`` — lowered to a single multicast descriptor with one
+        completion tree (counted as one signal at the source), versus
+        ``len(directions)`` unicast puts."""
+        if len(dsts) != len(directions):
+            raise ValueError("put_multicast: dsts and directions must "
+                             "pair up per branch")
+        self.program.append(_Op(
+            "put", window=win, phase=phase,
+            put=dict(src=src, dsts=tuple(dsts),
+                     directions=tuple(tuple(d) for d in directions))))
 
     def complete(self, win: STWindow, phase: int = 0):
         self.program.append(_Op("complete", window=win, phase=phase))

@@ -10,8 +10,9 @@ counters the runtime uses for epoch management:
 Counter buffers are int32 (num_peers,) slots per rank. Every rank of the
 process grid lives on ONE device: buffers carry a leading rank dimension
 (R, *local), the JAX package's global layout, unsharded. Buffer dtypes
-are numpy dtype names ("float32"), so lowering sizes them exactly as the
-JAX package does; :func:`torch_dtype` maps them at allocation.
+are numpy dtype names ("float32"; "bfloat16" too, see core/dtypes.py),
+so lowering sizes them exactly as the JAX package does;
+:func:`torch_dtype` maps them at allocation.
 
 Double buffering (``double_buffer=True``): the window allocates ping/pong
 copies of its communication buffers (``db_names``) AND of both signal
@@ -27,8 +28,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, Sequence, Tuple
 
-import numpy as np
 import torch
+
+from repro_torch.core.dtypes import dtype_name
 
 PONG = "__pp"       # state-key suffix of the pong (odd-parity) buffer set
 PACK = "__pack"     # staging-buffer label prefix of a packed multi-buffer
@@ -119,10 +121,10 @@ class STWindow:
 
     def state_specs(self, num_ranks: int) -> Dict[str, Tuple[tuple, str]]:
         """{state key: (global shape, numpy dtype name)} of every buffer
-        and counter this window owns — what :meth:`allocate` makes."""
+        and counter this window owns — what ``STStream.allocate`` makes."""
         specs = {}
         for bname, (shape, dtype) in self.buffers.items():
-            spec = ((num_ranks,) + tuple(shape), np.dtype(dtype).name)
+            spec = ((num_ranks,) + tuple(shape), dtype_name(dtype))
             specs[f"{self.name}.{bname}"] = spec
             if self.double_buffer and bname in self.db_names:
                 specs[f"{self.name}.{bname}{PONG}"] = spec
@@ -130,13 +132,6 @@ class STWindow:
         for cname in self.counter_names():
             specs[cname] = ((num_ranks, npeers), "int32")
         return specs
-
-    def allocate(self, num_ranks: int, device) -> Dict[str, torch.Tensor]:
-        """Materialize global zeroed buffers (num_ranks, *local) on
-        ``device``."""
-        return {k: torch.zeros(shape, dtype=torch_dtype(dtype),
-                               device=device)
-                for k, (shape, dtype) in self.state_specs(num_ranks).items()}
 
     def qual(self, bname: str, phase: int = 0) -> str:
         """Qualified state key of ``bname`` for an epoch of the given
@@ -148,5 +143,11 @@ class STWindow:
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    """torch dtype of a numpy dtype name ("float32" -> torch.float32)."""
-    return getattr(torch, np.dtype(name).name)
+    """torch dtype of a window dtype name ("float32" -> torch.float32,
+    "bfloat16" -> torch.bfloat16)."""
+    return getattr(torch, dtype_name(name))
+
+
+def dtype_of(t: torch.Tensor) -> str:
+    """The window dtype name of a tensor's dtype ("bfloat16", ...)."""
+    return str(t.dtype).replace("torch.", "")

@@ -1,5 +1,5 @@
-// Device-resident counter bump, and the put that carries its completion
-// signal in its own launch.
+// Device-resident counter bump, and the puts (unicast and multicast) that
+// carry their completion signal in their own launch.
 //
 // Replaces the TPU kernel _pallas_bump in src/repro/core/engine.py, the
 // progress engine's merged post-signal bump on the counter arena, and the
@@ -25,6 +25,23 @@
 //     otherwise, so float32, bf16 and int32 payloads all take it. The copy
 //     is bound by the payload's bytes (a Faces face is 64 x 16 KB); a block
 //     row per destination rank keeps every load and store coalesced.
+//
+//   * put_multicast: the multicast descriptor of the broadcast pattern (the
+//     reference emits it as one ppermute per branch plus the completion
+//     tree, src/repro/core/engine.py, emit_node's mcast_dirs branch): one
+//     payload, nb branch tables perms[b] (row dst of branch b's landing
+//     buffer is row perms[b][dst] of the payload, zeros where -1), and the
+//     completion tree's counter update sig + upd, all in one launch. It is
+//     bound by its bytes: the payload read once and written nb times (the
+//     broadcast's 8 x 16 MB tiles to 3 branches: 128 MB in, 384 MB out).
+//     So it goes source-major: block row r first lists, in shared memory,
+//     every (branch, dst) that payload row r feeds (a scan of the nb x R
+//     table; no inverse table to build or keep) and every branch whose row
+//     r has no source; then each thread loads a vector of row r ONCE and
+//     stores it to every destination on the list, and zeros where row r of
+//     a branch has no source. A destination-major grid would re-read the
+//     payload once per branch, and 128 MB does not stay in the 50 MB L2.
+//     The nb landing buffers are one (nb, R, row) allocation.
 //
 // Why no fence between payload and signal: every reader of either output is
 // a later launch on the same stream, and a launch sees all memory effects of
@@ -85,6 +102,58 @@ __global__ void put_signal_kernel(const char* __restrict__ x,
   }
 }
 
+// grid: (copy blocks [+ 1], max(R, 1)); out is (nb, R, nvec vectors of V).
+// Block row r stores payload row r into every (branch, dst) with
+// perm[b][dst] == r, and zeros into row r of every branch with
+// perm[b][r] == -1. Dynamic shared memory: nb * R + nb ints.
+template <typename V>
+__global__ void put_multicast_kernel(const char* __restrict__ x,
+                                     long long x_stride,
+                                     char* __restrict__ out, long long nvec,
+                                     int R, int nb,
+                                     const int64_t* __restrict__ perm,
+                                     const int32_t* __restrict__ sig,
+                                     const int32_t* __restrict__ upd,
+                                     int32_t* __restrict__ sig_out,
+                                     long long nsig) {
+  extern __shared__ int lists[];
+  __shared__ int counts[2];
+  const int r = blockIdx.y;
+  const int copy_blocks = gridDim.x - (sig_out != nullptr);
+  if ((int)blockIdx.x == copy_blocks) {
+    for (long long k = r * (long long)blockDim.x + threadIdx.x; k < nsig;
+         k += (long long)gridDim.y * blockDim.x)
+      sig_out[k] = sig[k] + upd[k];
+    return;
+  }
+  if (r >= R) return;
+  const long long table = (long long)nb * R;
+  int* fed = lists;                  // b * R + dst, fed by payload row r
+  int* zeros = lists + table;        // b, whose row r has no source
+  if (threadIdx.x < 2) counts[threadIdx.x] = 0;
+  __syncthreads();
+  for (long long k = threadIdx.x; k < table; k += blockDim.x) {
+    const long long src = perm[k];
+    if (src == r) fed[atomicAdd(&counts[0], 1)] = (int)k;
+    else if (src < 0 && k % R == r) zeros[atomicAdd(&counts[1], 1)] =
+        (int)(k / R);
+  }
+  __syncthreads();
+  const int nfed = counts[0], nzero = counts[1];
+  const long long step = (long long)copy_blocks * blockDim.x;
+  const long long j0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  V* o = reinterpret_cast<V*>(out);
+  const V* row = reinterpret_cast<const V*>(x + r * x_stride);
+  for (long long j = j0; j < nvec; j += step) {
+    if (nfed) {
+      const V v = row[j];
+      for (int i = 0; i < nfed; ++i) o[fed[i] * nvec + j] = v;
+    }
+    for (int i = 0; i < nzero; ++i)
+      o[((long long)zeros[i] * R + r) * nvec + j] = V{};
+  }
+}
+
 __global__ void empty_kernel() {}
 
 template <typename V>
@@ -103,6 +172,25 @@ cudaError_t launch_put(const char* x, long long x_stride, char* out,
                   (unsigned)(R > 0 ? R : 1));
   put_signal_kernel<V><<<grid, (unsigned)threads, 0, stream>>>(
       x, x_stride, out, nvec, R, perm, sig, upd, sig_out, nsig);
+  return cudaGetLastError();
+}
+
+template <typename V>
+cudaError_t launch_multicast(const char* x, long long x_stride, char* out,
+                             long long row_bytes, int R, int nb,
+                             const int64_t* perm, const int32_t* sig,
+                             const int32_t* upd, int32_t* sig_out,
+                             long long nsig, cudaStream_t stream) {
+  const long long nvec = row_bytes / (long long)sizeof(V);
+  long long threads = (nvec + 31) / 32 * 32;
+  threads = threads < 32 ? 32 : (threads > kThreads ? kThreads : threads);
+  long long bx = (nvec + threads - 1) / threads;
+  bx = bx < 1 ? 1 : (bx > 1024 ? 1024 : bx);
+  const dim3 grid((unsigned)(bx + (sig_out != nullptr)),
+                  (unsigned)(R > 0 ? R : 1));
+  const size_t smem = ((size_t)nb * R + nb) * sizeof(int);
+  put_multicast_kernel<V><<<grid, (unsigned)threads, smem, stream>>>(
+      x, x_stride, out, nvec, R, nb, perm, sig, upd, sig_out, nsig);
   return cudaGetLastError();
 }
 
@@ -148,6 +236,46 @@ extern "C" int put_signal_launch(const void* x, long long x_stride, void* out,
                                      sig, upd, sig_out, nsig, s);
   return (int)launch_put<uint8_t>(xs, x_stride, os, row_bytes, R, perm, sig,
                                   upd, sig_out, nsig, s);
+}
+
+// x: R payload rows of row_bytes bytes each, row r at x + r * x_stride
+// bytes; out: contiguous (nb, R, row_bytes); perm: contiguous (nb, R)
+// source ranks in [-1, R) on the device (-1: zero fill). nb * R + nb ints
+// of the table's lists must fit in 48 KB of shared memory. sig_out ==
+// nullptr puts with no signal; else sig, upd, sig_out are contiguous int32
+// buffers of nsig elements.
+extern "C" int put_multicast_launch(const void* x, long long x_stride,
+                                    void* out, long long row_bytes, int R,
+                                    int nb, const int64_t* perm,
+                                    const int32_t* sig, const int32_t* upd,
+                                    int32_t* sig_out, long long nsig,
+                                    void* stream) {
+  if (R < 0 || R > 65535 || nb < 1 || row_bytes < 0 ||
+      ((long long)nb * R + nb) * (long long)sizeof(int) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  if (sig_out == nullptr) nsig = 0;
+  if ((R == 0 || row_bytes == 0) && nsig == 0) return 0;
+  const uintptr_t align = (uintptr_t)x | (uintptr_t)out |
+                          (uintptr_t)row_bytes | (uintptr_t)x_stride;
+  const char* xs = static_cast<const char*>(x);
+  char* os = static_cast<char*>(out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (align % 16 == 0)
+    return (int)launch_multicast<uint4>(xs, x_stride, os, row_bytes, R, nb,
+                                        perm, sig, upd, sig_out, nsig, s);
+  if (align % 8 == 0)
+    return (int)launch_multicast<uint2>(xs, x_stride, os, row_bytes, R, nb,
+                                        perm, sig, upd, sig_out, nsig, s);
+  if (align % 4 == 0)
+    return (int)launch_multicast<uint32_t>(xs, x_stride, os, row_bytes, R,
+                                           nb, perm, sig, upd, sig_out,
+                                           nsig, s);
+  if (align % 2 == 0)
+    return (int)launch_multicast<uint16_t>(xs, x_stride, os, row_bytes, R,
+                                           nb, perm, sig, upd, sig_out,
+                                           nsig, s);
+  return (int)launch_multicast<uint8_t>(xs, x_stride, os, row_bytes, R, nb,
+                                        perm, sig, upd, sig_out, nsig, s);
 }
 
 // One launch of an empty kernel: the launch floor the bump is timed against.

@@ -46,11 +46,14 @@ LIBRARIES = {
         "fetch_probe_launch": (_PTR, _INT, _INT, _PTR, _PTR),
     },
     # put_signal: (x, x rank stride in bytes, out, row bytes, R, perm, sig,
-    #  upd, sig out or NULL, signal slots, stream)
+    #  upd, sig out or NULL, signal slots, stream); put_multicast: the same
+    #  with the branch count after R and perm an (nb, R) table
     "counter_bump": {
         "counter_bump_launch": (_PTR, _PTR, _PTR, _I64, _PTR),
         "put_signal_launch": (_PTR, _I64, _PTR, _I64, _INT, _PTR, _PTR, _PTR,
                               _PTR, _I64, _PTR),
+        "put_multicast_launch": (_PTR, _I64, _PTR, _I64, _INT, _INT, _PTR,
+                                 _PTR, _PTR, _PTR, _I64, _PTR),
         "empty_launch": (_PTR,),
     },
     # (dtype, q, k, v, out, q_offset, kv_len, B, Sq, Skv, H, KV, hd, hdv,
@@ -85,6 +88,7 @@ LIBRARIES = {
 # one only after its kernel was launched without error
 LAUNCHES: Dict[str, int] = {"halo_pack": 0, "halo_unpack": 0,
                             "counter_bump": 0, "put_signal": 0,
+                            "put_multicast": 0,
                             "flash_attention": 0,
                             "decode_attention": 0, "wkv6": 0,
                             "mamba_scan": 0}

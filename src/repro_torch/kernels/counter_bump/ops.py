@@ -10,7 +10,12 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.counter_bump.ref import (counter_bump_ref,
+                                                  put_multicast_ref,
                                                   put_signal_ref)
+
+# the kernel lists, per payload row, the (branch, dst) pairs it feeds in
+# 48 KB of shared memory: nb * R + nb ints
+MULTICAST_TABLE_INTS = 48 * 1024 // 4
 
 
 def _check_counters(sig, upd, what):
@@ -63,6 +68,28 @@ def counter_bump(sig: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _signal_args(sig, upd, dev, what):
+    if (sig is None) != (upd is None):
+        raise ValueError(f"{what}: give sig and upd together")
+    if sig is not None:
+        _check_counters(sig, upd, what)
+        if sig.device != dev:
+            raise ValueError(f"{what}: sig on {sig.device}, x on {dev}")
+
+
+def _payload_rows(x, R, what):
+    """(elements per rank, rank stride in elements) of a payload whose
+    ranks' elements are each contiguous, else ValueError."""
+    s = x.numel() // R if R else 0
+    if x.is_contiguous():
+        return s, s
+    rows = rank_rows(x)
+    if rows is None:
+        raise ValueError(f"{what}: each rank's elements must be contiguous "
+                         f"(shape {tuple(x.shape)}, strides {x.stride()})")
+    return s, rows.stride(0)
+
+
 def put_signal(x: torch.Tensor, perm: torch.Tensor, sig=None, upd=None):
     """A put with its completion signal in one launch.
 
@@ -84,24 +111,11 @@ def put_signal(x: torch.Tensor, perm: torch.Tensor, sig=None, upd=None):
                          f"{tuple(perm.shape)} {perm.dtype}")
     if perm.device != dev:
         raise ValueError(f"put_signal: perm on {perm.device}, x on {dev}")
-    if (sig is None) != (upd is None):
-        raise ValueError("put_signal: give sig and upd together")
-    if sig is not None:
-        _check_counters(sig, upd, "put_signal")
-        if sig.device != dev:
-            raise ValueError(f"put_signal: sig on {sig.device}, x on {dev}")
+    _signal_args(sig, upd, dev, "put_signal")
     if dev.type == "cpu":
         return put_signal_ref(x, perm, sig, upd)
     _check_launch(x, "put_signal")
-    s = x.numel() // R if R else 0
-    x_stride = s
-    if not x.is_contiguous():
-        rows = rank_rows(x)
-        if rows is None:
-            raise ValueError(f"put_signal: each rank's elements must be "
-                             f"contiguous (shape {tuple(x.shape)}, strides "
-                             f"{x.stride()})")
-        x_stride = rows.stride(0)
+    s, x_stride = _payload_rows(x, R, "put_signal")
     if not perm.is_contiguous():
         raise ValueError("put_signal: perm must be contiguous")
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
@@ -120,3 +134,57 @@ def put_signal(x: torch.Tensor, perm: torch.Tensor, sig=None, upd=None):
         torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "put_signal")
     return out if sig is None else (out, new_sig)
+
+
+def put_multicast(x: torch.Tensor, perms: torch.Tensor, sig=None, upd=None):
+    """A multicast put with its completion signal in one launch.
+
+    ``x`` is an (R, ...) payload whose ranks' elements are each
+    contiguous; ``perms`` an (nb, R) int64 device table, one row per
+    branch, ``perms[b, dst]`` the source rank of ``dst`` in branch ``b``
+    or -1 for none. Returns a tuple of ``nb`` new contiguous tensors
+    shaped like ``x``: row ``dst`` of entry ``b`` is row ``perms[b, dst]``
+    of ``x``, zeros where -1. With ``sig``/``upd`` the same launch also
+    writes ``sig + upd`` and the call returns ``(outs, counters)``. Any
+    dtype: rows are copied as bytes, the payload read once.
+    """
+    dev = x.device
+    R = x.shape[0] if x.dim() else 0
+    if (x.dim() == 0 or perms.dim() != 2 or perms.shape[1] != R
+            or perms.shape[0] < 1 or perms.dtype != torch.int64):
+        raise ValueError(f"put_multicast: perms must be (nb >= 1, {R}) "
+                         f"int64 for a payload of shape {tuple(x.shape)}, "
+                         f"got {tuple(perms.shape)} {perms.dtype}")
+    if perms.device != dev:
+        raise ValueError(f"put_multicast: perms on {perms.device}, x on "
+                         f"{dev}")
+    _signal_args(sig, upd, dev, "put_multicast")
+    if dev.type == "cpu":
+        return put_multicast_ref(x, perms, sig, upd)
+    _check_launch(x, "put_multicast")
+    nb = perms.shape[0]
+    if nb * R + nb > MULTICAST_TABLE_INTS:
+        raise ValueError(f"put_multicast: {nb} branches over {R} ranks "
+                         f"exceed the kernel's table ({MULTICAST_TABLE_INTS}"
+                         " ints of shared memory)")
+    s, x_stride = _payload_rows(x, R, "put_multicast")
+    if not perms.is_contiguous():
+        raise ValueError("put_multicast: perms must be contiguous")
+    out = torch.empty((nb,) + tuple(x.shape), dtype=x.dtype, device=dev)
+    new_sig, nsig = None, 0
+    if sig is not None:
+        if not (sig.is_contiguous() and upd.is_contiguous()):
+            raise ValueError("put_multicast: sig and upd must be "
+                             "contiguous")
+        new_sig, nsig = torch.empty_like(sig), sig.numel()
+    esize = x.element_size()
+    rc = _build.load("counter_bump").put_multicast_launch(
+        x.data_ptr(), x_stride * esize, out.data_ptr(), s * esize,
+        R, nb, perms.data_ptr(),
+        None if sig is None else sig.data_ptr(),
+        None if sig is None else upd.data_ptr(),
+        None if sig is None else new_sig.data_ptr(), nsig,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "put_multicast")
+    outs = tuple(out.unbind(0))
+    return outs if sig is None else (outs, new_sig)

@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the counter bump and of the put that carries
-its completion signal: the CPU path, and the yardsticks the CUDA kernels
-(csrc/counter_bump.cu) are held to."""
+"""Plain PyTorch versions of the counter bump and of the puts (unicast and
+multicast) that carry their completion signal: the CPU path, and the
+yardsticks the CUDA kernels (csrc/counter_bump.cu) are held to."""
 from __future__ import annotations
 
 
@@ -19,3 +19,13 @@ def put_signal_ref(x, perm, sig=None, upd=None):
     if sig is None:
         return out
     return out, sig + upd
+
+
+def put_multicast_ref(x, perms, sig=None, upd=None):
+    """One ``put_signal_ref`` per branch: entry ``b`` of the returned tuple
+    takes row ``perms[b, dst]`` of ``x`` into row ``dst``, zeros where
+    -1; with ``sig``/``upd`` also the new counter buffer ``sig + upd``."""
+    outs = tuple(put_signal_ref(x, p) for p in perms)
+    if sig is None:
+        return outs
+    return outs, sig + upd

@@ -10,10 +10,11 @@ card by default.
 
 ``--arch`` takes the ported architectures (granite-3-2b, rwkv6-1.6b,
 jamba-1.5-large-398b); ``--moe-impl`` the MoE layers' implementation
-(the reference's choices; "dense" is its default, "a2a" is not ported
-yet and raises). The full 72-layer jamba (398.6 B params) fits no
-single card and is not cut here: on a card its init fails with the
-allocator's out-of-memory error (chip_smoke.py serves a 4-layer cut).
+(the reference's choices; "dense" is its default, "a2a" the
+gather-based expert-parallel MoE on one shard). The full 72-layer
+jamba (398.6 B params) fits no single card and is not cut here: on a
+card its init fails with the allocator's out-of-memory error
+(chip_smoke.py serves a 4-layer cut).
 
 Params are random (seed 0), in the config's compute dtype.
 

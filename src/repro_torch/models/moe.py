@@ -10,8 +10,11 @@ Implementations (``impl``, chosen by the caller):
     style): tokens in groups of <= 4096, each (token, k) takes a slot in
     its expert's queue of ``_capacity`` slots, earlier tokens first;
     tokens past capacity are dropped from that expert;
-  * ``"a2a"``   — the reference's expert-parallel all-to-all
-    (``core/ep_a2a.py``), not ported yet: raises.
+  * ``"a2a"``   — the gather-based expert-parallel MoE
+    (:func:`repro_torch.core.ep_a2a.moe_a2a`) on one shard owning every
+    expert, which is what the reference's engine runs on one device:
+    each expert gathers up to ``_capacity`` of its tokens (the whole
+    batch is one group), earlier tokens first.
 
 Plain PyTorch products: the reference has no Pallas kernel for MoE. On
 one device the reference's sharding constraints are no-ops and are left
@@ -157,9 +160,7 @@ def moe(cfg, params, x, impl: str = "gshard"):
     if impl == "gshard":
         return moe_gshard(cfg, params, x)
     if impl == "a2a":
-        raise NotImplementedError(
-            "moe_impl='a2a': the expert-parallel all-to-all of the "
-            "reference's core/ep_a2a.py is not ported yet (ROADMAP Queue 1 "
-            "item 7); use 'dense' or 'gshard'")
+        from repro_torch.core.ep_a2a import moe_a2a
+        return moe_a2a(cfg, params, x, n_shards=1)
     raise ValueError(f"moe_impl {impl!r}: the port has 'dense', 'gshard' "
                      "and 'a2a'")

@@ -99,7 +99,8 @@ class ServingEngine:
     ``from_reference``) on ``device``. ``device`` defaults to CUDA and
     raises without a card; pass ``"cpu"`` for the plain path on the
     CPU. ``moe_impl`` is the MoE layers' implementation ("dense", the
-    reference engine's default, or "gshard"; "a2a" raises).
+    reference engine's default, "gshard", or "a2a": the gather-based
+    expert-parallel MoE on one shard).
 
     ``st_mode``, ``st_config`` (``"auto"``, a ``ScheduleConfig`` or its
     dict), ``tuned_path`` and ``ranks_per_node`` are the reference's

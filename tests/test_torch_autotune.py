@@ -5,8 +5,10 @@ Both are pure Python over the same IR, schedule passes and simulator, so
 the match is exact: the search spaces (as dicts), and each ``autotune``
 leaderboard — labels, order, and the derived cost of every candidate —
 for Faces at (2, 2, 2), the serving decode epoch at (4,) for 1, 2 and 8
-slots with and without MoE dispatch, and one two-node (ranks_per_node=2)
-search at a small payload. Then the analogues of
+slots with and without MoE dispatch, one two-node (ranks_per_node=2)
+serve search at a small payload, and ring (4,), broadcast (2, 4) (its
+multicast and unicast candidates) and a2a (4,), each on one node and on
+two. Then the analogues of
 ``tests/test_autotune.py``: tuned <= default, a cache hit skips the
 search, the size-token key, ``resolve_config``'s forms, a config threaded
 through ``pattern_programs`` and ``simulate_pattern``, and a raw stream
@@ -35,13 +37,19 @@ def _serve(slots, moe, width=16):
     return dict(slots=slots, kv_dim=width, d_model=width, moe=moe)
 
 
-# (pattern, grid, ranks_per_node, build kwargs)
+# (pattern, grid, ranks_per_node, build kwargs); broadcast's searches
+# take the multicast knob both ways (mc and uni)
 SEARCHES = {
     "faces": ("faces", (2, 2, 2), None, FACES),
     **{f"serve_b{b}_{'moe' if m else 'ring'}":
        ("serve", (4,), None, _serve(b, m, 64)) for b in (1, 2, 8)
        for m in (True, False)},
     "serve_rpn2": ("serve", (4,), 2, _serve(2, True)),
+    **{f"{p}{'_rpn2' if rpn else ''}": (p, grid, rpn, kw)
+       for p, grid, kw in (("ring", (4,), {}),
+                           ("broadcast", (2, 4), dict(tile=8)),
+                           ("a2a", (4,), {}))
+       for rpn in (None, 2)},
 }
 
 
@@ -53,13 +61,18 @@ def _board(result):
 # equal to the reference
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("pattern,rpn", [("faces", None), ("serve", None),
-                                         ("serve", 2), ("faces", 4)])
+@pytest.mark.parametrize("pattern,rpn", [
+    ("faces", None), ("serve", None), ("serve", 2), ("faces", 4),
+    ("ring", None), ("ring", 2), ("broadcast", None), ("broadcast", 2),
+    ("a2a", None), ("a2a", 2)])
 def test_search_space_equals_the_reference(pattern, rpn):
     mine = [c.to_dict() for c in search_space(pattern, rpn)]
     assert mine == [c.to_dict() for c in ref_search_space(pattern, rpn)]
-    assert len(mine) == (192 if rpn else 24)
+    mcast = pattern == "broadcast"
+    assert len(mine) == (192 if rpn else 24) * (2 if mcast else 1)
     assert any(c["fused"] for c in mine)        # the knob is enumerated
+    assert {c["multicast"] for c in mine} == \
+        ({True, False} if mcast else {None})
 
 
 @pytest.mark.parametrize("case", sorted(SEARCHES))

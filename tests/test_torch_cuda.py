@@ -1061,12 +1061,13 @@ def _graph_vs_eager_decode(eng, prompts, steps=8):
 
 @pytest.mark.parametrize("arch,moe_impl", [
     ("granite-3-2b", "dense"), ("rwkv6-1.6b", "dense"),
-    ("jamba-1.5-large-398b", "dense"), ("jamba-1.5-large-398b", "gshard")])
+    ("jamba-1.5-large-398b", "dense"), ("jamba-1.5-large-398b", "gshard"),
+    ("jamba-1.5-large-398b", "a2a")])
 def test_decode_graph_equals_eager_decode(dev, arch, moe_impl):
     """Each reduced model's decode step replayed from its CUDA graph
     gives the eager step's ids and cache bit for bit, 8 steps on the same
-    engine state, in bf16 (the served dtype); the gshard MoE, whose
-    capacity comes from shapes, captures too."""
+    engine state, in bf16 (the served dtype); the gshard and a2a MoEs,
+    whose capacity comes from shapes, capture too."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, model_specs
@@ -1203,3 +1204,161 @@ def test_granite_st_engine_serves_its_baseline_tokens(dev, mode):
         graphs = {"st": e.stream._compiled_cache,
                   "fused": e.stream._fused_cache, "host": None}[mode]
         assert graphs is None or len(graphs) == 1
+
+
+# ---------------------------------------------------------------------------
+# the broadcast, ring and expert-parallel a2a transports on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32, torch.uint8], ids=str)
+@pytest.mark.parametrize("periodic", [True, False])
+def test_put_multicast_equals_plain_version(dev, periodic, dtype):
+    """The broadcast's three branches on a (2, 4) grid (and, not
+    periodic, branches with -1 entries), rows of 1, 3, 64 and 4096
+    elements, aligned and one element off a 16-byte boundary, with and
+    without the signal; and a hand-made table with repeated sources and
+    an empty branch: bit for bit the plain version, one kernel a call."""
+    from repro_torch.kernels.counter_bump import (put_multicast,
+                                                  put_multicast_ref)
+    stream = STStream(dev, ("row", "col"), periodic=periodic,
+                      grid_shape=(2, 4))
+    R = stream.num_ranks
+    perms = engine._mcast_index(stream, [(0, 1), (0, 2), (0, 3)])
+    assert bool((perms < 0).any()) == (not periodic)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sig = torch.randint(0, 1 << 20, (R, 3), generator=gen, device=dev,
+                        dtype=torch.int32)
+    upd = torch.randint(0, 3, (R, 3), generator=gen, device=dev,
+                        dtype=torch.int32)
+    odd = torch.tensor([[3, -1, 0, 7, 7, -1, 1, 2], [-1] * 8,
+                        [0, 1, 2, 3, 4, 5, 6, 7]], device=dev)
+    calls = 0
+    _build.reset_launches()
+    for table in (perms, odd):
+        for s in (1, 3, 64, 4096):
+            wide = torch.randint(0, 100, (R, s + 1), generator=gen,
+                                 device=dev).to(dtype)
+            for x in (wide[:, :s].contiguous(), wide[:, 1:]):
+                want = put_multicast_ref(x, table)
+                got = put_multicast(x, table)
+                assert all(torch.equal(g, w) for g, w in zip(got, want))
+                got, cnt = put_multicast(x, table, sig, upd)
+                assert all(torch.equal(g, w) and g.dtype == dtype
+                           for g, w in zip(got, want))
+                assert torch.equal(cnt, sig + upd)
+                calls += 2
+    assert _build.LAUNCHES["put_multicast"] == calls
+    x = torch.randn((R, 64), generator=gen, device=dev)
+    assert _host_launches(lambda: put_multicast(x, perms, sig, upd)) == 3
+
+
+def _host_launches(fn, calls=3):
+    """Kernel launches the host makes in ``calls`` calls of ``fn()``
+    (the profiler's cudaLaunchKernel calls: host events, which a short
+    trace does not drop as it can drop device events)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("cudaLaunchKernel"))
+
+
+def _transport(dev, name):
+    """(stream, window, seeded state) of one transport's case on
+    ``dev``: the broadcast (2, 4) mc/uni (double-buffered), ring at 4
+    ranks, a2a at 4 shards, float32."""
+    from repro_torch.core import get_pattern
+    pattern, grid, axes, kw = {
+        "broadcast_mc": ("broadcast", (2, 4), ("row", "col"),
+                         dict(tile=64, multicast=True, double_buffer=True)),
+        "broadcast_uni": ("broadcast", (2, 4), ("row", "col"),
+                          dict(tile=64, multicast=False,
+                               double_buffer=True)),
+        "ring": ("ring", (4,), ("data",),
+                 dict(batch=2, seq_per_rank=32, heads=4, head_dim=32)),
+        "a2a": ("a2a", (4,), ("model",),
+                dict(batch=2, seq=16, d_model=64, expert_ff=128,
+                     experts=8)),
+    }[name]
+    stream = STStream(dev, axes, grid_shape=grid)
+    win, _ = get_pattern(pattern).build(stream, 3, **kw)
+    state = stream.allocate()
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    seeds = {"broadcast": ("abase", "b"), "ring": ("q", "k", "v"),
+             "a2a": ("x", "router", "wg", "wu", "wd")}[pattern]
+    for b in seeds:
+        k = win.qual(b)
+        state[k] = (torch.rand(state[k].shape, generator=gen) * 0.3).to(dev)
+    return stream, win, state
+
+
+@pytest.mark.parametrize("name", ["broadcast_mc", "broadcast_uni", "ring",
+                                  "a2a"])
+def test_transport_modes_bit_for_bit_on_the_card(dev, name):
+    """st and fused (CUDA graphs; the second run a replay under sync-debug
+    "error") and host give the same bits, equal to the eager emission of
+    the same program; every counter slot that a put or post signal feeds
+    is the epoch count; the multicast program is one put_multicast
+    launch per descriptor, with its signal (st, fused) or without it
+    and a bump (host)."""
+    from repro_torch.core.backends import _emit_st
+    outs = {}
+    for mode in ("st", "host", "fused"):
+        stream, win, state = _transport(dev, name)
+        stream.synchronize(state, mode=mode)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        torch.cuda.set_sync_debug_mode("error" if mode != "host" else 0)
+        try:
+            outs[mode] = stream.synchronize(state, mode=mode)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        prog, = stream.scheduled_programs(fused=mode == "fused")
+        mputs = sum(1 for n in prog.puts() if n.mcast_dirs)
+        assert _build.LAUNCHES["put_multicast"] == mputs
+        assert bool(mputs) == (name == "broadcast_mc")
+    prog, = stream.scheduled_programs()
+    eager = _emit_st(stream, prog, state)
+    for mode, out in outs.items():
+        for k, v in out.items():
+            assert torch.equal(v, eager[k]), (mode, k)
+    for k, v in eager.items():
+        if k.endswith("post_sig") or k.endswith("post_sig__pp"):
+            assert int(v.max()) > 0 and int(v.min()) == int(v.max()), k
+    if name == "broadcast_mc":
+        stream_u, _, state_u = _transport(dev, "broadcast_uni")
+        uni = stream_u.synchronize(state_u, mode="st")
+        for k, v in uni.items():
+            assert torch.equal(v, eager[k]), k
+
+
+def test_program_graph_copies_out_only_what_it_writes(dev):
+    """The a2a program reads its tokens, router and expert weights and
+    writes none: a run returns the caller's tensors for them, so it
+    allocates only the fresh copies of what it wrote (counted in bytes,
+    rounded to the allocator's 512-byte blocks)."""
+    stream, win, state = _transport(dev, "a2a")
+    first = stream.synchronize(state, mode="st")
+    g, = stream._compiled_cache.values()
+    read_only = {win.qual(k) for k in ("x", "router", "wg", "wu", "wd")}
+    assert set(state) - set(g.written) == read_only
+    for k in read_only:
+        assert first[k] is state[k]
+    copied = g.copied_bytes()
+    sizes = {k: v.numel() * v.element_size() for k, v in state.items()}
+    assert copied["in"] == sum(sizes.values())
+    assert copied["out"] == sum(sizes[k] for k in g.written)
+    del first
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    second = stream.synchronize(state, mode="st")
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(dev) - before
+    assert grown == sum(-(-sizes[k] // 512) * 512 for k in g.written)
+    assert all(second[k] is state[k] for k in read_only)

@@ -270,6 +270,50 @@ def test_dispatch_units_unchanged(stand_in, sync):
     assert graphed == 2 * want
 
 
+@pytest.mark.parametrize("sync", list(SYNC))
+def test_keys_no_descriptor_writes_are_the_callers_own(stand_in, sync):
+    """The a2a program reads its tokens, router and expert weights and
+    writes none of them: a run hands back the caller's tensors for those
+    keys (equal by construction) and copies out only what it wrote; a
+    later replay leaves them as they were. Faces writes every key."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import ep_a2a
+
+    sync = SYNC[sync]
+    cfg = SimpleNamespace(d_model=16,
+                          moe=ep_a2a._tiny_moe_cfg(8, 2, 16).moe)
+    rng = np.random.RandomState(0)
+    params = {k: torch.from_numpy(rng.rand(*shape).astype(np.float32))
+              for k, shape in (("router", (16, 8)), ("w_gate", (8, 16, 16)),
+                               ("w_up", (8, 16, 16)),
+                               ("w_down", (8, 16, 16)))}
+    x = torch.from_numpy(rng.rand(1, 8, 16).astype(np.float32))
+    stream, win, state = ep_a2a.a2a_stream(cfg, params, x, ranks=4)
+    read_only = {win.qual(k) for k in ("x", "router", "wg", "wu", "wd")}
+    first = stream.synchronize(state, **sync)
+    assert _equal(first, _eager(stream, state, sync))
+    for k in read_only:
+        assert first[k] is state[k]
+    cache = (stream._fused_cache if sync["mode"] == "fused"
+             else stream._compiled_cache)
+    g, = cache.values()
+    assert set(g.written) == set(state) - read_only
+    copied = g.copied_bytes()
+    nbytes = {k: v.numel() * v.element_size() for k, v in state.items()}
+    assert copied == {"in": sum(nbytes.values()),
+                      "out": sum(nbytes[k] for k in g.written)}
+    kept = _copy(first)
+    stream.synchronize(dict(state, **{win.qual("x"): x[None].expand(
+        4, 1, 8, 16) + 1.0}), **sync)
+    assert _equal(first, kept)
+    stream, state = _stream()
+    stream.synchronize(state, **sync)
+    g, = (stream._fused_cache if sync["mode"] == "fused"
+          else stream._compiled_cache).values()
+    assert set(g.written) == set(state)
+
+
 def test_host_mode_stays_eager(stand_in):
     stream, state = _stream()
     out = stream.synchronize(state, mode="host")

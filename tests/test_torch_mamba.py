@@ -317,10 +317,17 @@ def test_moe_dense_and_gshard_match_jax(models, case):
 
 
 def test_moe_a2a_is_not_ported_yet(models):
+    """Named for what it held before the expert-parallel MoE was ported
+    (that ``impl="a2a"`` raised); now it holds the port's a2a against the
+    dense oracle on one MoE layer: 4 tokens leave every expert under its
+    4 slots, so nothing is dropped and the two agree (float32)."""
     _, tc, _, tp = models
-    x = torch.zeros((1, 4, tc.d_model))
-    with pytest.raises(NotImplementedError, match="ep_a2a"):
-        moe.moe(tc, tp["layers"][1]["ffn"], x, impl="a2a")
+    w = tp["layers"][3]["ffn"]
+    x = torch.from_numpy(_moe_input(tc, 1, 4, 7, 0.0))
+    out, aux = moe.moe(tc, w, x, impl="a2a")
+    want, waux = moe.moe_dense(tc, w, x)
+    _close(out, want.numpy(), F32_TOL)
+    assert out.any() and torch.equal(aux, waux)
 
 
 # bf16: each framework rounds to bf16 at its own points (XLA's fused

@@ -413,9 +413,8 @@ def test_jamba_recycled_slot_serves_a_fresh_engines_tokens(scattered):
 @pytest.mark.parametrize("moe_impl", ["dense", "gshard", "a2a"])
 def test_jamba_engine_moe_impl(moe_impl):
     """The engine passes ``moe_impl`` to the model: "dense" (its
-    default) and "gshard" serve (a prompt of 3 tokens leaves every
-    expert under capacity, so both give the same tokens); "a2a" is not
-    ported and raises."""
+    default), "gshard" and "a2a" all serve (a prompt of 3 tokens leaves
+    every expert under capacity, so all give the same tokens)."""
     _, tcfg, _, tparams = _jamba_models()
     tokens = {}
     for impl in ("dense", moe_impl):
@@ -423,10 +422,7 @@ def test_jamba_engine_moe_impl(moe_impl):
                             moe_impl=impl, device="cpu")
         eng.submit(Request(prompt=np.asarray([5, 6, 7], np.int32),
                            max_new_tokens=4))
-        if impl == "a2a":
-            with pytest.raises(NotImplementedError, match="ep_a2a"):
-                eng.run_until_drained()
-            return
         eng.run_until_drained()
         tokens[impl] = eng.completed[0].out_tokens
+    assert len(tokens["dense"]) == 4
     assert tokens["dense"] == tokens[moe_impl]
