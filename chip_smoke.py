@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
 Drives the port's main paths and the nine hand-written CUDA kernels
-they run: the Faces 26-neighbour halo exchange through
+they run (flash attention also at (hd, hdv) = (192, 128), DeepSeek-V2's
+multi-head latent attention): the Faces 26-neighbour halo exchange through
 ``repro_torch``'s ST, host and fused executors (merged halo pack, merged
 halo unpack with the per-rank max, counter bump, and the put that
 carries its completion signal), the broadcast, ring and expert-parallel
@@ -14,8 +15,12 @@ WKV6 recurrence), and jamba-1.5-large-398b at full width cut to 4
 layers served by the same engine (the Mamba selective scan, flash
 attention and flash-decode); granite and jamba also with ST-routed
 decode, each decode step's collectives on the serve program through the
-ST, host and fused executors (put_signal and the counter bump).
-Run from the repository root, with no arguments:
+ST, host and fused executors (put_signal and the counter bump);
+deepseek-v2-236b at full width cut to 4 layers (MLA: flash attention at
+(192, 128) for prefill, absorbed products for decode) and
+deepseek-moe-16b whole, served by the same engine; and minitron-4b,
+qwen3-32b and granite-34b (MQA: flash-decode at G = 48) served short at
+full width. Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
@@ -45,7 +50,12 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  granite's shapes (H=32, KV=8, hd=64) and jamba's (H=64,
                  KV=8, hd=128), a G=1 case, an hd=128 case, a ragged Sq of
                  1000 and kv_valid_len < Skv, q-tile and key-tile edges
-                 and flash-decode's split edges, on unit-normal q, k, v:
+                 and flash-decode's split edges; flash attention at
+                 (hd, hdv) = (192, 128): deepseek-v2's prefill (4 x 1000
+                 tokens, 128 heads, a 4096-row cache), a ragged case and
+                 the tile edges (65 rows, 129 keys, kv_valid_len 64,
+                 offset 64); flash-decode at granite-34b's G = 48 (8
+                 slots, one KV head of 128); on unit-normal q, k, v:
                  within 2e-5 (float32) and within 2e-2 of the largest
                  |output| (bf16); the WKV6 kernel (staged from 32
                  steps, sequential below) in
@@ -245,9 +255,46 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  LOGITS_ATOL of dense; the real capacity's gap held there
                  only when its replay dropped nothing, its dropped
                  assignments printed).
+ 10. deepseek — jamba's weights freed, deepseek-v2-236b at full width
+                 (d_model 5120, 128 heads, MLA q_lora 1536, kv_lora 512,
+                 nope 128 + rope 64, v 128; 160 routed experts of 1536
+                 top-6 and 2 shared; vocab 102400) cut to its first 4
+                 layers, (mla, dense FFN 12288), then 3 x (mla, moe)
+                 (random bf16 params from a seed, 13.30 B) served as in
+                 phase 6 with the dense MoE: exactly 4 flash_attention
+                 launches at (192, 128) in every prefill dispatch and no
+                 attention kernel in a decode step (the absorbed decode
+                 is plain products); its prefill profiled at 4 x 1000
+                 (with its peak memory); the flash_attention_192x128
+                 kernels-line row (4 x 1000 in a 4096-row cache: kernel,
+                 plain version, bound, launches per prefill dispatch, and
+                 SDPA on the backend that takes hd != hdv first, named);
+                 the bf16 replay of phase 7 (dense MoE, at most 4 prompts
+                 a prefill); then, its weights freed, phase 7 in bf16
+                 and float32 on its first layer, (mla, dense), with its
+                 own seeded weights (1.39 B), over the served tokens: the
+                 float32 flash kernel at (192, 128) inside the model.
+                 Then deepseek-moe-16b whole (28 layers, d_model 2048, 16
+                 heads of 128, 64 routed experts of 1408 top-6 and 2
+                 shared, a dense first FFN of 10944; 16.38 B) served as
+                 in phase 6 (one flash attention launch per layer per
+                 prefill dispatch, one flash-decode per layer per decode
+                 step).
+ 11. short    — minitron-4b whole (32 layers, 5.10 B), qwen3-32b cut to
+                 48 of 64 layers and granite-34b (MQA) cut to 64 of 88
+                 (each cut so that its weights, its 8 x 4096 KV cache
+                 and the decode check's two copies of it fit one 80 GB
+                 card), each at full width and alone on the card, served
+                 as in phase 6 without the profiles: the counted run's
+                 launches, and the decode graph against the eager step;
+                 granite-34b's decode_attention_g48 kernels-line row (8
+                 slots, 48 query heads on one KV head). Then a ``done``
+                 line with the run's seconds.
 
-The last three lines are the kernels JSON (one row per kernel, nine), the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+The last three lines are the kernels JSON (one row per kernel, and a
+row each for flash attention at (192, 128) and flash-decode at G = 48:
+eleven), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 Without a CUDA card the script exits non-zero before printing any
 result.
 
@@ -372,6 +419,17 @@ SFU_EXPS_PER_S = 16 * 132 * 1.98e9
 # there, and 8 x 1000 would put ~25 GB of them beside the weights.
 JAMBA_LAYERS = 4
 JAMBA_PROFILE_ROWS = 4
+# deepseek-v2-236b at full width, cut to its first 4 layers: (mla, dense),
+# then 3 x (mla, moe), 13.30 B params, 26.6 GB in bf16. The dense MoE of
+# a 4 x 1000 prefill makes (160, 4000, 5120) bf16 slabs of 6.55 GB, so
+# its prefill profile, its kernels-line row and its replays' prefills
+# take at most JAMBA_PROFILE_ROWS prompts a dispatch.
+DEEPSEEK_LAYERS = 4
+# the attention archs served short, (arch, layers or None for all): the
+# cuts keep each model's weights, its 8 x 4096 KV cache and the decode
+# check's two copies of that cache on one 80 GB card
+SHORT_SERVES = (("minitron-4b", None), ("qwen3-32b", 48),
+                ("granite-34b", 64))
 
 
 def emit(obj):
@@ -1372,17 +1430,25 @@ def put_signal_row(core, cb, dev, launches, errs):
 # attention kernels and the serving path
 # ---------------------------------------------------------------------------
 
-# (B, Sq, Skv, H, KV, hd, kv_valid_len per sequence, q offset)
+# (B, Sq, Skv, H, KV, hd, hdv, kv_valid_len per sequence, q offset)
 FLASH_CASES = [
-    (2, 1000, SERVE_MAX_LEN, 32, 8, 64, (1000, 1000), 0),  # granite prefill
-    (2, 1000, 1000, 32, 8, 64, (700, 1000), 0),   # ragged Sq, kvl < Skv
-    (1, 256, 256, 8, 8, 64, None, 0),             # G = 1
-    (1, 200, 333, 8, 2, 128, (333,), 133),        # hd 128
-    (2, 1000, SERVE_MAX_LEN, 64, 8, 128, (1000, 1000), 0),  # jamba prefill
+    (2, 1000, SERVE_MAX_LEN, 32, 8, 64, 64, (1000, 1000), 0),  # granite
+    (2, 1000, 1000, 32, 8, 64, 64, (700, 1000), 0),   # ragged Sq, kvl < Skv
+    (1, 256, 256, 8, 8, 64, 64, None, 0),             # G = 1
+    (1, 200, 333, 8, 2, 128, 128, (333,), 133),       # hd 128
+    (2, 1000, SERVE_MAX_LEN, 64, 8, 128, 128, (1000, 1000), 0),  # jamba
     # tile edges: 65 rows (a 1-row q-tile), 129 keys (a 1-key tile),
     # kv_valid_len 64 (a tile boundary), q offset 64
-    (2, 65, 129, 16, 2, 128, (129, 64), 64),
+    (2, 65, 129, 16, 2, 128, 128, (129, 64), 64),
+    # (hd, hdv) = (192, 128), deepseek-v2's MLA: its prefill (4 x 1000
+    # tokens, 128 heads over 128 expanded KV heads, a 4096-row cache), a
+    # ragged case and the tile edges
+    (4, 1000, SERVE_MAX_LEN, 128, 128, 192, 128, (1000,) * 4, 0),
+    (2, 1000, 1000, 16, 16, 192, 128, (700, 1000), 0),
+    (2, 65, 129, 16, 16, 192, 128, (129, 64), 64),
 ]
+# the kernels-line row of each case: (hd, hdv) = (192, 128) has its own
+MLA_HEAD_DIMS = (192, 128)
 # (B, S, H, KV, hd, positions); valid length position + 1 <= S
 DECODE_CASES = [
     (8, SERVE_MAX_LEN, 32, 8, 64, (1016, 144, 528, 1016, 272, 1016, 528,
@@ -1395,15 +1461,26 @@ DECODE_CASES = [
     # 1 key (split 0 only), 15 keys (an empty split), 64 keys (16 equal
     # splits), all 1000 keys (no multiple of the split width or the tile)
     (4, 1000, 8, 2, 64, (0, 14, 63, 999)),
+    # granite-34b's decode: MQA, 48 query heads on one KV head (G = 48:
+    # three 16-row head groups of the bf16 kernel)
+    (8, SERVE_MAX_LEN, 48, 1, 128, (1016, 144, 528, 1016, 272, 1016, 528,
+                                    144)),
 ]
+# the G of the decode case with a kernels-line row of its own
+MQA_GROUP = 48
+# the attention kernels' kernels-line rows
+ATTN_ROWS = ("flash_attention", "decode_attention", "flash_attention_192x128",
+             "decode_attention_g48")
 
 
-def attn_inputs(dev, dtype, B, Sq, Skv, H, KV, hd, seed):
+def attn_inputs(dev, dtype, B, Sq, Skv, H, KV, hd, seed, hdv=None):
+    """Unit-normal q (B,Sq,H,hd), k (B,Skv,KV,hd), v (B,Skv,KV,hdv or
+    hd) from ``seed``."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def mk(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
-    return mk(B, Sq, H, hd), mk(B, Skv, KV, hd), mk(B, Skv, KV, hd)
+    return mk(B, Sq, H, hd), mk(B, Skv, KV, hd), mk(B, Skv, KV, hdv or hd)
 
 
 def attn_limit(dtype, ref):
@@ -1415,11 +1492,16 @@ def attn_limit(dtype, ref):
 
 def phase_attention(dev, fa, fa_ref, da, da_ref):
     """Each attention kernel against its plain version on the card, bf16
-    and float32 (comparison launches, made before the counted runs)."""
-    errs = {"flash_attention": {}, "decode_attention": {}}
-    for n, (B, Sq, Skv, H, KV, hd, kvl, off) in enumerate(FLASH_CASES):
+    and float32 (comparison launches, made before the counted runs).
+    Returns the largest errors by kernels-line row and dtype: the
+    (192, 128) cases and the G = 48 decode case have rows of their
+    own."""
+    errs = {row: {} for row in ATTN_ROWS}
+    for n, (B, Sq, Skv, H, KV, hd, hdv, kvl, off) in enumerate(FLASH_CASES):
+        row = ("flash_attention_192x128" if (hd, hdv) == MLA_HEAD_DIMS
+               else "flash_attention")
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = attn_inputs(dev, dtype, B, Sq, Skv, H, KV, hd, n)
+            q, k, v = attn_inputs(dev, dtype, B, Sq, Skv, H, KV, hd, n, hdv)
             pos = (off + torch.arange(Sq, device=dev,
                                       dtype=torch.int32)).expand(B, Sq)
             kv_len = None if kvl is None else torch.tensor(
@@ -1432,14 +1514,16 @@ def phase_attention(dev, fa, fa_ref, da, da_ref):
                   f"flash attention: shape/dtype {out.shape} {out.dtype}")
             check(err <= limit, f"flash attention case {n} {dtype}: max "
                   f"abs err {err} > {limit}")
-            d = errs["flash_attention"]
+            d = errs[row]
             d[str(dtype)] = max(d.get(str(dtype), 0.0), err)
             emit({"phase": "kernels", "kernel": "flash_attention",
-                  "shape": [B, Sq, Skv, H, KV, hd], "kv_valid_len": kvl,
+                  "shape": [B, Sq, Skv, H, KV, hd, hdv], "kv_valid_len": kvl,
                   "q_offset": off, "dtype": str(dtype), "max_abs_err": err,
                   "ref_abs_max": ref.float().abs().max().item(),
                   "limit": limit})
     for n, (B, S, H, KV, hd, positions) in enumerate(DECODE_CASES):
+        row = ("decode_attention_g48" if H // KV == MQA_GROUP
+               else "decode_attention")
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = attn_inputs(dev, dtype, B, 1, S, H, KV, hd, 10 + n)
             pos = torch.tensor(positions, device=dev,
@@ -1453,7 +1537,7 @@ def phase_attention(dev, fa, fa_ref, da, da_ref):
                   f"decode attention: shape/dtype {out.shape} {out.dtype}")
             check(err <= limit, f"decode attention case {n} {dtype}: max "
                   f"abs err {err} > {limit}")
-            d = errs["decode_attention"]
+            d = errs[row]
             d[str(dtype)] = max(d.get(str(dtype), 0.0), err)
             emit({"phase": "kernels", "kernel": "decode_attention",
                   "shape": [B, S, H, KV, hd], "positions": positions,
@@ -1781,14 +1865,16 @@ def mamba_scan_row(dev, scan, scan_ref, cfg, d, per, groups, errs):
         library="none: no single PyTorch call computes a selective scan")
 
 
-def replay_logits(serving, cfg, params, dev, reqs, moe_impl="gshard"):
+def replay_logits(serving, cfg, params, dev, reqs, moe_impl="gshard",
+                  max_rows=None):
     """The engine's tokens fed back teacher-forced through ``cfg``'s
     kernel route, with a cache in the compute dtype: the prompts of one
     length prefilled together into their cache rows (as the engine's
-    length groups), then one batched decode step per generated token at
-    ragged positions; MoE layers by ``moe_impl`` (the model's default,
-    gshard, unless given). Returns (R, T, V) float32 last-position
-    logits, where step t predicts token t of each request's output."""
+    length groups; at most ``max_rows`` a dispatch, if given), then one
+    batched decode step per generated token at ragged positions; MoE
+    layers by ``moe_impl`` (the model's default, gshard, unless given).
+    Returns (R, T, V) float32 last-position logits, where step t predicts
+    token t of each request's output."""
     models = serving["models"]
     R, T = len(reqs), len(reqs[0].out_tokens)
     max_len = max(len(r.prompt) for r in reqs) + T
@@ -1798,7 +1884,9 @@ def replay_logits(serving, cfg, params, dev, reqs, moe_impl="gshard"):
     by_len = {}
     for i, r in enumerate(reqs):
         by_len.setdefault(len(r.prompt), []).append(i)
-    for L, idx in by_len.items():
+    step = max_rows or len(reqs)
+    for L, idx in [(L, idx[j:j + step]) for L, idx in by_len.items()
+                   for j in range(0, len(idx), step)]:
         sel = torch.as_tensor(idx, device=dev)
         view = {"layers": [{k: c[k][sel] for k in c}
                            for c in cache["layers"]]}
@@ -1892,7 +1980,8 @@ def decode_graph_vs_eager(eng, graphed, new_requests,
 
 
 def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
-                profile_rows=SERVE_SLOTS, moe_impl="dense", params=None):
+                profile_rows=SERVE_SLOTS, moe_impl="dense", params=None,
+                short=False, cut=None):
     """``cfg`` (a registered config, possibly cut in depth) at full width
     through the port's ServingEngine: ``dims`` ({config field: value})
     are checked; ``kernels`` = {"prefill": {kernel: mixer}, "decode":
@@ -1902,7 +1991,10 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
     leaves the init leaves constant. The standalone prefill profile
     takes ``profile_rows`` prompts of the longest length. ``moe_impl``
     is the engine's MoE implementation; ``params`` serves weights already
-    drawn (by an earlier call) instead of drawing them."""
+    drawn (by an earlier call) instead of drawing them. ``short`` leaves
+    out the steady-decode and prefill profiles (the counted run and the
+    decode graph against the eager step stay); ``cut`` describes a cut in
+    depth, printed on the serve line."""
     models, eng_mod = serving["models"], serving["serving"]
     arch = cfg.name
     check(all(getattr(cfg, k) == v for k, v in dims.items()),
@@ -1983,6 +2075,7 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
     lat = [r.done_at - r.submitted_at for r in reqs]
     ttft = [r.first_token_at - r.submitted_at for r in reqs]
     emit({"phase": "serve", "arch": cfg.name, "moe_impl": moe_impl,
+          "layers": cfg.num_layers, "cut": cut,
           "params": models.param_count(specs), "init_s": init_s,
           "slots": SERVE_SLOTS,
           "max_len": SERVE_MAX_LEN, "requests": SERVE_REQUESTS,
@@ -2007,6 +2100,21 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
               k: sum(p[k] for p in per["decode"]) / d["decode_steps"]
               for k in names},
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if short:
+        versus = decode_graph_vs_eager(
+            eng, graphed, requests(SERVE_SLOTS,
+                                   [len(r.prompt) for r in reqs[:8]],
+                                   3 + DECODE_COMPARE_STEPS))
+        check(graphed.captures == 1, f"{arch}: the decode step was "
+              f"captured {graphed.captures} times")
+        emit({"phase": "serve", "arch": cfg.name, "moe_impl": moe_impl,
+              "decode_graph_captures": graphed.captures,
+              "decode_capture_ms": 1e3 * graphed.capture_seconds,
+              "decode_graph_vs_eager": versus,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del eng
+        torch.cuda.empty_cache()
+        return cfg, launches, d, groups, per, params, reqs
 
     # decode in steady state: 8 slots at the run's prompt lengths
     for r in requests(SERVE_SLOTS, [len(r.prompt) for r in reqs[:8]],
@@ -2021,7 +2129,8 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
     def decode_steps():
         for _ in range(DECODE_PROFILE_STEPS):
             eng.step()
-    tag = "" if arch == "granite-3-2b" else "_" + arch.split("-")[0]
+    tag = ("" if arch == "granite-3-2b" else "_" + arch.split("-")[0]
+           if arch.startswith(("rwkv", "jamba")) else "_" + arch)
     tag += "" if moe_impl == "dense" else "_" + moe_impl
     prof = device_profile(decode_steps, os.path.join(
         OUT_DIR, f"profile_serve{tag}_decode.txt"))
@@ -2344,7 +2453,8 @@ def shadowed(kernel, ref, seen):
 
 
 def phase_replay(dev, serving, cfg, params, reqs, shadow=None,
-                 spread=None, f32=True, served=True):
+                 spread=None, f32=True, served=True, moe_impl="gshard",
+                 max_rows=None):
     """The served tokens replayed teacher-forced through the kernel path
     and the plain path on the card (run after the arch's measurements),
     in bf16 and in float32 (the same weights, upcast, with a float32
@@ -2371,7 +2481,10 @@ def phase_replay(dev, serving, cfg, params, reqs, shadow=None,
     card; the checks that need it are reported as not run).
     ``served=False``: ``reqs``' tokens come from another model (a cut of
     this one), so the kernel path's own greedy ids stand in for the
-    served ids and the served-ids check does not run."""
+    served ids and the served-ids check does not run. ``moe_impl``: the
+    MoE layers' implementation in every replay (the model's default,
+    gshard, unless given); ``max_rows``: the most prompts a replay's
+    prefill dispatch takes (:func:`replay_logits`)."""
     from unittest import mock
     tree_map = serving["models"].params.tree_map
     plain = dict(attn_impl="plain")
@@ -2387,21 +2500,23 @@ def phase_replay(dev, serving, cfg, params, reqs, shadow=None,
 
     def kernel_replay(c, p):
         if not shadow:
-            return replay_logits(serving, c, p, dev, reqs)[..., :V]
+            return replay_logits(serving, c, p, dev, reqs,
+                                 moe_impl, max_rows)[..., :V]
         seen = {"calls": 0, "y": 0.0, "state": 0.0}
         with mock.patch.object(shadow[0], shadow[1],
                                shadowed(shadow[2], shadow[3], seen)):
-            out = replay_logits(serving, c, p, dev, reqs)[..., :V]
+            out = replay_logits(serving, c, p, dev, reqs,
+                                moe_impl, max_rows)[..., :V]
         replays.append(seen)
         return out
     lk = kernel_replay(cfg, params)
     lp = replay_logits(serving, dataclasses.replace(cfg, **plain), params,
-                       dev, reqs)[..., :V]
+                       dev, reqs, moe_impl, max_rows)[..., :V]
     bf16_spread = {}
     for name, order in (spread[3].items() if spread else ()):
         with mock.patch.object(spread[0], spread[1], order):
             lr = replay_logits(serving, dataclasses.replace(cfg, **plain),
-                               params, dev, reqs)[..., :V]
+                               params, dev, reqs, moe_impl, max_rows)[..., :V]
         bf16_spread[name] = (lr - lp).abs().max().item()
         del lr
     spread32, atol32 = None, LOGITS_ATOL_F32
@@ -2411,11 +2526,12 @@ def phase_replay(dev, serving, cfg, params, reqs, shadow=None,
         p32 = tree_map(lambda t: t.float(), params)
         lk32 = kernel_replay(cfg32, p32)
         cfg32p = dataclasses.replace(cfg32, **plain)
-        lp32 = replay_logits(serving, cfg32p, p32, dev, reqs)[..., :V]
+        lp32 = replay_logits(serving, cfg32p, p32, dev, reqs,
+                             moe_impl, max_rows)[..., :V]
         if spread:
             with mock.patch.object(spread[0], spread[1], spread[2]):
                 lr32 = replay_logits(serving, cfg32p, p32, dev,
-                                     reqs)[..., :V]
+                                     reqs, moe_impl, max_rows)[..., :V]
             spread32 = (lr32 - lp32).abs().max().item()
             atol32 = RWKV_F32_SPREAD * spread32
             del lr32
@@ -2433,7 +2549,8 @@ def phase_replay(dev, serving, cfg, params, reqs, shadow=None,
     dec = decided(lp, LOGITS_ATOL)
     mismatched = int(((plain_ids != ref_ids) & dec).sum())
     out = {"phase": "serve", "arch": cfg.name, "replay": "teacher-forced",
-           "layers": cfg.num_layers, "experts": cfg.moe is not None,
+           "layers": cfg.num_layers,
+           "experts": any(f == "moe" for _, f in cfg.layer_specs()),
            "requests": len(reqs), "steps": served_ids.shape[1],
            "logits_max_abs_err": err.max().item(),
            "logits_err_p50": err.median().item(),
@@ -2528,35 +2645,38 @@ def phase_replay(dev, serving, cfg, params, reqs, shadow=None,
               "the bf16 plain path's largest distance from it")
 
 
-def phase_replay_cut(dev, serving, cfg, reqs, scan_shadow, seed=1):
-    """The float32 checks jamba's served weights cannot have (their
-    float32 copy is 92 GB): ``phase_replay`` in bf16 and float32 on a
-    no-expert cut of the served config, ``cfg`` with 3 layers and no
-    MoE, (attn, dense), (mamba, dense), (mamba, dense) at full width
-    (3.88 B params, 15.5 GB in float32), with its own seeded weights
-    (mamba leaves redrawn), over the served token sequences."""
+def phase_replay_cut(dev, serving, cut, label, reqs, shadow=None,
+                     redraw=None, max_rows=None, seed=1):
+    """The float32 checks a served model's weights cannot have (their
+    float32 copy does not fit beside them): ``phase_replay`` in bf16 and
+    float32 on ``cut``, a cut of the served config at full width
+    (``label`` says which), with its own seeded weights (``redraw``
+    applied), over the served token sequences. Jamba's is its no-expert
+    cut, (attn, dense), (mamba, dense), (mamba, dense) (3.88 B params,
+    15.5 GB in float32, mamba leaves redrawn); deepseek-v2's its first
+    layer, (mla, dense) (1.39 B, 5.5 GB in float32), which holds the
+    float32 flash kernel at (192, 128) inside the model."""
     models = serving["models"]
-    cut = dataclasses.replace(cfg, num_layers=3, moe=None)
-    check(cut.layer_specs() == [("attn", "dense"), ("mamba", "dense"),
-                                ("mamba", "dense")], "no-expert cut layers")
     gen = torch.Generator(device=dev).manual_seed(seed)
     specs = models.model_specs(cut)
     params = models.init_params(specs, gen, dev, torch.bfloat16)
-    mamba_redraw(params, gen)
-    emit({"phase": "serve", "arch": cut.name, "cut": "no experts",
+    if redraw is not None:
+        redraw(params, gen)
+    emit({"phase": "serve", "arch": cut.name, "cut": label,
           "layers": [list(sp) for sp in cut.layer_specs()],
           "params": models.param_count(specs)})
-    phase_replay(dev, serving, cut, params, reqs, shadow=scan_shadow,
-                 served=False)
+    phase_replay(dev, serving, cut, params, reqs, shadow=shadow,
+                 served=False, max_rows=max_rows)
 
 
-def flash_bound(B, Sq, H, KV, hd, kvl, nbytes_el):
-    """(bytes, flops) a causal prefill needs: q read, out written, the
-    valid K/V rows read once; two products over each query's valid keys
-    (hd == hdv)."""
+def flash_bound(B, Sq, H, KV, hd, hdv, kvl, nbytes_el):
+    """(bytes, flops) a causal prefill needs: q (hd wide) read, out (hdv)
+    written, the valid K (hd) and V (hdv) rows read once; two products
+    over each query's valid keys, 2 hd and 2 hdv flops a key."""
     keys = sum(min(L, i + 1) for L in kvl for i in range(Sq))
-    flops = H * keys * 2 * (hd + hd)
-    nbytes = nbytes_el * (2 * B * Sq * H * hd + sum(kvl) * KV * 2 * hd)
+    flops = H * keys * 2 * (hd + hdv)
+    nbytes = nbytes_el * (B * Sq * H * (hd + hdv)
+                          + sum(kvl) * KV * (hd + hdv))
     return nbytes, flops
 
 
@@ -2589,14 +2709,18 @@ def bound_ms(nbytes, flops):
             "bytes" if t_bytes >= t_flops else "operations")
 
 
-def flash_case(dev, fa, fa_ref, n, L, H, KV, hd, seed):
+def flash_case(dev, fa, fa_ref, n, L, H, KV, hd, seed, hdv=None):
     """A causal prefill of n prompts of L tokens into a max_len cache, as
     the engine's length group runs it: (kernel call, plain call, library
-    call, the library's description, (bytes, flops))."""
+    call, the library's description, (bytes, flops)). The library is
+    SDPA on the backend that takes the shapes first, of flash, memory-
+    efficient, cuDNN and math (the flash backend may refuse hd != hdv),
+    named in the description."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
+    hdv = hdv or hd
     q, k, v = attn_inputs(dev, torch.bfloat16, n, L, SERVE_MAX_LEN, H, KV,
-                          hd, seed)
+                          hd, seed, hdv)
     pos = torch.arange(L, device=dev, dtype=torch.int32).expand(n, L)
     kvl = torch.full((n,), L, device=dev, dtype=torch.int32)
     # the library computes the same function on the valid keys alone:
@@ -2608,19 +2732,34 @@ def flash_case(dev, fa, fa_ref, n, L, H, KV, hd, seed):
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                               enable_gqa=True)
 
-    def flash():
-        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-            return sdpa()
-    try:                                    # the fastest backend if it runs
-        flash()
-        lib, backend = flash, "flash backend"
-    except RuntimeError:
-        lib, backend = sdpa, "default backend"
+    def on(backend):
+        def call():
+            with sdpa_kernel([backend]):
+                return sdpa()
+        return call
+    names = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+             "MATH")
+    refused = []
+    for name in names:                      # the fastest backend that runs
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            on(backend)()
+            lib = on(backend)
+            break
+        except RuntimeError:
+            refused.append(name.lower())
+    else:
+        fail(f"no SDPA backend takes {(n, L, H, KV, hd, hdv)}")
+    torch.cuda.synchronize()
+    note = f", refused by {', '.join(refused)}" if refused else ""
     return (lambda: fa(q, k, v, q_positions=pos, kv_valid_len=kvl),
             lambda: fa_ref(q, k, v, q_offset=pos[:, 0], kv_valid_len=kvl),
             lambda: lib().transpose(1, 2),
-            f"causal, first kv_valid_len keys, enable_gqa, {backend}",
-            flash_bound(n, L, H, KV, hd, [L] * n, 2))
+            f"causal, first kv_valid_len keys, enable_gqa, "
+            f"{name.lower()} backend{note}",
+            flash_bound(n, L, H, KV, hd, hdv, [L] * n, 2))
 
 
 def decode_case(dev, da, da_ref, B, H, KV, hd, positions, seed):
@@ -2645,6 +2784,35 @@ def decode_case(dev, da, da_ref, B, H, KV, hd, positions, seed):
             "bool mask over the longest valid length, enable_gqa",
             (2 * (2 * B * H * hd + valid * KV * 2 * hd),
              valid * H * 2 * (hd + hd)))
+
+
+def attn_row(name, line, case, launches, per, shape, errs):
+    """One attention kernel's kernels-line row from a case of
+    :func:`flash_case` or :func:`decode_case`: ``name`` is the row's (the
+    kernel's, or the kernel's at a shape of its own), ``line`` the TPU
+    kernel's line in ``src/repro/kernels/<kernel>/kernel.py``,
+    ``launches`` the counted run's launches of the kernel."""
+    kernel = name.split("_")[0] + "_attention"
+    kern, plain, lib, lib_name, (nbytes, flops) = case
+    b_ms, b_by = bound_ms(nbytes, flops)
+    return {
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/csrc/{kernel}.cu",
+        "replaces": f"src/repro/kernels/{kernel}/kernel.py:{line}",
+        "launches": launches, "launches_per": per,
+        "shape": dict(shape, dtype="bfloat16"),
+        "max_abs_err": max(errs[name].values()),
+        "max_abs_err_by_dtype": errs[name],
+        "ms": graph_ms(kern, inner=5), "plain_ms": graph_ms(plain, inner=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": nbytes, "flops": flops,
+        "library_ms": graph_ms(lib, inner=5),
+        "library": "torch.nn.functional.scaled_dot_product_attention "
+                   f"({lib_name})",
+        "library_max_abs_err": (kern().float() - lib().float()
+                                ).abs().max().item(),
+        "call_ms": event_ms(kern, inner=5),
+        "device_us_by_kernel": kernel_us(kern)}
 
 
 def attention_rows(dev, fa, fa_ref, da, da_ref, cfg, launches, d, groups,
@@ -2682,36 +2850,59 @@ def attention_rows(dev, fa, fa_ref, da, da_ref, cfg, launches, d, groups,
              {"B": B, "S": S, "positions": list(positions),
               "splits": nsplit, "split_pass_blocks": nsplit * KV * B},
              {"B": B, "S": S, "positions": list(positions)})):
-        kern, plain, lib, lib_name, (nbytes, flops) = case
-        b_ms, b_by = bound_ms(nbytes, flops)
+        row = attn_row(name, line, case, launches[name], per,
+                       dict(shape, H=H, KV=KV, hd=hd), errs)
         jk, _, jlib, _, jbound = jamba()
         jb_ms, jb_by = bound_ms(*jbound)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": f"src/repro/kernels/{name}/kernel.py:{line}",
-            "launches": launches[name], "launches_per": per,
-            "shape": dict(shape, H=H, KV=KV, hd=hd, dtype="bfloat16"),
-            "max_abs_err": max(errs[name].values()),
-            "max_abs_err_by_dtype": errs[name],
-            "ms": graph_ms(kern, inner=5), "plain_ms": graph_ms(plain, inner=5),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "flops": flops,
-            "library_ms": graph_ms(lib, inner=5),
-            "library": "torch.nn.functional.scaled_dot_product_attention "
-                       f"({lib_name})",
-            "library_max_abs_err": (kern().float() - lib().float()
+        row["at_jamba"] = {
+            "shape": dict(jshape, H=64, KV=8, hd=128, dtype="bfloat16"),
+            "ms": graph_ms(jk, inner=5),
+            "library_ms": graph_ms(jlib, inner=5),
+            "library_max_abs_err": (jk().float() - jlib().float()
                                     ).abs().max().item(),
-            "call_ms": event_ms(kern, inner=5),
-            "device_us_by_kernel": kernel_us(kern),
-            "at_jamba": {
-                "shape": dict(jshape, H=64, KV=8, hd=128, dtype="bfloat16"),
-                "ms": graph_ms(jk, inner=5),
-                "library_ms": graph_ms(jlib, inner=5),
-                "library_max_abs_err": (jk().float() - jlib().float()
-                                        ).abs().max().item(),
-                "bound_ms": jb_ms, "bound_by": jb_by}})
+            "bound_ms": jb_ms, "bound_by": jb_by}
+        rows.append(row)
     return rows
+
+
+def mla_flash_row(dev, fa, fa_ref, cfg, launches, d, errs):
+    """flash attention's kernels-line row at (hd, hdv) = (192, 128):
+    deepseek-v2's profiled prefill dispatch (JAMBA_PROFILE_ROWS prompts
+    of 1000 tokens, 128 heads on 128 expanded KV heads, a 4096-row
+    cache), with the launches of deepseek-v2's counted serving run."""
+    m, H = cfg.mla, cfg.num_heads
+    hd, hdv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    check((hd, hdv) == MLA_HEAD_DIMS, f"MLA head dims {(hd, hdv)}")
+    n, L = JAMBA_PROFILE_ROWS, SERVE_LENGTHS[-1]
+    return attn_row(
+        "flash_attention_192x128", 73,
+        flash_case(dev, fa, fa_ref, n, L, H, H, hd, 95, hdv),
+        launches["flash_attention"],
+        {"per_prefill_dispatch": launches["flash_attention"]
+         / d["prefill_dispatches"], "arch": cfg.name},
+        {"B": n, "Sq": L, "Skv": SERVE_MAX_LEN, "kv_valid_len": L, "H": H,
+         "KV": H, "hd": hd, "hdv": hdv}, errs)
+
+
+def mqa_decode_row(dev, da, da_ref, cfg, launches, d, errs):
+    """flash-decode's kernels-line row at G = 48: granite-34b's 8 slots
+    decoding (48 query heads on one KV head of 128), with the launches of
+    granite-34b's counted serving run."""
+    from repro_torch.kernels import _attn
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    check(H // KV == MQA_GROUP, f"{cfg.name}: G = {H // KV}")
+    B, S, positions = SERVE_SLOTS, SERVE_MAX_LEN, DECODE_CASES[0][5]
+    nsplit = _attn.decode_splits(S, B, KV, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    return attn_row(
+        "decode_attention_g48", 61,
+        decode_case(dev, da, da_ref, B, H, KV, hd, positions, 94),
+        launches["decode_attention"],
+        {"per_decode_step": launches["decode_attention"]
+         / d["decode_steps"], "arch": cfg.name},
+        {"B": B, "S": S, "positions": list(positions), "H": H, "KV": KV,
+         "hd": hd, "splits": nsplit,
+         "split_pass_blocks": nsplit * KV * B * -(-H // KV // 16)}, errs)
 
 
 # --ab: B x S of the timed calls (jamba's and rwkv's 4 x 1000 prefill,
@@ -2812,6 +3003,7 @@ def ab_worker(tree):
     from repro_torch.kernels.halo_pack import ops as hp
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.rwkv6 import wkv6
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     os.makedirs(OUT_DIR, exist_ok=True)
     names = ("wkv6", "mamba_scan", "halo_pack", "counter_bump")
@@ -3367,6 +3559,107 @@ def phase_a2a_serve(dev, serving, cfg, params, dense, a2a):
           "a2a_gap_checked": counts["dropped"] == 0})
 
 
+# ---------------------------------------------------------------------------
+# DeepSeek-V2's MLA, deepseek-moe-16b, and the attention archs served short
+# ---------------------------------------------------------------------------
+
+def phase_deepseek(dev, _build, serving, cfgs, attn, attn_errs):
+    """deepseek-v2-236b at full width cut to DEEPSEEK_LAYERS layers served
+    as in phase 6 with the dense MoE (exactly DEEPSEEK_LAYERS flash
+    attention launches at (192, 128) in every prefill dispatch, none of
+    either attention kernel in a decode step: the absorbed decode is
+    plain products); its flash_attention_192x128 kernels-line row; the
+    served tokens replayed in bf16 (its float32 copy does not fit beside
+    it); then, its weights freed, the bf16 and float32 replay of its
+    first layer; then deepseek-moe-16b whole, served as in phase 6.
+    Returns the new kernels-line rows."""
+    MoE, MLA = cfgs.MoEConfig, cfgs.MLAConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "arch": "deepseek-v2-236b",
+          "allocated_before_gb": torch.cuda.memory_allocated() / 1e9})
+    ds = dataclasses.replace(cfgs.get_config("deepseek-v2-236b"),
+                             num_layers=DEEPSEEK_LAYERS)
+    check(ds.layer_specs() == [("mla", "dense")] + [("mla", "moe")] * 3,
+          f"deepseek-v2 cut layers {ds.layer_specs()}")
+    mla_kernels = {"prefill": {"flash_attention": "mla"},
+                   "decode": {"decode_attention": "attn"}}   # none
+    cfg, launches, counts, _, _, params, reqs = phase_serve(
+        dev, _build, serving, ds,
+        dict(num_layers=DEEPSEEK_LAYERS, d_model=5120, num_heads=128,
+             num_kv_heads=128, d_ff=1536, vocab_size=102400,
+             first_dense_ff=12288,
+             moe=MoE(num_experts=160, top_k=6, expert_ff=1536, num_shared=2,
+                     shared_ff=3072),
+             mla=MLA(kv_lora_rank=512, q_lora_rank=1536, qk_nope_head_dim=128,
+                     qk_rope_head_dim=64, v_head_dim=128)),
+        mla_kernels, profile_rows=JAMBA_PROFILE_ROWS,
+        cut=f"depth: the first {DEEPSEEK_LAYERS} of 60 layers, (mla, dense) "
+            "then 3 x (mla, moe)")
+    rows = [mla_flash_row(dev, *attn[:2], cfg, launches, counts, attn_errs)]
+    emit(dict(rows[-1], phase="kernel_row"))
+    phase_replay(dev, serving, cfg, params, reqs, f32=False,
+                 moe_impl="dense", max_rows=JAMBA_PROFILE_ROWS)
+    del params                              # deepseek-v2's 26.6 GB go first
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, num_layers=1)
+    check(cut.layer_specs() == [("mla", "dense")], "first-layer cut")
+    phase_replay_cut(dev, serving, cut, "the first layer", reqs,
+                     max_rows=JAMBA_PROFILE_ROWS)
+    del reqs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, _, _, _, _, params, reqs = phase_serve(
+        dev, _build, serving, cfgs.get_config("deepseek-moe-16b"),
+        dict(num_layers=28, d_model=2048, num_heads=16, num_kv_heads=16,
+             head_dim=128, d_ff=1408, vocab_size=102400,
+             first_dense_ff=10944,
+             moe=MoE(num_experts=64, top_k=6, expert_ff=1408, num_shared=2,
+                     shared_ff=2816)),
+        {"prefill": {"flash_attention": "attn"},
+         "decode": {"decode_attention": "attn"}})
+    del params, reqs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_short_serves(dev, _build, serving, cfgs, attn, attn_errs,
+                       kernels):
+    """The attention archs of SHORT_SERVES at full width, each alone on
+    the card (cut in depth where its weights, cache and the decode
+    check's copies would not fit), served as in phase 6 without the
+    profiles: the counted run (one flash attention launch per layer a
+    prefill dispatch, one flash-decode launch per layer a decode step)
+    and the decode graph against the eager step. granite-34b (MQA,
+    G = 48) gives flash-decode's decode_attention_g48 row."""
+    dims = {"minitron-4b": dict(d_model=3072, num_heads=24, num_kv_heads=8,
+                                head_dim=128, d_ff=9216, vocab_size=256000),
+            "qwen3-32b": dict(d_model=5120, num_heads=64, num_kv_heads=8,
+                              head_dim=128, d_ff=25600, vocab_size=151936,
+                              qk_norm=True),
+            "granite-34b": dict(d_model=6144, num_heads=48, num_kv_heads=1,
+                                head_dim=128, d_ff=24576,
+                                vocab_size=49152)}
+    rows = []
+    for arch, layers in SHORT_SERVES:
+        full = cfgs.get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, num_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        cfg, launches, counts, _, _, params, reqs = phase_serve(
+            dev, _build, serving, cfg, dims[arch], kernels, short=True,
+            cut=None if layers is None else
+            f"depth: the first {layers} of {full.num_layers} layers")
+        del params, reqs
+        torch.cuda.empty_cache()
+        if cfg.num_heads // cfg.num_kv_heads == MQA_GROUP:
+            rows.append(mqa_decode_row(dev, *attn[2:], cfg, launches,
+                                       counts, attn_errs))
+            emit(dict(rows[-1], phase="kernel_row"))
+    check(len(rows) == 1, "no G = 48 decode row")
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
                                  "one NVIDIA card (see the docstring).")
@@ -3407,6 +3700,7 @@ def main():
     import repro_torch.models as models
     import repro_torch.serving as serving_mod
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     os.makedirs(OUT_DIR, exist_ok=True)
     emit({"phase": "start", "torch": torch.__version__,
@@ -3509,15 +3803,27 @@ def main():
     torch.cuda.empty_cache()
     # the same weights and traffic with the expert-parallel MoE (one
     # shard), beside the dense MoE
-    _, _, a2a_counts, _, _, _, a2a_reqs = phase_serve(
+    a2a_run = phase_serve(
         dev, _build, serving, jamba,
         dict(num_layers=JAMBA_LAYERS, d_model=8192), jamba_kernels,
         profile_rows=JAMBA_PROFILE_ROWS, moe_impl="a2a", params=params)
     phase_a2a_serve(dev, serving, cfg, params, (counts, reqs),
-                    (a2a_counts, a2a_reqs))
-    del params                              # jamba's 46 GB go first
+                    (a2a_run[2], a2a_run[6]))
+    del params, a2a_run                     # jamba's 46 GB go first
     torch.cuda.empty_cache()
-    phase_replay_cut(dev, serving, cfg, reqs, scan_shadow)
+    cut = dataclasses.replace(cfg, num_layers=3, moe=None)
+    check(cut.layer_specs() == [("attn", "dense"), ("mamba", "dense"),
+                                ("mamba", "dense")], "no-expert cut layers")
+    phase_replay_cut(dev, serving, cut, "no experts", reqs,
+                     shadow=scan_shadow, redraw=mamba_redraw)
+    del reqs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels += phase_deepseek(dev, _build, serving, cfgs, attn, attn_errs)
+    kernels += phase_short_serves(dev, _build, serving, cfgs, attn,
+                                  attn_errs, granite_kernels)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "kernel_rows": [row["name"] for row in kernels]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -56,6 +56,15 @@
 // bf16 kernel takes the q-tiles last to first, so that under causal
 // masking the longest tiles start first. TMA, wgmma and a persistent
 // schedule are later work.
+//
+// Head dims: (32, 32), (64, 64), (128, 128), and (192, 128), the prefill
+// of DeepSeek-V2's multi-head latent attention (q and k: 128 "nope" + 64
+// rotary columns a head, v 128). At (192, 128) the bf16 kernel keeps 12
+// Q fragments and 16 output n-tiles a warp in registers (ptxas: 225
+// registers, no spill) and its shared ring takes 2 x (64 x 200 + 2 x 64
+// x 200 + 2 x 64 x 136) = 111,616 bytes; the float32 kernel 4 x (192 x 64
+// + 64 x 193 + 64 x 128 + 64 x 68) = 148,736 bytes (127 registers, no
+// spill). Both sit under Hopper's 227 KB opt-in, set per launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -537,8 +546,8 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 // the last dim contiguous, other element strides in `strides` as
 // {q b,s,h, k b,s,h, v b,s,h, out b,s,h}; every row start 16-byte
 // aligned. q_offset, kv_len: (B,) int32. (hd, hdv) in {(32,32),
-// (64,64), (128,128)}; the wrapper checks all of it and raises before
-// calling.
+// (64,64), (128,128), (192,128)}; the wrapper checks all of it and
+// raises before calling.
 extern "C" int flash_attention_launch(int dtype, const void* q,
                                       const void* k, const void* v,
                                       void* out, const int* q_offset,
@@ -558,5 +567,8 @@ extern "C" int flash_attention_launch(int dtype, const void* q,
   if (hd == 32 && hdv == 32)
     return launch<32, 32>(dtype, q, k, v, out, q_offset, kv_len, B, Sq, Skv,
                           H, G, strides, causal, s);
+  if (hd == 192 && hdv == 128)
+    return launch<192, 128>(dtype, q, k, v, out, q_offset, kv_len, B, Sq,
+                            Skv, H, G, strides, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,8 +7,11 @@ import ctypes
 
 import torch
 
-# (hd, hdv) pairs the kernels are compiled for
-HEAD_DIMS = ((32, 32), (64, 64), (128, 128))
+# (hd, hdv) pairs the flash attention kernel is compiled for; (192, 128)
+# is DeepSeek-V2's MLA prefill (q, k: 128 nope + 64 rope per head, v 128)
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
+# the pairs of the flash-decode kernel (MLA decodes by absorbed products)
+DECODE_HEAD_DIMS = ((32, 32), (64, 64), (128, 128))
 # the dtype code every C entry takes (the WKV6 wrapper's too)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # flash-decode's split over the key range: at most one split per
@@ -30,10 +33,11 @@ def decode_splits(S: int, B: int, KV: int, sm_count: int) -> int:
     return max(1, min(by_len, by_sms))
 
 
-def check_inputs(name: str, q, k, v, *index) -> None:
+def check_inputs(name: str, q, k, v, *index,
+                 head_dims=HEAD_DIMS) -> None:
     """Shapes, dtypes, device and layout of a launch: q (B,Sq,H,hd),
     k (B,Skv,KV,hd), v (B,Skv,KV,hdv) of one dtype (bf16 or float32) on
-    the current CUDA device, KV dividing H, (hd, hdv) in ``HEAD_DIMS``,
+    the current CUDA device, KV dividing H, (hd, hdv) in ``head_dims``,
     each last dim contiguous and every row 16-byte aligned; ``index``:
     (B,) int32 contiguous tensors on the same device."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -49,9 +53,9 @@ def check_inputs(name: str, q, k, v, *index) -> None:
         raise ValueError(f"{name}: {KV} KV heads do not divide {H} heads")
     if Skv == 0:
         raise ValueError(f"{name}: empty key range")
-    if (hd, v.shape[3]) not in HEAD_DIMS:
+    if (hd, v.shape[3]) not in head_dims:
         raise ValueError(f"{name}: no kernel for head dims (hd, hdv) = "
-                         f"({hd}, {v.shape[3]}); compiled for {HEAD_DIMS}")
+                         f"({hd}, {v.shape[3]}); compiled for {head_dims}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q, k, v must share one dtype of "
                         f"{sorted(map(str, DTYPES))}, got {q.dtype}, "

@@ -36,7 +36,8 @@ def decode_attention(q, k, v, *, q_positions=None, kv_valid_len=None):
         kvl = torch.full((B,), S, dtype=torch.int32, device=q.device)
     else:
         kvl = kv_valid_len.to(torch.int32).contiguous()
-    _attn.check_inputs("decode attention", q, k, v, pos, kvl)
+    _attn.check_inputs("decode attention", q, k, v, pos, kvl,
+                       head_dims=_attn.DECODE_HEAD_DIMS)
     out = torch.empty((B, 1, H, hdv), dtype=q.dtype, device=q.device)
     nsplit = _attn.decode_splits(
         S, B, KV, torch.cuda.get_device_properties(q.device)

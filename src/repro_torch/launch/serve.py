@@ -7,14 +7,18 @@ card by default.
       --device cpu --requests 8 --slots 4 --max-new 16
   python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \\
       --reduced --device cpu --moe-impl gshard
+  python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
+      --reduced --device cpu
 
-``--arch`` takes the ported architectures (granite-3-2b, rwkv6-1.6b,
-jamba-1.5-large-398b); ``--moe-impl`` the MoE layers' implementation
-(the reference's choices; "dense" is its default, "a2a" the
-gather-based expert-parallel MoE on one shard). The full 72-layer
-jamba (398.6 B params) fits no single card and is not cut here: on a
-card its init fails with the allocator's out-of-memory error
-(chip_smoke.py serves a 4-layer cut).
+``--arch`` takes the ported architectures (granite-3-2b, qwen3-32b,
+minitron-4b, granite-34b, rwkv6-1.6b, jamba-1.5-large-398b,
+deepseek-v2-236b, deepseek-moe-16b); ``--moe-impl`` the MoE layers'
+implementation (the reference's choices; "dense" is its default, "a2a"
+the gather-based expert-parallel MoE on one shard). Models larger than
+one card in bf16 (the full 72-layer jamba, 398.6 B params;
+deepseek-v2-236b, 235.7 B; granite-34b, 47.2 B) are not cut here: on a
+card their init fails with the allocator's out-of-memory error
+(chip_smoke.py serves cuts in depth).
 
 Params are random (seed 0), in the config's compute dtype.
 

@@ -103,11 +103,13 @@ def _update_cache(cache_k, k_new, index):
     return cache_k
 
 
-def shared_inputs(cfg, positions) -> dict:
+def shared_inputs(cfg, positions, rope_dim=None) -> dict:
     """What every attention layer of one forward pass derives from the
-    positions alone — the RoPE table, the cache rows written, the valid
-    KV length — made once per pass instead of once per layer."""
-    return {"rope": rope_table(positions, cfg.head_dim, cfg.rope_theta),
+    positions alone — the RoPE table (at ``rope_dim``, default the head
+    dim), the cache rows written, the valid KV length — made once per
+    pass instead of once per layer."""
+    return {"rope": rope_table(positions, rope_dim or cfg.head_dim,
+                               cfg.rope_theta),
             "cache_index": cache_index(positions),
             "kv_valid_len": positions[:, -1] + 1}
 

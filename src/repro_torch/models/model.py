@@ -1,7 +1,7 @@
 """Block-pattern LM of the port, following the JAX package's
 ``models/model.py``: per block
 
-    x += mixer(norm(x))     mixer: attn, mamba, rwkv time-mix
+    x += mixer(norm(x))     mixer: attn, mla, mamba, rwkv time-mix
     x += ffn(norm(x))       ffn:   dense SwiGLU, MoE, rwkv channel-mix
 
 mixer and FFN dispatched independently, as the reference's
@@ -9,8 +9,9 @@ mixer and FFN dispatched independently, as the reference's
 repeated unit on a leading "layers" axis and runs it with ``lax.scan``;
 the port keeps one param dict and one cache dict per layer
 (``params["layers"][i]``, ``cache["layers"][i]``) and loops over them.
-MLA and cross-attention mixers and the modality frontends raise
-``NotImplementedError`` until their slice is ported.
+Cross-attention mixers and the modality frontends raise
+``NotImplementedError`` until their slice is ported (ROADMAP Queue 1
+item 7d).
 """
 from __future__ import annotations
 
@@ -19,11 +20,12 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.params import ParamSpec
 
-_MIXERS = ("attn", "mamba", "rwkv")
+_MIXERS = ("attn", "mla", "mamba", "rwkv")
 
 
 def _check_ported(cfg) -> list:
@@ -33,11 +35,11 @@ def _check_ported(cfg) -> list:
             raise NotImplementedError(
                 f"{cfg.name}: layer {i} has a {mixer!r} mixer; the port "
                 f"runs {_MIXERS} mixers only so far (ROADMAP Queue 1 item "
-                "7: MLA and cross attention)")
+                "7d: cross attention)")
     if cfg.vision is not None or cfg.family == "audio":
         raise NotImplementedError(
             f"{cfg.name}: modality frontends are not ported yet (ROADMAP "
-            "Queue 1 item 7)")
+            "Queue 1 item 7d)")
     return specs
 
 
@@ -51,6 +53,8 @@ def _block_specs(cfg, spec, ff_width: int) -> dict:
     s = {"norm1": L.rmsnorm_specs(d), "norm2": L.rmsnorm_specs(d)}
     if mixer == "attn":
         s["mixer"] = attn_mod.attn_specs(cfg)
+    elif mixer == "mla":
+        s["mixer"] = mla_mod.mla_specs(cfg)
     elif mixer == "mamba":
         s["mixer"] = mamba_mod.mamba_specs(cfg)
     else:
@@ -80,7 +84,9 @@ def cache_specs(cfg, batch: int, max_len: int,
     """{"layers": [per-layer ParamSpecs]}, zero-initialized, as the
     reference's ``_block_cache_specs``: an attention layer's {"k", "v"}
     of (batch, max_len, KV, hd) in ``cache_dtype`` (bf16, as the
-    reference); a mamba layer's {"conv"} (batch, d_conv - 1, d_inner) in
+    reference); an mla layer's {"ckv"} (batch, max_len, kv_lora) and
+    {"krope"} (batch, max_len, rope_dim) in ``cache_dtype``; a mamba
+    layer's {"conv"} (batch, d_conv - 1, d_inner) in
     ``cache_dtype`` and {"ssm"} (batch, d_inner, d_state) float32; an
     rwkv layer's {"shift_t", "shift_c"} (batch, D) in ``cache_dtype`` and
     {"wkv"} (batch, H, hd, hd) float32. Leaves with a "kv_seq" axis hold
@@ -90,6 +96,8 @@ def cache_specs(cfg, batch: int, max_len: int,
     for mixer, _ in specs:
         if mixer == "attn":
             raw = attn_mod.attn_cache_specs(cfg, batch, max_len)
+        elif mixer == "mla":
+            raw = mla_mod.mla_cache_specs(cfg, batch, max_len)
         elif mixer == "mamba":
             raw = mamba_mod.mamba_cache_specs(cfg, batch)
         else:
@@ -113,7 +121,11 @@ def _apply_block(cfg, spec, params, x, *, positions, cache, shared,
     if mixer == "attn":
         out, cache = attn_mod.attention(cfg, params["mixer"], h,
                                         positions=positions, cache=cache,
-                                        shared=shared)
+                                        shared=shared[mixer])
+    elif mixer == "mla":
+        out, cache = mla_mod.mla_attention(cfg, params["mixer"], h,
+                                           positions=positions, cache=cache,
+                                           shared=shared[mixer])
     elif mixer == "mamba":
         out, cache = mamba_mod.mamba(cfg, params["mixer"], h, cache=cache)
     else:
@@ -147,8 +159,13 @@ def forward(cfg, params, batch, *, cache=None, moe_impl: str = "gshard"):
     cdt = getattr(torch, cfg.compute_dtype)
     positions = batch["positions"]
     x = L.embed(params["embed"], batch["tokens"], cdt)
-    shared = (attn_mod.shared_inputs(cfg, positions)
-              if any(sp[0] == "attn" for sp in specs) else None)
+    # what the attention layers derive from the positions alone, once
+    mixers = {sp[0] for sp in specs}
+    shared = {}
+    if "attn" in mixers:
+        shared["attn"] = attn_mod.shared_inputs(cfg, positions)
+    if "mla" in mixers:
+        shared["mla"] = mla_mod.shared_inputs(cfg, positions)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (sp, p) in enumerate(zip(specs, params["layers"])):
         c = cache["layers"][i] if cache is not None else None

@@ -145,9 +145,10 @@ def stack_specs(spec_tree, n: int):
 
 def _to_tensor(a, device, dtype, name) -> torch.Tensor:
     a = np.array(a)                       # a writable copy
-    if a.dtype.kind == "f" and a.dtype not in (np.float32, np.float64,
-                                               np.float16):
-        a = a.astype(np.float32)          # bfloat16 (ml_dtypes) and kin
+    if a.dtype.kind not in "biu" and a.dtype not in (np.float32, np.float64,
+                                                     np.float16):
+        # bfloat16 and kin (ml_dtypes' kind is "V", not "f")
+        a = a.astype(np.float32)
     return torch.from_numpy(a).to(
         device=device, dtype=leaf_dtype(a.shape, dtype, name))
 

@@ -238,7 +238,8 @@ def test_kernel_input_checks_raise(case, err, match):
     i32 = torch.zeros((2,), dtype=torch.int32)
     args = {
         "hd96": _qkv((2, 8, 4, 96), (2, 16, 2, 96)),
-        "mla": _qkv((2, 8, 4, 192), (2, 16, 2, 192), hdv=128),
+        # the reduced MLA config's pair: no kernel is compiled for it
+        "mla": _qkv((2, 8, 4, 48), (2, 16, 2, 48), hdv=32),
         "heads": _qkv((2, 8, 6, 64), (2, 16, 4, 64)),
         "dtype": _qkv((2, 8, 4, 64), (2, 16, 2, 64))[:1]
         + _qkv((2, 8, 4, 64), (2, 16, 2, 64), torch.float32)[1:],
@@ -247,6 +248,25 @@ def test_kernel_input_checks_raise(case, err, match):
     }[case]
     with pytest.raises(err, match=match):
         _attn.check_inputs("flash attention", *args, i32, i32)
+
+
+def test_flash_takes_mla_head_dims_and_flash_decode_refuses_them():
+    """(hd, hdv) = (192, 128), DeepSeek-V2's MLA prefill, passes the
+    flash attention kernel's head-dim check (the CPU tensors then fail
+    the device check); flash-decode is not compiled for it (MLA decodes
+    by absorbed products), so its wrapper refuses it before any launch."""
+    assert (192, 128) in _attn.HEAD_DIMS
+    assert (192, 128) not in _attn.DECODE_HEAD_DIMS
+    i32 = torch.zeros((2,), dtype=torch.int32)
+    q, k, v = _qkv((2, 8, 4, 192), (2, 16, 2, 192), hdv=128)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        _attn.check_inputs("flash attention", q, k, v, i32, i32)
+    with pytest.raises(ValueError, match="no kernel for head dims"):
+        _attn.check_inputs("decode attention", q, k, v, i32, i32,
+                           head_dims=_attn.DECODE_HEAD_DIMS)
+    meta = [t.to("meta") for t in (q, k, v)]
+    with pytest.raises(ValueError, match="no kernel for head dims"):
+        decode_attention(meta[0][:, :1], *meta[1:])
 
 
 def test_wrappers_refuse_a_device_without_a_kernel():

@@ -17,7 +17,9 @@ compute in float32 on the same values: 1e-5. So do the selective-scan
 kernel and its plain version: 1e-5 of max(1, the largest |value|) for
 the state and a float32 y, 2e-2 of it for a bf16 y (one rounding of the
 same float32 value). The serving engine on the card must serve the CPU's
-greedy tokens, granite-3-2b's, rwkv6's and jamba's.
+greedy tokens, granite-3-2b's, rwkv6's, jamba's and deepseek-v2's (MLA:
+flash attention at (hd, hdv) = (192, 128) at prefill, absorbed products
+at decode).
 """
 import numpy as np
 import pytest
@@ -542,6 +544,58 @@ def test_decode_attention_kernel_equals_plain(dev, dtype, B, S, H, KV, hd,
         ref = decode_attention_ref(q, k, v, q_positions=p, kv_valid_len=kvl)
         assert out.shape == ref.shape and out.dtype == dtype
         _assert_attn_close(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,kvl,off", [
+    (4, 1000, 4096, 128, 128, (1000,) * 4, 0),     # deepseek-v2 prefill
+    (2, 1000, 1000, 16, 16, (700, 1000), 0),       # ragged
+    (2, 65, 129, 16, 16, (129, 64), 64),           # tile edges
+    (1, 1, 1, 4, 4, None, 0),
+    (2, 63, 64, 8, 2, (64, 63), 1),                # GQA
+    (1, 127, 129, 4, 4, (129,), 2),
+])
+def test_flash_attention_kernel_at_mla_head_dims_equals_plain(
+        dev, dtype, B, Sq, Skv, H, KV, kvl, off):
+    """(hd, hdv) = (192, 128), DeepSeek-V2's MLA prefill: q and k 192
+    wide (24 16-byte chunks a bf16 row), v and the output 128, at the
+    edges of the 64-row q-tiles and 64-key tiles."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    q, k, _ = _attn_inputs(dev, dtype, B, Sq, Skv, H, KV, 192)
+    v = _attn_inputs(dev, dtype, B, 1, Skv, 1, KV, 128, seed=1)[2]
+    pos = (off + torch.arange(Sq, device=dev, dtype=torch.int32)).expand(
+        B, Sq)
+    kv_len = None if kvl is None else torch.tensor(kvl, device=dev,
+                                                   dtype=torch.int32)
+    _build.reset_launches()
+    out = flash_attention(q, k, v, q_positions=pos, kv_valid_len=kv_len)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == 1
+    ref = flash_attention_ref(q, k, v, q_offset=pos[:, 0],
+                              kv_valid_len=kv_len)
+    assert out.shape == (B, Sq, H, 128) and out.dtype == dtype
+    _assert_attn_close(out, ref)
+
+
+def test_attention_kernels_refuse_head_dims_they_are_not_built_for(dev):
+    """No fallback: a pair the flash kernel was not compiled for (the
+    reduced MLA config's (48, 32), and (192, 192)) and flash-decode at
+    (192, 128) raise before any launch."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    _build.reset_launches()
+    for hd, hdv in ((48, 32), (192, 192)):
+        q, k, _ = _attn_inputs(dev, torch.bfloat16, 1, 8, 16, 4, 4, hd)
+        v = _attn_inputs(dev, torch.bfloat16, 1, 1, 16, 1, 4, hdv)[2]
+        with pytest.raises(ValueError, match="no kernel for head dims"):
+            flash_attention(q, k, v)
+    q, k, _ = _attn_inputs(dev, torch.bfloat16, 1, 1, 16, 4, 4, 192)
+    v = _attn_inputs(dev, torch.bfloat16, 1, 1, 16, 1, 4, 128)[2]
+    with pytest.raises(ValueError, match="no kernel for head dims"):
+        decode_attention(q, k, v)
+    assert _build.LAUNCHES["flash_attention"] == 0
+    assert _build.LAUNCHES["decode_attention"] == 0
 
 
 def test_attention_kernels_with_no_valid_key_average_uniformly(dev):
@@ -1077,6 +1131,66 @@ def test_decode_graph_equals_eager_decode(dev, arch, moe_impl):
         device=dev).manual_seed(0), dev, torch.bfloat16)
     eng = ServingEngine(dataclasses.replace(cfg), params, batch_slots=4,
                         max_len=64, moe_impl=moe_impl, device=dev)
+    rng = np.random.RandomState(2)
+    _graph_vs_eager_decode(eng, [rng.randint(1, cfg.vocab_size, L)
+                                 .astype(np.int32) for L in (5, 9, 5, 12)])
+
+
+def _mla_card_config():
+    """deepseek-v2's reduced config at the full width of its attention
+    heads — nope 128 + rope 64, v 128, so that its prefill runs the flash
+    kernel at (192, 128) — with a narrow latent and model width."""
+    import dataclasses
+    from repro_torch.configs import MLAConfig, get_config
+    return dataclasses.replace(
+        get_config("deepseek-v2-236b").reduced(),
+        mla=MLAConfig(kv_lora_rank=64, q_lora_rank=48, qk_nope_head_dim=128,
+                      qk_rope_head_dim=64, v_head_dim=128))
+
+
+def test_mla_engine_on_the_card_equals_the_cpu_and_launches_the_kernel(dev):
+    """deepseek-v2's MLA layers served on the card: one flash attention
+    launch per MLA layer per prefill dispatch, none at a decode step (the
+    absorbed products), and the CPU's greedy tokens (float32 compute)."""
+    import dataclasses
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Request, ServingEngine
+    cfg = dataclasses.replace(_mla_card_config(), compute_dtype="float32")
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         "cpu", torch.float32)
+    rng = np.random.RandomState(0)
+    specs = [(rng.randint(1, cfg.vocab_size, L).astype(np.int32), m)
+             for L, m in ((5, 6), (9, 4), (5, 3), (17, 5), (9, 2))]
+    tokens = {}
+    for device in ("cpu", dev):
+        eng = ServingEngine(cfg, tree_map(lambda t: t.to(device), params),
+                            batch_slots=3, max_len=64, device=device)
+        reqs = [Request(prompt=pr, max_new_tokens=m) for pr, m in specs]
+        for r in reqs:
+            eng.submit(r)
+        _build.reset_launches()
+        eng.run_until_drained()
+        tokens[str(device)] = [r.out_tokens for r in reqs]
+        if device != "cpu":
+            assert _build.LAUNCHES["flash_attention"] == \
+                cfg.num_layers * eng.prefill_dispatches
+            assert _build.LAUNCHES["decode_attention"] == 0
+    assert tokens[str(dev)] == tokens["cpu"]
+
+
+@pytest.mark.parametrize("moe_impl", ["dense", "gshard"])
+def test_mla_decode_graph_equals_eager_decode(dev, moe_impl):
+    """The absorbed MLA decode (its mask made on the device from the
+    positions) captures as one CUDA graph whose replays give the eager
+    step's ids and latent cache bit for bit, in bf16."""
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.serving import ServingEngine
+    cfg = _mla_card_config()
+    params = init_params(model_specs(cfg), torch.Generator(
+        device=dev).manual_seed(0), dev, torch.bfloat16)
+    eng = ServingEngine(cfg, params, batch_slots=4, max_len=64,
+                        moe_impl=moe_impl, device=dev)
     rng = np.random.RandomState(2)
     _graph_vs_eager_decode(eng, [rng.randint(1, cfg.vocab_size, L)
                                  .astype(np.int32) for L in (5, 9, 5, 12)])

@@ -8,7 +8,12 @@ JAX ``forward`` — with ``attn_impl="xla"`` and ``"pallas_interpret"``
 ``forward`` (plain attention on the CPU): without a cache, and as a
 prefill plus ragged decode steps through a KV cache. granite-3-2b's
 ``reduced()`` config has G = 1 (4 heads, 4 KV heads); the ``kv2``
-variant has G = 2.
+variant has G = 2. The other variants are the ``reduced()`` configs of
+the attention archs ported with DeepSeek-V2's MLA: deepseek-v2-236b
+(MLA mixers: the expand path at prefill, the absorbed decode; a dense
+first FFN, then MoE with shared experts), deepseek-moe-16b (the same MoE
+layout behind GQA attention), qwen3-32b (qk-norm), minitron-4b and
+granite-34b (MQA).
 
 Tolerances, those of ``tests/test_kernels.py``: float32 compute, 2e-5
 absolute on hidden states of magnitude ~4 and logits of magnitude ~1
@@ -36,11 +41,12 @@ from repro.models.params import is_spec, param_count as j_param_count
 from repro.sharding.rules import make_rules
 from repro.train.steps import (make_decode_sample_step as j_decode_step,
                                make_prefill_sample_step as j_prefill_step)
-from repro_torch.configs import MLAConfig, get_config
+from repro_torch.configs import get_config
 from repro_torch.models import (cache_specs, forward, from_reference,
                                 init_params, logits_from_hidden,
                                 model_specs, param_count, stack_specs,
                                 zeros_from_specs)
+from repro_torch.models.params import tree_leaves
 from repro_torch.train.steps import (make_decode_sample_step,
                                      make_prefill_sample_step)
 from _ref_params import ref_params
@@ -49,20 +55,34 @@ F32_TOL = 2e-5
 BF16_TOL = 2e-2
 
 
+# the archs ported beside MLA, each a variant of its own
+ARCHS = ["deepseek-v2-236b", "deepseek-moe-16b", "qwen3-32b", "minitron-4b",
+         "granite-34b"]
+VARIANTS = ["g1", "kv2"] + ARCHS
+
+
 def _configs(variant, dtype="float32"):
     kw = dict(compute_dtype=dtype)
     if variant == "kv2":
         kw["num_kv_heads"] = 2
-    jc = dataclasses.replace(jax_config("granite-3-2b").reduced(), **kw)
-    tc = dataclasses.replace(get_config("granite-3-2b").reduced(), **kw)
+    arch = variant if variant in ARCHS else "granite-3-2b"
+    jc = dataclasses.replace(jax_config(arch).reduced(), **kw)
+    tc = dataclasses.replace(get_config(arch).reduced(), **kw)
     return jc, tc
+
+
+def _layer_caches(tc, jcache):
+    """The reference's cache tree (prefix blocks, stacked unit) as the
+    port's per-layer list, float32 numpy leaves."""
+    return from_reference(tc, jax.tree.map(np.asarray, jcache),
+                          "cpu")["layers"]
 
 
 @pytest.fixture(scope="module")
 def models():
     """variant -> (jax cfg, port cfg, jax params, port params)."""
     out = {}
-    for variant in ("g1", "kv2"):
+    for variant in VARIANTS:
         jc, tc = _configs(variant)
         p = ref_params(j_specs(jc), 0)
         out[variant] = (jc, tc, jax.tree.map(jnp.asarray, p),
@@ -113,7 +133,7 @@ def test_from_reference_unstacks_the_layer_axis(models):
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
-@pytest.mark.parametrize("variant", ["g1", "kv2"])
+@pytest.mark.parametrize("variant", VARIANTS)
 def test_forward_matches_jax(models, variant, impl):
     jc, tc, jp, tp = models[variant]
     jc = dataclasses.replace(jc, attn_impl=impl)
@@ -121,15 +141,19 @@ def test_forward_matches_jax(models, variant, impl):
     B, S = 2, 32
     toks = _tokens(jc, B, S)
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
-    jx, _, _ = j_forward(jc, jp, {"tokens": jnp.asarray(toks),
-                                  "positions": jnp.asarray(pos)},
-                         rules=rules)
+    jx, _, jaux = j_forward(jc, jp, {"tokens": jnp.asarray(toks),
+                                     "positions": jnp.asarray(pos)},
+                            rules=rules)
     tx, _, aux = forward(tc, tp, {"tokens": torch.from_numpy(toks),
                                   "positions": torch.from_numpy(pos)})
     _close(tx, jx, F32_TOL)
     _close(logits_from_hidden(tc, tp, tx), j_logits(jc, jp, jx, rules),
            F32_TOL)
-    assert float(aux) == 0.0
+    if tc.moe is None:
+        assert float(aux) == 0.0
+    else:                               # the load-balance loss, summed
+        assert float(aux) > 0.0
+        _close(aux, jaux, F32_TOL)
 
 
 def _prefill_decode(jc, tc, jp, tp, cache_dt):
@@ -163,7 +187,7 @@ def _prefill_decode(jc, tc, jp, tp, cache_dt):
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
-@pytest.mark.parametrize("variant", ["g1", "kv2"])
+@pytest.mark.parametrize("variant", VARIANTS)
 def test_prefill_and_decode_match_jax(models, variant, impl):
     jc, tc, jp, tp = models[variant]
     jc = dataclasses.replace(jc, attn_impl=impl)
@@ -171,10 +195,12 @@ def test_prefill_and_decode_match_jax(models, variant, impl):
         jc, tc, jp, tp, (jnp.float32, torch.float32))
     for port, ref in outs:
         _close(port, ref, F32_TOL)
-    for layer in range(tc.num_layers):          # the caches agree too
-        for name in ("k", "v"):
-            _close(tcache["layers"][layer][name],
-                   jcache["unit"][0][name][layer], F32_TOL)
+    # the caches agree too (k, v; an MLA layer's ckv, krope)
+    for got, want in zip(tcache["layers"], _layer_caches(tc, jcache),
+                         strict=True):
+        assert sorted(got) == sorted(want)
+        for name in got:
+            _close(got[name], want[name], F32_TOL)
 
 
 def test_prefill_and_decode_match_jax_in_bf16():
@@ -190,7 +216,7 @@ def test_prefill_and_decode_match_jax_in_bf16():
         _close(port, ref, BF16_TOL)
 
 
-@pytest.mark.parametrize("variant", ["g1", "kv2"])
+@pytest.mark.parametrize("variant", VARIANTS)
 def test_sample_steps_match_jax_greedy_ids(models, variant):
     """The serving steps (default bf16 cache): greedy ids of a prefill
     and two decode steps equal the reference's."""
@@ -204,8 +230,10 @@ def test_sample_steps_match_jax_greedy_ids(models, variant):
     tids, tcache = make_prefill_sample_step(tc, max_len=max_len)(
         tp, {"tokens": torch.from_numpy(toks),
              "positions": torch.from_numpy(pos)})
-    assert tcache["layers"][0]["k"].shape == (B, max_len, tc.num_kv_heads,
-                                              tc.head_dim)
+    for got, spec in zip(tcache["layers"],
+                         cache_specs(tc, B, max_len)["layers"]):
+        assert {k: t.shape for k, t in got.items()} == \
+            {k: sp.shape for k, sp in spec.items()}
     assert tids.dtype == torch.int32
     np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
     jstep, tstep = jax.jit(j_decode_step(jc, rules)), \
@@ -225,10 +253,10 @@ def test_sample_steps_match_jax_greedy_ids(models, variant):
         _close(thid, jhid, BF16_TOL)
         # the bf16 caches after the step: float32 values equal to ~1e-7
         # may round to neighbouring bf16 values, so a bf16 tolerance
-        for layer in range(tc.num_layers):
-            for name in ("k", "v"):
-                _close(tcache["layers"][layer][name],
-                       jcache["unit"][0][name][layer], BF16_TOL)
+        for got, want in zip(tcache["layers"], _layer_caches(tc, jcache),
+                             strict=True):
+            for name in got:
+                _close(got[name], want[name], BF16_TOL)
 
 
 def test_init_params_is_seeded_and_typed():
@@ -259,8 +287,94 @@ def test_full_granite_config_and_unported_kinds():
         (40, 2048, 32, 8, 8192, 49155, 49408)
     # ~2.5 B params at full width (tied embeddings over the padded vocab)
     assert 2.4e9 < param_count(model_specs(cfg)) < 2.6e9
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("qwen3-32b")
-    mla = dataclasses.replace(cfg.reduced(), mla=MLAConfig())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        model_specs(mla)
+    # what stays unported: the two archs with cross attention and a
+    # modality frontend, and a cross-attention mixer
+    for arch in ("llama-3.2-vision-90b", "musicgen-large"):
+        with pytest.raises(KeyError, match="not ported.*item 7d"):
+            get_config(arch)
+    cross = dataclasses.replace(cfg.reduced(), cross_attn_period=2)
+    assert ("cross", "dense") in cross.layer_specs()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7d"):
+        model_specs(cross)
+
+
+# (num_layers, d_model, num_heads, num_kv_heads, head_dim, vocab_size) and
+# the reference's param_counts()["total"] at full width, in billions
+FULL = {
+    "deepseek-v2-236b": ((60, 5120, 128, 128, 128, 102400), 235.74),
+    "deepseek-moe-16b": ((28, 2048, 16, 16, 128, 102400), 16.38),
+    "qwen3-32b": ((64, 5120, 64, 8, 128, 151936), 32.76),
+    "minitron-4b": ((32, 3072, 24, 8, 128, 256000), 5.10),
+    "granite-34b": ((88, 6144, 48, 1, 128, 49152), 47.25),
+}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_width_configs_equal_the_reference(arch):
+    """Every field the port keeps equals the reference's (the attention
+    route apart), and the full
+    model's parameter tree counts what the reference's counts (the
+    padded vocab included); the reference's own param_counts() gives the
+    size quoted in the config's docstring."""
+    cfg, jc = get_config(arch), jax_config(arch)
+
+    def plain(x):                       # sub-configs by their fields
+        return dataclasses.asdict(x) if dataclasses.is_dataclass(x) else x
+    for f in dataclasses.fields(cfg):
+        if f.name != "attn_impl":       # the port names its own routes
+            assert plain(getattr(cfg, f.name)) == \
+                plain(getattr(jc, f.name)), f.name
+    dims, billions = FULL[arch]
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.vocab_size) == dims
+    assert param_count(model_specs(cfg)) == j_param_count(j_specs(jc))
+    assert round(jc.param_counts()["total"] / 1e9, 2) == pytest.approx(
+        billions, abs=0.01)
+
+
+def test_deepseek_v2_tree_with_a_stacked_unit_comes_across():
+    """deepseek-v2 cut to 4 layers: the reference keeps the dense first
+    layer as a prefix block and stacks the 3 MoE layers (3-D ``wq_b``,
+    ``wk_b``, ``wv_b`` per layer, 4-D stacked); ``from_reference`` gives
+    each layer its own slice, and the forward matches."""
+    jc, tc = _configs("deepseek-v2-236b")
+    jc, tc = (dataclasses.replace(c, num_layers=4) for c in (jc, tc))
+    groups = jc.layer_groups()
+    assert [tuple(sp) for sp in groups.prefix] == [("mla", "dense")]
+    assert groups.unit == (("mla", "moe"),) and groups.repeats == 3
+    p = ref_params(j_specs(jc), 3)
+    assert p["unit"][0]["mixer"]["wk_b"].shape == (3, 32, 4, 32)
+    tp = from_reference(tc, p, "cpu")
+    assert [sorted(layer["ffn"]) for layer in tp["layers"]] == \
+        [["w_down", "w_gate", "w_up"]] + \
+        [["router", "shared", "w_down", "w_gate", "w_up"]] * 3
+    assert tp["layers"][0]["ffn"]["w_up"].shape == (128, 64)
+    for i in range(3):
+        for name in ("wq_b", "wk_b", "wv_b", "wo"):
+            np.testing.assert_array_equal(
+                tp["layers"][1 + i]["mixer"][name].numpy(),
+                p["unit"][0]["mixer"][name][i])
+    rules = make_rules(jc, None, None)
+    toks = _tokens(jc, 2, 16, seed=4)
+    pos = np.broadcast_to(np.arange(16, dtype=np.int32), (2, 16)).copy()
+    jx, _, _ = j_forward(jc, jax.tree.map(jnp.asarray, p),
+                         {"tokens": jnp.asarray(toks),
+                          "positions": jnp.asarray(pos)}, rules=rules)
+    tx, _, _ = forward(tc, tp, {"tokens": torch.from_numpy(toks),
+                                "positions": torch.from_numpy(pos)})
+    _close(tx, jx, F32_TOL)
+
+
+def test_from_reference_takes_bf16_numpy_leaves():
+    """A reference tree held in bf16 (``jax.tree.map(np.asarray, ...)`` of
+    bf16 params gives ml_dtypes' bfloat16, whose numpy kind is "V", not
+    "f"): every leaf comes across with its bf16 values."""
+    jc, tc = _configs("deepseek-v2-236b")
+    p = ref_params(j_specs(jc), 5)
+    p16 = jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)),
+                       p)
+    assert p16["embed"]["tok"].dtype.kind == "V"
+    tp = from_reference(tc, p16, "cpu", dtype=torch.bfloat16)
+    want = from_reference(tc, p, "cpu", dtype=torch.bfloat16)
+    for a, b in zip(tree_leaves(tp), tree_leaves(want), strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)

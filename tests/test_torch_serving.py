@@ -5,8 +5,9 @@ deque admission, one prefill dispatch per length group, batched equal
 to serial admission, slot recycling under churn, EOS, ragged per-slot
 positions and timestamps, deterministic completion order), held on the
 port's engine; its greedy tokens equal the JAX package's engine on the
-same params and requests (float32 compute); and the entry point runs on
-CUDA unless asked for the CPU.
+same params and requests (float32 compute) — granite's, rwkv6's,
+jamba's, deepseek-v2's (MLA) and deepseek-moe-16b's; and the entry point
+runs on CUDA unless asked for the CPU.
 """
 import dataclasses
 from collections import deque
@@ -408,6 +409,24 @@ def test_jamba_greedy_tokens_equal_the_jax_engine():
 def test_jamba_recycled_slot_serves_a_fresh_engines_tokens(scattered):
     _, tcfg, _, tparams = _jamba_models()
     _recycled_slot_serves_a_fresh_engines_tokens(tcfg, tparams, scattered)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-moe-16b"])
+def test_deepseek_greedy_tokens_equal_the_jax_engine(arch):
+    """The reduced deepseek-v2 (MLA: the expand path at prefill, over the
+    whole cache of a slot or over a scattered group's gathered rows, and
+    the absorbed decode over the latent cache) and deepseek-moe-16b (GQA
+    attention) — a dense first FFN, then MoE with shared experts; float32
+    compute, the default bf16 cache — serve the JAX engine's tokens."""
+    models = _state_models(arch, lambda p, rng: p)
+    tcfg = models[1]
+    teng = _tokens_equal_the_jax_engine(models, seed=7)
+    layer = teng.cache["layers"][0]
+    if tcfg.mla is not None:
+        assert sorted(layer) == ["ckv", "krope"]
+        assert layer["ckv"].shape == (3, 32, tcfg.mla.kv_lora_rank)
+        assert layer["krope"].shape == (3, 32, tcfg.mla.qk_rope_head_dim)
+    assert all(t.dtype == torch.bfloat16 for t in layer.values())
 
 
 @pytest.mark.parametrize("moe_impl", ["dense", "gshard", "a2a"])
