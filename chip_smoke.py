@@ -18,9 +18,14 @@ decode, each decode step's collectives on the serve program through the
 ST, host and fused executors (put_signal and the counter bump);
 deepseek-v2-236b at full width cut to 4 layers (MLA: flash attention at
 (192, 128) for prefill, absorbed products for decode) and
-deepseek-moe-16b whole, served by the same engine; and minitron-4b,
+deepseek-moe-16b whole, served by the same engine; minitron-4b,
 qwen3-32b and granite-34b (MQA: flash-decode at G = 48) served short at
-full width. Run from the repository root, with no arguments:
+full width; llama-3.2-vision-90b at full width cut to 20 layers (cross
+attention over 1600 vision rows: flash attention not causal at prefill,
+flash-decode over every vision row at decode) and musicgen-large whole
+(MHA at hd 64; its frame frontend), served short; and the static
+schedule verifier over every program the run scheduled on the card.
+Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
@@ -55,7 +60,12 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  tokens, 128 heads, a 4096-row cache), a ragged case and
                  the tile edges (65 rows, 129 keys, kv_valid_len 64,
                  offset 64); flash-decode at granite-34b's G = 48 (8
-                 slots, one KV head of 128); on unit-normal q, k, v:
+                 slots, one KV head of 128); llama-3.2-vision's cross
+                 layers (flash attention not causal, 8 x 1000 queries
+                 against 1600 keys, no valid length; flash-decode of 8
+                 slots over all 1600 keys, no position) and
+                 musicgen-large's prefill and decode (MHA, hd 64, 32
+                 heads); on unit-normal q, k, v:
                  within 2e-5 (float32) and within 2e-2 of the largest
                  |output| (bf16); the WKV6 kernel (staged from 32
                  steps, sequential below) in
@@ -176,7 +186,8 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  kernels-line rows follow (time at the serving shapes,
                  bound, plain version, and SDPA on the valid keys as the
                  yardstick; flash-decode's split count; the kernel, SDPA
-                 and bound at jamba's attention shapes too);
+                 and bound at jamba's and musicgen-large's attention
+                 shapes too);
   6b. st      — ST-routed decode: ``st_router``, the decode router alone
                  at 4 virtual ranks with MoE dispatch at granite's and
                  jamba's payload widths in st, host and fused mode (the
@@ -288,13 +299,57 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  as in phase 6 without the profiles: the counted run's
                  launches, and the decode graph against the eager step;
                  granite-34b's decode_attention_g48 kernels-line row (8
-                 slots, 48 query heads on one KV head). Then a ``done``
-                 line with the run's seconds.
+                 slots, 48 query heads on one KV head).
+ 12. vision   — llama-3.2-vision-90b at full width (d_model 8192, 64
+                 heads, 8 KV heads of 128, d_ff 28672, vocab 128256, a
+                 vision stub of 1600 x 1280) cut to 20 layers, four
+                 whole periods of 4 self and 1 cross layer (random bf16
+                 params from a seed, 19.21 B), served as in phase 11
+                 (granite's traffic, zero vision as the reference's
+                 engine feeds): exactly 20 flash attention launches a
+                 prefill dispatch, 4 of them cross (not causal), and 20
+                 flash-decode launches a decode step, 4 of them cross
+                 (counted by wrapping ``attention_core``: a launch with
+                 ``causal=False`` adds to flash_attention_cross or
+                 decode_attention_cross); the decode graph against the
+                 eager step; the flash_attention_cross and
+                 decode_attention_cross kernels-line rows (the run's
+                 largest prefill dispatch against 1600 keys, 8 slots
+                 decoding over them; SDPA not causal as the library;
+                 the bound counts every key). Then the gates redrawn
+                 nonzero (the init's 0 and zero vision make a cross
+                 layer add exactly 0): 4 prompts of 1000 tokens
+                 prefilled with seeded vision inputs (4 x 1600 x 1280)
+                 and 8 decode steps below position 1600, kernel route
+                 against plain route in bf16 (logits within 0.5, greedy
+                 ids where the margin exceeds twice that; 16 causal and
+                 4 cross flash launches, 20 decode launches a step, 4
+                 cross; every cross layer's output nonzero), and the
+                 decode graph against the eager step on an engine whose
+                 prefills get seeded vision (its cross caches hold
+                 nonzero K/V). musicgen-large whole (48 layers, 32 heads
+                 of 64, MHA; 3.23 B) served as in phase 11 (token ids
+                 below its vocab of 2048), then one forward of seeded
+                 frame embeddings (4 x 1000 x 128) through its frontend,
+                 kernel route against plain route (logits within 0.5, 48
+                 flash launches).
+ 13. verify   — the static schedule verifier over every program the run
+                 scheduled on the card (each kept once, as it was first
+                 scheduled, by wrapping ``STStream.scheduled_programs``):
+                 the 64-rank Faces program (plain for st and host, and
+                 fused), the parity grid's programs, the broadcast, ring
+                 and a2a programs and the serve programs of every
+                 ST-routed decode bucket, with 0 findings (programs,
+                 nodes, events and conflict pairs checked);
+                 ``schedule(verify=True)`` on a fresh lowering of the
+                 64-rank Faces program; the seeded-defect corpus, its six
+                 mutations each caught. Host only. Then a ``done`` line
+                 with the run's seconds.
 
 The last three lines are the kernels JSON (one row per kernel, and a
-row each for flash attention at (192, 128) and flash-decode at G = 48:
-eleven), the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+row each for flash attention at (192, 128), flash-decode at G = 48, and
+both in llama-3.2-vision's cross layers: thirteen), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 Without a CUDA card the script exits non-zero before printing any
 result.
 
@@ -425,6 +480,11 @@ JAMBA_PROFILE_ROWS = 4
 # its prefill profile, its kernels-line row and its replays' prefills
 # take at most JAMBA_PROFILE_ROWS prompts a dispatch.
 DEEPSEEK_LAYERS = 4
+# llama-3.2-vision-90b served cut to four whole 5-layer periods (16 self,
+# 4 cross layers; 19.21 B params, 38.4 GB in bf16), over its 1600 vision
+# rows; its model-level check prefills at most VISION_ROWS prompts
+VISION_LAYERS, VISION_TOKENS, VISION_ROWS = 20, 1600, 4
+VISION_DECODE_STEPS = 8
 # the attention archs served short, (arch, layers or None for all): the
 # cuts keep each model's weights, its 8 x 4096 KV cache and the decode
 # check's two copies of that cache on one 80 GB card
@@ -1430,47 +1490,63 @@ def put_signal_row(core, cb, dev, launches, errs):
 # attention kernels and the serving path
 # ---------------------------------------------------------------------------
 
-# (B, Sq, Skv, H, KV, hd, hdv, kv_valid_len per sequence, q offset)
+# (B, Sq, Skv, H, KV, hd, hdv, kv_valid_len per sequence, q offset,
+# causal)
 FLASH_CASES = [
-    (2, 1000, SERVE_MAX_LEN, 32, 8, 64, 64, (1000, 1000), 0),  # granite
-    (2, 1000, 1000, 32, 8, 64, 64, (700, 1000), 0),   # ragged Sq, kvl < Skv
-    (1, 256, 256, 8, 8, 64, 64, None, 0),             # G = 1
-    (1, 200, 333, 8, 2, 128, 128, (333,), 133),       # hd 128
-    (2, 1000, SERVE_MAX_LEN, 64, 8, 128, 128, (1000, 1000), 0),  # jamba
+    (2, 1000, SERVE_MAX_LEN, 32, 8, 64, 64, (1000, 1000), 0, True),  # granite
+    (2, 1000, 1000, 32, 8, 64, 64, (700, 1000), 0, True),  # ragged, kvl < Skv
+    (1, 256, 256, 8, 8, 64, 64, None, 0, True),            # G = 1
+    (1, 200, 333, 8, 2, 128, 128, (333,), 133, True),      # hd 128
+    (2, 1000, SERVE_MAX_LEN, 64, 8, 128, 128, (1000, 1000), 0, True),  # jamba
     # tile edges: 65 rows (a 1-row q-tile), 129 keys (a 1-key tile),
     # kv_valid_len 64 (a tile boundary), q offset 64
-    (2, 65, 129, 16, 2, 128, 128, (129, 64), 64),
+    (2, 65, 129, 16, 2, 128, 128, (129, 64), 64, True),
     # (hd, hdv) = (192, 128), deepseek-v2's MLA: its prefill (4 x 1000
     # tokens, 128 heads over 128 expanded KV heads, a 4096-row cache), a
     # ragged case and the tile edges
-    (4, 1000, SERVE_MAX_LEN, 128, 128, 192, 128, (1000,) * 4, 0),
-    (2, 1000, 1000, 16, 16, 192, 128, (700, 1000), 0),
-    (2, 65, 129, 16, 16, 192, 128, (129, 64), 64),
+    (4, 1000, SERVE_MAX_LEN, 128, 128, 192, 128, (1000,) * 4, 0, True),
+    (2, 1000, 1000, 16, 16, 192, 128, (700, 1000), 0, True),
+    (2, 65, 129, 16, 16, 192, 128, (129, 64), 64, True),
+    # llama-3.2-vision's cross prefill: 8 prompts of 1000 tokens against
+    # all 1600 vision rows, not causal, no valid length
+    (8, 1000, VISION_TOKENS, 64, 8, 128, 128, None, 0, False),
+    # musicgen-large's prefill: MHA at hd 64
+    (8, 1000, SERVE_MAX_LEN, 32, 32, 64, 64, (1000,) * 8, 0, True),
 ]
 # the kernels-line row of each case: (hd, hdv) = (192, 128) has its own
 MLA_HEAD_DIMS = (192, 128)
-# (B, S, H, KV, hd, positions); valid length position + 1 <= S
+# (B, S, H, KV, hd, positions, causal); causal: valid length position
+# + 1 <= S; not causal (a cross layer's decode): every key valid, no
+# position passed
 DECODE_CASES = [
     (8, SERVE_MAX_LEN, 32, 8, 64, (1016, 144, 528, 1016, 272, 1016, 528,
-                                   144)),          # granite decode
-    (2, 512, 8, 8, 64, (100, 511)),               # G = 1
-    (3, 1024, 8, 2, 128, (5, 700, 1023)),         # hd 128
+                                   144), True),    # granite decode
+    (2, 512, 8, 8, 64, (100, 511), True),         # G = 1
+    (3, 1024, 8, 2, 128, (5, 700, 1023), True),   # hd 128
     (8, SERVE_MAX_LEN, 64, 8, 128, (1016, 144, 528, 1016, 272, 1016, 528,
-                                    144)),         # jamba decode
+                                    144), True),   # jamba decode
     # split edges (16 splits of S = 1000 for 4 x 2 KV heads on 132 SMs):
     # 1 key (split 0 only), 15 keys (an empty split), 64 keys (16 equal
     # splits), all 1000 keys (no multiple of the split width or the tile)
-    (4, 1000, 8, 2, 64, (0, 14, 63, 999)),
+    (4, 1000, 8, 2, 64, (0, 14, 63, 999), True),
     # granite-34b's decode: MQA, 48 query heads on one KV head (G = 48:
     # three 16-row head groups of the bf16 kernel)
     (8, SERVE_MAX_LEN, 48, 1, 128, (1016, 144, 528, 1016, 272, 1016, 528,
-                                    144)),
+                                    144), True),
+    # llama-3.2-vision's cross decode: 8 slots at positions below 1600
+    # over all 1600 vision rows
+    (8, VISION_TOKENS, 64, 8, 128, (1016, 144, 528, 1016, 272, 1016, 528,
+                                    144), False),
+    # musicgen-large's decode: MHA at hd 64
+    (8, SERVE_MAX_LEN, 32, 32, 64, (1016, 144, 528, 1016, 272, 1016, 528,
+                                    144), True),
 ]
 # the G of the decode case with a kernels-line row of its own
 MQA_GROUP = 48
 # the attention kernels' kernels-line rows
 ATTN_ROWS = ("flash_attention", "decode_attention", "flash_attention_192x128",
-             "decode_attention_g48")
+             "decode_attention_g48", "flash_attention_cross",
+             "decode_attention_cross")
 
 
 def attn_inputs(dev, dtype, B, Sq, Skv, H, KV, hd, seed, hdv=None):
@@ -1494,20 +1570,23 @@ def phase_attention(dev, fa, fa_ref, da, da_ref):
     """Each attention kernel against its plain version on the card, bf16
     and float32 (comparison launches, made before the counted runs).
     Returns the largest errors by kernels-line row and dtype: the
-    (192, 128) cases and the G = 48 decode case have rows of their
-    own."""
+    (192, 128) cases, the G = 48 decode case and the cross (not causal)
+    cases have rows of their own."""
     errs = {row: {} for row in ATTN_ROWS}
-    for n, (B, Sq, Skv, H, KV, hd, hdv, kvl, off) in enumerate(FLASH_CASES):
+    for n, (B, Sq, Skv, H, KV, hd, hdv, kvl, off, causal) in enumerate(
+            FLASH_CASES):
         row = ("flash_attention_192x128" if (hd, hdv) == MLA_HEAD_DIMS
-               else "flash_attention")
+               else "flash_attention" if causal else "flash_attention_cross")
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = attn_inputs(dev, dtype, B, Sq, Skv, H, KV, hd, n, hdv)
             pos = (off + torch.arange(Sq, device=dev,
                                       dtype=torch.int32)).expand(B, Sq)
             kv_len = None if kvl is None else torch.tensor(
                 kvl, device=dev, dtype=torch.int32)
-            out = fa(q, k, v, q_positions=pos, kv_valid_len=kv_len)
-            ref = fa_ref(q, k, v, q_offset=pos[:, 0], kv_valid_len=kv_len)
+            out = fa(q, k, v, q_positions=pos, kv_valid_len=kv_len,
+                     causal=causal)
+            ref = fa_ref(q, k, v, q_offset=pos[:, 0], kv_valid_len=kv_len,
+                         causal=causal)
             err = (out.float() - ref.float()).abs().max().item()
             limit = attn_limit(dtype, ref)
             check(out.shape == ref.shape and out.dtype == dtype,
@@ -1518,19 +1597,23 @@ def phase_attention(dev, fa, fa_ref, da, da_ref):
             d[str(dtype)] = max(d.get(str(dtype), 0.0), err)
             emit({"phase": "kernels", "kernel": "flash_attention",
                   "shape": [B, Sq, Skv, H, KV, hd, hdv], "kv_valid_len": kvl,
-                  "q_offset": off, "dtype": str(dtype), "max_abs_err": err,
+                  "q_offset": off, "causal": causal, "dtype": str(dtype),
+                  "max_abs_err": err,
                   "ref_abs_max": ref.float().abs().max().item(),
                   "limit": limit})
-    for n, (B, S, H, KV, hd, positions) in enumerate(DECODE_CASES):
+    for n, (B, S, H, KV, hd, positions, causal) in enumerate(DECODE_CASES):
         row = ("decode_attention_g48" if H // KV == MQA_GROUP
-               else "decode_attention")
+               else "decode_attention" if causal
+               else "decode_attention_cross")
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = attn_inputs(dev, dtype, B, 1, S, H, KV, hd, 10 + n)
             pos = torch.tensor(positions, device=dev,
                                dtype=torch.int32)[:, None]
-            kvl = pos[:, 0] + 1
-            out = da(q, k, v, q_positions=pos, kv_valid_len=kvl)
-            ref = da_ref(q, k, v, q_positions=pos, kv_valid_len=kvl)
+            # not causal: no position and no valid length, every key
+            kw = (dict(q_positions=pos, kv_valid_len=pos[:, 0] + 1)
+                  if causal else {})
+            out = da(q, k, v, **kw)
+            ref = da_ref(q, k, v, **kw)
             err = (out.float() - ref.float()).abs().max().item()
             limit = attn_limit(dtype, ref)
             check(out.shape == ref.shape and out.dtype == dtype,
@@ -1541,7 +1624,7 @@ def phase_attention(dev, fa, fa_ref, da, da_ref):
             d[str(dtype)] = max(d.get(str(dtype), 0.0), err)
             emit({"phase": "kernels", "kernel": "decode_attention",
                   "shape": [B, S, H, KV, hd], "positions": positions,
-                  "dtype": str(dtype), "max_abs_err": err,
+                  "causal": causal, "dtype": str(dtype), "max_abs_err": err,
                   "ref_abs_max": ref.float().abs().max().item(),
                   "limit": limit})
     return errs
@@ -1979,15 +2062,22 @@ def decode_graph_vs_eager(eng, graphed, new_requests,
             "eager_ms_per_step": statistics.median(t_eager)}
 
 
+def layers_of(mixers, which):
+    """How many of the layers' ``mixers`` are ``which`` (a mixer or a
+    tuple of them)."""
+    return sum(mixers.count(m) for m in
+               (which if isinstance(which, tuple) else (which,)))
+
+
 def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
                 profile_rows=SERVE_SLOTS, moe_impl="dense", params=None,
                 short=False, cut=None):
     """``cfg`` (a registered config, possibly cut in depth) at full width
     through the port's ServingEngine: ``dims`` ({config field: value})
-    are checked; ``kernels`` = {"prefill": {kernel: mixer}, "decode":
-    {...}}: each kernel must launch once per layer of its mixer in every
-    prefill dispatch and decode step of the counted run (and no other
-    kernel of those lists). ``redraw`` (params, generator) may redraw
+    are checked; ``kernels`` = {"prefill": {kernel: mixer or a tuple of
+    mixers}, "decode": {...}}: each kernel must launch once per layer of
+    its mixers in every prefill dispatch and decode step of the counted
+    run (and no other kernel of those lists). ``redraw`` (params, generator) may redraw
     leaves the init leaves constant. The standalone prefill profile
     takes ``profile_rows`` prompts of the longest length. ``moe_impl``
     is the engine's MoE implementation; ``params`` serves weights already
@@ -2058,8 +2148,8 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
                     ("decode", d["decode_steps"])):
         check(len(per[kind]) == n, f"{n} {kind} dispatches, "
               f"{len(per[kind])} counted")
-        want = {k: mixers.count(kernels[kind][k]) if k in kernels[kind]
-                else 0 for k in names}
+        want = {k: layers_of(mixers, kernels[kind][k])
+                if k in kernels[kind] else 0 for k in names}
         for i, got in enumerate(per[kind]):
             check({k: got[k] for k in names} == want,
                   f"{kind} dispatch {i}: launches {got}, want {want}")
@@ -2669,11 +2759,13 @@ def phase_replay_cut(dev, serving, cut, label, reqs, shadow=None,
                  served=False, max_rows=max_rows)
 
 
-def flash_bound(B, Sq, H, KV, hd, hdv, kvl, nbytes_el):
-    """(bytes, flops) a causal prefill needs: q (hd wide) read, out (hdv)
+def flash_bound(B, Sq, H, KV, hd, hdv, kvl, nbytes_el, causal=True):
+    """(bytes, flops) a prefill needs: q (hd wide) read, out (hdv)
     written, the valid K (hd) and V (hdv) rows read once; two products
-    over each query's valid keys, 2 hd and 2 hdv flops a key."""
-    keys = sum(min(L, i + 1) for L in kvl for i in range(Sq))
+    over each query's valid keys (causal: those up to its position; not
+    causal: all of them), 2 hd and 2 hdv flops a key."""
+    keys = (sum(min(L, i + 1) for L in kvl for i in range(Sq)) if causal
+            else Sq * sum(kvl))
     flops = H * keys * 2 * (hd + hdv)
     nbytes = nbytes_el * (B * Sq * H * (hd + hdv)
                           + sum(kvl) * KV * (hd + hdv))
@@ -2821,7 +2913,8 @@ def attention_rows(dev, fa, fa_ref, da, da_ref, cfg, launches, d, groups,
     shapes: the run's largest prefill dispatch, and 8 slots decoding;
     each with ``at_jamba``, the kernel, SDPA and the bound at jamba's
     attention shapes (64 heads, 8 KV heads of 128: 4 x 1000 prefill, 8
-    slots decoding)."""
+    slots decoding), and ``at_musicgen``, the same at musicgen-large's
+    (MHA, 32 heads of 64)."""
     from repro_torch.kernels import _attn
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     B, S, positions = SERVE_SLOTS, SERVE_MAX_LEN, DECODE_CASES[0][5]
@@ -2831,11 +2924,12 @@ def attention_rows(dev, fa, fa_ref, da, da_ref, cfg, launches, d, groups,
         dev).multi_processor_count)
     Lj = SERVE_LENGTHS[-1]
     rows = []
-    for name, line, case, jamba, per, shape, jshape in (
+    heads = {"at_jamba": (64, 8, 128), "at_musicgen": (32, 32, 64)}
+    for name, line, case, other, per, shape, oshape in (
             ("flash_attention", 73,
              flash_case(dev, fa, fa_ref, n, L, H, KV, hd, 99),
-             lambda: flash_case(dev, fa, fa_ref, JAMBA_PROFILE_ROWS, Lj, 64,
-                                8, 128, 97),
+             lambda h, seed: flash_case(dev, fa, fa_ref, JAMBA_PROFILE_ROWS,
+                                        Lj, *h, seed),
              {"per_prefill_dispatch": launches["flash_attention"]
               / d["prefill_dispatches"]},
              {"B": n, "Sq": L, "Skv": S, "kv_valid_len": L},
@@ -2843,8 +2937,8 @@ def attention_rows(dev, fa, fa_ref, da, da_ref, cfg, launches, d, groups,
               "kv_valid_len": Lj}),
             ("decode_attention", 61,
              decode_case(dev, da, da_ref, B, H, KV, hd, positions, 98),
-             lambda: decode_case(dev, da, da_ref, B, 64, 8, 128, positions,
-                                 96),
+             lambda h, seed: decode_case(dev, da, da_ref, B, *h, positions,
+                                         seed),
              {"per_decode_step": launches["decode_attention"]
               / d["decode_steps"]},
              {"B": B, "S": S, "positions": list(positions),
@@ -2852,15 +2946,17 @@ def attention_rows(dev, fa, fa_ref, da, da_ref, cfg, launches, d, groups,
              {"B": B, "S": S, "positions": list(positions)})):
         row = attn_row(name, line, case, launches[name], per,
                        dict(shape, H=H, KV=KV, hd=hd), errs)
-        jk, _, jlib, _, jbound = jamba()
-        jb_ms, jb_by = bound_ms(*jbound)
-        row["at_jamba"] = {
-            "shape": dict(jshape, H=64, KV=8, hd=128, dtype="bfloat16"),
-            "ms": graph_ms(jk, inner=5),
-            "library_ms": graph_ms(jlib, inner=5),
-            "library_max_abs_err": (jk().float() - jlib().float()
-                                    ).abs().max().item(),
-            "bound_ms": jb_ms, "bound_by": jb_by}
+        for seed, (key, h) in enumerate(heads.items(), start=96):
+            ok, _, olib, _, obound = other(h, seed)
+            ob_ms, ob_by = bound_ms(*obound)
+            row[key] = {
+                "shape": dict(oshape, H=h[0], KV=h[1], hd=h[2],
+                              dtype="bfloat16"),
+                "ms": graph_ms(ok, inner=5),
+                "library_ms": graph_ms(olib, inner=5),
+                "library_max_abs_err": (ok().float() - olib().float()
+                                        ).abs().max().item(),
+                "bound_ms": ob_ms, "bound_by": ob_by}
         rows.append(row)
     return rows
 
@@ -2903,6 +2999,69 @@ def mqa_decode_row(dev, da, da_ref, cfg, launches, d, errs):
         {"B": B, "S": S, "positions": list(positions), "H": H, "KV": KV,
          "hd": hd, "splits": nsplit,
          "split_pass_blocks": nsplit * KV * B * -(-H // KV // 16)}, errs)
+
+
+def cross_flash_case(dev, fa, fa_ref, n, L, T, H, KV, hd, seed):
+    """A cross layer's prefill: n prompts of L tokens against all T
+    vision rows, not causal, no valid length: (kernel call, plain call,
+    library call, the library's description, (bytes, flops)). The
+    library is SDPA, not causal, on its default backend choice."""
+    import torch.nn.functional as F
+    q, k, v = attn_inputs(dev, torch.bfloat16, n, L, T, H, KV, hd, seed)
+    pos = torch.arange(L, device=dev, dtype=torch.int32).expand(n, L)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return (lambda: fa(q, k, v, q_positions=pos, causal=False),
+            lambda: fa_ref(q, k, v, q_offset=pos[:, 0], causal=False),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True).transpose(1, 2),
+            "not causal, every key, enable_gqa",
+            flash_bound(n, L, H, KV, hd, hd, [T] * n, 2, causal=False))
+
+
+def cross_decode_case(dev, da, da_ref, B, T, H, KV, hd, seed):
+    """A cross layer's decode: B slots against all T cached vision rows
+    (no position, no valid length): (kernel call, plain call, library
+    call, the library's description, (bytes, flops))."""
+    import torch.nn.functional as F
+    q, k, v = attn_inputs(dev, torch.bfloat16, B, 1, T, H, KV, hd, seed)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return (lambda: da(q, k, v), lambda: da_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True).transpose(1, 2),
+            "every key, enable_gqa",
+            (2 * (2 * B * H * hd + B * T * KV * 2 * hd),
+             B * T * H * 2 * (hd + hd)))
+
+
+def cross_rows(dev, attn, cfg, launches, d, groups, errs):
+    """flash attention's and flash-decode's kernels-line rows in a cross
+    layer of llama-3.2-vision (not causal, over its 1600 vision rows): at
+    the served run's largest prefill dispatch, and at 8 slots decoding;
+    their launches are the counted run's cross launches."""
+    from repro_torch.kernels import _attn
+    fa, fa_ref, da, da_ref = attn
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    T, B = cfg.vision.num_tokens, SERVE_SLOTS
+    (n, L) = max(((n, L) for (_, L), n in groups.items()),
+                 key=lambda t: t[0] * t[1])
+    nsplit = _attn.decode_splits(T, B, KV, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    return [
+        attn_row("flash_attention_cross", 73,
+                 cross_flash_case(dev, fa, fa_ref, n, L, T, H, KV, hd, 93),
+                 launches["flash_attention_cross"],
+                 {"per_prefill_dispatch": launches["flash_attention_cross"]
+                  / d["prefill_dispatches"], "arch": cfg.name},
+                 {"B": n, "Sq": L, "Skv": T, "kv_valid_len": None,
+                  "causal": False, "H": H, "KV": KV, "hd": hd}, errs),
+        attn_row("decode_attention_cross", 61,
+                 cross_decode_case(dev, da, da_ref, B, T, H, KV, hd, 92),
+                 launches["decode_attention_cross"],
+                 {"per_decode_step": launches["decode_attention_cross"]
+                  / d["decode_steps"], "arch": cfg.name},
+                 {"B": B, "S": T, "positions": None, "causal": False,
+                  "H": H, "KV": KV, "hd": hd, "splits": nsplit,
+                  "split_pass_blocks": nsplit * KV * B}, errs)]
 
 
 # --ab: B x S of the timed calls (jamba's and rwkv's 4 x 1000 prefill,
@@ -3660,6 +3819,395 @@ def phase_short_serves(dev, _build, serving, cfgs, attn, attn_errs,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# cross attention and the modality frontends: llama-3.2-vision, musicgen
+# ---------------------------------------------------------------------------
+
+CROSS_ROWS = ("flash_attention_cross", "decode_attention_cross")
+
+
+def cross_counting(attention_core, _build):
+    """``attention_core`` wrapped so that a kernel launch it makes for a
+    cross layer (``causal=False``) also adds one to the kernel's cross
+    count (``flash_attention_cross``, ``decode_attention_cross`` in
+    ``_build.LAUNCHES``, so that a decode graph's capture records it and
+    its replays add it, as they add the kernel's own)."""
+    def call(cfg, q, k, v, *, causal=True, **kw):
+        name = "decode_attention" if q.shape[1] == 1 else "flash_attention"
+        before = _build.LAUNCHES[name]
+        out = attention_core(cfg, q, k, v, causal=causal, **kw)
+        if not causal:
+            _build.LAUNCHES[name + "_cross"] += (_build.LAUNCHES[name]
+                                                 - before)
+        return out
+    return call
+
+
+def vision_inputs(gen, dev, cfg, n):
+    """Seeded unit-normal (n, vision tokens, raw_dim) float32 patch
+    embeddings."""
+    return torch.randn((n, cfg.vision.num_tokens, cfg.vision.raw_dim),
+                       generator=gen, device=dev)
+
+
+def vision_replay(dev, _build, serving, cfg, params, gen):
+    """The model-level check of llama-3.2-vision's cross path, with its
+    gates redrawn nonzero: VISION_ROWS prompts of 1000 tokens prefilled
+    with seeded vision inputs, then VISION_DECODE_STEPS decode steps
+    (positions 1000.., below the 1600 vision rows) fed the kernel route's
+    greedy ids, through the kernel route and the plain route in bf16
+    (bf16 caches): logits within LOGITS_ATOL (the deepseek replay's
+    bound), greedy ids equal where the plain route's top-2 margin exceeds
+    twice it. In the kernel route's prefill 16 causal and 4 cross flash
+    launches, at each decode step 20 decode launches of which 4 cross;
+    every cross layer's output nonzero (its path did work)."""
+    from unittest import mock
+    models = serving["models"]
+    attn_mod = models.attention
+    n, L, T = VISION_ROWS, SERVE_LENGTHS[-1], VISION_DECODE_STEPS
+    rng = np.random.RandomState(3)
+    toks = torch.as_tensor(rng.randint(1, cfg.vocab_size, (n, L))
+                           .astype(np.int32), device=dev)
+    vis = vision_inputs(gen, dev, cfg, n)
+    cross_out = []
+    inner = attn_mod.cross_attention
+
+    def recorded(*args, **kw):
+        out, cache = inner(*args, **kw)
+        cross_out.append(out.abs().amax())
+        return out, cache
+
+    def run(c, counts, feed=None):
+        """(n, T + 1, V) float32 logits of the prefill and each decode
+        step, and the ids fed to the steps: ``feed``'s, else the route's
+        own greedy ids."""
+        cache = models.zeros_from_specs(models.cache_specs(
+            c, n, L + T, torch.bfloat16), dev)
+        logits, fed = [], []
+        for t in range(T + 1):
+            if t == 0:
+                batch = {"tokens": toks, "vision": vis,
+                         "positions": torch.arange(
+                             L, device=dev, dtype=torch.int32).expand(n, L)}
+            else:
+                batch = {"tokens": fed[-1][:, None], "positions": torch.full(
+                    (n, 1), L + t - 1, device=dev, dtype=torch.int32)}
+            _build.reset_launches()
+            x, _, _ = models.forward(c, params, batch, cache=cache)
+            lg = models.logits_from_hidden(c, params, x, last_only=True)[
+                :, 0, :c.vocab_size].float()
+            counts.append({k: _build.LAUNCHES[k] for k in
+                           ("flash_attention", "flash_attention_cross",
+                            "decode_attention", "decode_attention_cross")})
+            logits.append(lg)
+            fed.append(feed[t] if feed is not None
+                       else lg.argmax(dim=-1).to(torch.int32))
+        return torch.stack(logits, dim=1), fed
+    kcounts, pcounts = [], []
+    with mock.patch.object(attn_mod, "cross_attention", recorded):
+        lk, fed = run(cfg, kcounts)
+    lp, _ = run(dataclasses.replace(cfg, attn_impl="plain"), pcounts, fed)
+    check(bool(torch.isfinite(lk).all() and torch.isfinite(lp).all()),
+          "vision replay: non-finite logits")
+    err = (lk - lp).abs().amax(dim=-1)
+    top2 = lp.topk(2, dim=-1).values
+    dec = (top2[..., 0] - top2[..., 1] > 2 * LOGITS_ATOL).cpu().numpy()
+    ids_k = lk.argmax(dim=-1).cpu().numpy()
+    ids_p = lp.argmax(dim=-1).cpu().numpy()
+    mismatched = int(((ids_k != ids_p) & dec).sum())
+    n_cross = sum(m == "cross" for m, _ in cfg.layer_specs())
+    want_prefill = {"flash_attention": cfg.num_layers,
+                    "flash_attention_cross": n_cross,
+                    "decode_attention": 0, "decode_attention_cross": 0}
+    want_decode = {"flash_attention": 0, "flash_attention_cross": 0,
+                   "decode_attention": cfg.num_layers,
+                   "decode_attention_cross": n_cross}
+    cross_min = min(float(t) for t in cross_out)
+    emit({"phase": "vision_replay", "arch": cfg.name,
+          "layers": cfg.num_layers, "prompts": n, "prompt_len": L,
+          "vision_shape": list(vis.shape), "decode_steps": T,
+          "gates": [float(p["mixer"]["gate"]) for p, (m, _) in
+                    zip(params["layers"], cfg.layer_specs())
+                    if m == "cross"],
+          "logits_max_abs_err": err.max().item(),
+          "logits_err_p50": err.median().item(),
+          "logits_abs_max": lp.abs().max().item(),
+          "logits_atol": LOGITS_ATOL, "ids_compared": int(dec.sum()),
+          "ids_total": dec.size, "ids_mismatched": mismatched,
+          "kernel_launches_prefill": kcounts[0],
+          "kernel_launches_per_decode_step": kcounts[1],
+          "plain_launches": [sum(c.values()) for c in pcounts],
+          "cross_out_abs_max_min": cross_min,
+          "cross_calls": len(cross_out)})
+    check(kcounts[0] == want_prefill, f"vision prefill launches "
+          f"{kcounts[0]}, want {want_prefill}")
+    check(all(c == want_decode for c in kcounts[1:]),
+          f"vision decode launches {kcounts[1:]}, want {want_decode}")
+    check(all(sum(c.values()) == 0 for c in pcounts),
+          "the plain route launched a kernel")
+    check(len(cross_out) == n_cross * (T + 1) and cross_min > 0,
+          f"cross layers' outputs: {len(cross_out)} calls, smallest "
+          f"largest |out| {cross_min}")
+    check(err.max().item() <= LOGITS_ATOL, f"vision replay: kernel route "
+          f"logits differ from the plain route by {err.max().item()} > "
+          f"{LOGITS_ATOL} (bf16)")
+    check(mismatched == 0, f"vision replay: {mismatched} greedy ids "
+          "differ where the plain route's top-2 margin exceeds twice the "
+          "tolerance")
+
+
+def vision_graph_vs_eager(dev, serving, cfg, params, gen):
+    """The decode graph against the eager step with vision cached: an
+    engine whose prefill gets seeded vision inputs (its cross layers'
+    caches hold their K/V), warmed up until its decode step is captured,
+    then 8 slots compared as in phase 6."""
+    eng_mod = serving["serving"]
+    eng = eng_mod.ServingEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                                max_len=SERVE_MAX_LEN, device=dev)
+    inner = eng._prefill_sample
+
+    def prefill(p, batch, cache):
+        n = batch["tokens"].shape[0]
+        return inner(p, dict(batch, vision=vision_inputs(gen, dev, cfg, n)),
+                     cache)
+    eng._prefill_sample = prefill
+    rng = np.random.RandomState(4)
+
+    def requests(lengths, new):
+        return [eng_mod.Request(prompt=rng.randint(1, cfg.vocab_size, int(L))
+                                .astype(np.int32), max_new_tokens=new)
+                for L in lengths]
+    for r in requests((SERVE_LENGTHS[0], SERVE_LENGTHS[-1]), 3):
+        eng.submit(r)
+    eng.run_until_drained()
+    graphed = eng._decode_sample
+    check(graphed.captures == 1, f"{cfg.name} with vision: "
+          f"{graphed.captures} decode graph captures in the warm-up")
+    versus = decode_graph_vs_eager(
+        eng, graphed, requests(np.resize(SERVE_LENGTHS, SERVE_SLOTS),
+                               3 + DECODE_COMPARE_STEPS))
+    check(graphed.captures == 1, f"{cfg.name} with vision: the decode "
+          f"step was captured {graphed.captures} times")
+    cross = [c for c, (m, _) in zip(eng.cache["layers"], cfg.layer_specs())
+             if m == "cross"]
+    ck_max = max(c["ck"].float().abs().max().item() for c in cross)
+    emit({"phase": "serve", "arch": cfg.name, "vision": "seeded",
+          "decode_graph_vs_eager": versus, "cross_ck_abs_max": ck_max})
+    check(ck_max > 0, "the cross caches hold no vision K/V")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_vision(dev, _build, serving, cfgs, attn, attn_errs):
+    """llama-3.2-vision-90b at full width cut to VISION_LAYERS layers
+    (four whole 5-layer periods: 16 self, 4 cross), served as in phase 6
+    without the profiles (granite's traffic, zero vision as the
+    reference's engine feeds, the dense FFN): exactly 20 flash attention
+    launches a prefill dispatch, of which 4 cross (not causal), and 20
+    flash-decode launches a decode step, of which 4 cross; the decode
+    graph against the eager step. Its cross kernels-line rows; then, the
+    gates redrawn nonzero, the model-level check (:func:`vision_replay`)
+    and the decode graph against the eager step with vision cached
+    (:func:`vision_graph_vs_eager`). Returns the new kernels-line
+    rows."""
+    from unittest import mock
+    models = serving["models"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = cfgs.get_config("llama-3.2-vision-90b")
+    cfg = dataclasses.replace(full, num_layers=VISION_LAYERS)
+    check([m for m, _ in cfg.layer_specs()]
+          == (["attn"] * 4 + ["cross"]) * (VISION_LAYERS // 5),
+          f"llama-3.2-vision cut layers {cfg.layer_specs()}")
+    both = ("attn", "cross")
+    kernels = {"prefill": {"flash_attention": both,
+                           "flash_attention_cross": "cross"},
+               "decode": {"decode_attention": both,
+                          "decode_attention_cross": "cross"}}
+    for k in CROSS_ROWS:
+        _build.LAUNCHES[k] = 0
+    try:
+        with mock.patch.object(models.attention, "attention_core",
+                               cross_counting(models.attention.attention_core,
+                                              _build)):
+            cfg, launches, counts, groups, _, params, reqs = phase_serve(
+                dev, _build, serving, cfg,
+                dict(num_layers=VISION_LAYERS, d_model=8192, num_heads=64,
+                     num_kv_heads=8, head_dim=128, d_ff=28672,
+                     vocab_size=128256,
+                     vision=cfgs.VisionStub(num_tokens=VISION_TOKENS,
+                                            raw_dim=1280)),
+                kernels, short=True,
+                cut=f"depth: the first {VISION_LAYERS} of "
+                    f"{full.num_layers} layers, 4 x (4 self, 1 cross)")
+            rows = cross_rows(dev, attn, cfg, launches, counts, groups,
+                              attn_errs)
+            for row in rows:
+                emit(dict(row, phase="kernel_row"))
+            del reqs
+            gen = torch.Generator(device=dev).manual_seed(2)
+            for p, (m, _) in zip(params["layers"], cfg.layer_specs()):
+                if m == "cross":
+                    g = 0.5 + torch.rand((), generator=gen, device=dev)
+                    sign = 1.0 if torch.rand((), generator=gen,
+                                             device=dev) < 0.5 else -1.0
+                    p["mixer"]["gate"].copy_(sign * g)
+            vision_replay(dev, _build, serving, cfg, params, gen)
+            vision_graph_vs_eager(dev, serving, cfg, params, gen)
+    finally:
+        for k in CROSS_ROWS:
+            del _build.LAUNCHES[k]
+    emit({"phase": "serve", "arch": cfg.name,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del params
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_musicgen(dev, _build, serving, cfgs, kernels):
+    """musicgen-large whole (48 layers, MHA at hd 64) served as in phase
+    6 without the profiles (granite's traffic: token ids below its
+    vocab of 2048): one flash attention launch per layer a prefill
+    dispatch, one flash-decode per layer a decode step, the decode graph
+    against the eager step. Then :func:`frames_check`."""
+    models = serving["models"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, _, _, _, _, params, reqs = phase_serve(
+        dev, _build, serving, cfgs.get_config("musicgen-large"),
+        dict(num_layers=48, d_model=2048, num_heads=32, num_kv_heads=32,
+             head_dim=64, d_ff=8192, vocab_size=2048,
+             vision=cfgs.VisionStub(num_tokens=0, raw_dim=128)),
+        kernels, short=True)
+    del reqs
+    frames_check(dev, _build, models, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
+
+def frames_check(dev, _build, models, cfg, params):
+    """One forward of seeded frame embeddings (VISION_ROWS x 1000 x
+    raw_dim) through ``cfg``'s frontend, kernel route against plain route
+    in the params' dtype: logits within LOGITS_ATOL, one flash attention
+    launch per layer on the kernel route, none on the plain one."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, S = VISION_ROWS, SERVE_LENGTHS[-1]
+    frames = torch.randn((B, S, cfg.vision.raw_dim), generator=gen,
+                         device=dev)
+    batch = {"frames": frames, "positions": torch.arange(
+        S, device=dev, dtype=torch.int32).expand(B, S)}
+    out = {}
+    for route in ("kernel", "plain"):
+        c = dataclasses.replace(cfg, attn_impl=route)
+        _build.reset_launches()
+        x, _, _ = models.forward(c, params, batch)
+        out[route] = models.logits_from_hidden(c, params, x)[
+            ..., :c.vocab_size].float()
+        out[route + "_launches"] = _build.LAUNCHES["flash_attention"]
+    err = (out["kernel"] - out["plain"]).abs().max().item()
+    emit({"phase": "frames", "arch": cfg.name,
+          "frames_shape": [B, S, cfg.vision.raw_dim],
+          "logits_max_abs_err": err, "logits_atol": LOGITS_ATOL,
+          "logits_abs_max": out["plain"].abs().max().item(),
+          "flash_launches": {"kernel": out["kernel_launches"],
+                             "plain": out["plain_launches"]}})
+    check(bool(torch.isfinite(out["kernel"]).all()), "musicgen frames: "
+          "non-finite logits")
+    check(out["kernel"].shape == (B, S, cfg.vocab_size), "musicgen frames: "
+          f"logits shape {tuple(out['kernel'].shape)}")
+    check(out["kernel_launches"] == cfg.num_layers
+          and out["plain_launches"] == 0,
+          f"musicgen frames: flash launches {out['kernel_launches']} "
+          f"(kernel), {out['plain_launches']} (plain)")
+    check(err <= LOGITS_ATOL, f"musicgen frames: kernel route logits "
+          f"differ from the plain route by {err} > {LOGITS_ATOL}")
+
+
+# ---------------------------------------------------------------------------
+# the static schedule verifier over every program the run scheduled
+# ---------------------------------------------------------------------------
+
+def collect_programs(core):
+    """Wrap ``STStream.scheduled_programs`` so that every program a
+    stream on the card schedules is kept for :func:`phase_verify`, once,
+    as a copy without its kernel closures (which hold tensors; the
+    verifier reads none of them), labelled by its windows, grid and
+    schedule. Returns {label: [programs]}."""
+    import weakref
+    kept, seen = {}, {}
+    inner = core.STStream.scheduled_programs
+
+    def scheduled_programs(self, **kw):
+        progs = inner(self, **kw)
+        if self.device is None:
+            return progs
+        for prog in progs:
+            ref = seen.get(id(prog))
+            if ref is not None and ref() is prog:
+                continue
+            seen[id(prog)] = weakref.ref(prog)
+            check(all(n.chained is None or n.chained.fn is None
+                      for n in prog.nodes), "a chained signal with a fn")
+            label = (f"{'+'.join(sorted(prog.windows))}"
+                     f"@{'x'.join(map(str, self.grid_shape))}"
+                     f":{'fused' if prog.meta.get('fused') else 'plain'}")
+            kept.setdefault(label, []).append(core.TriggeredProgram(
+                nodes=[dataclasses.replace(n, fn=None) for n in prog.nodes],
+                windows=dict(prog.windows), meta=dict(prog.meta)))
+        return progs
+    core.STStream.scheduled_programs = scheduled_programs
+    return kept
+
+
+def phase_verify(core, kept):
+    """The static verifier (``core.verify``) over every program the run
+    scheduled on the card (``collect_programs``): the 64-rank Faces
+    program (plain, run by st and host, and fused), the 8-rank parity
+    programs, the broadcast, ring and a2a programs and the serve programs
+    of every ST-routed decode bucket: 0 findings. Then
+    ``schedule(verify=True)`` on a fresh lowering of the 64-rank Faces
+    program (plain and fused), and the seeded-defect corpus, each of its
+    six mutations caught with its kind. Host only."""
+    from repro_torch.core.defects import run_corpus
+    t0 = time.perf_counter()
+    by_label, total = {}, core.VerifyReport()
+    for label, progs in sorted(kept.items()):
+        report = core.verify_programs(progs)
+        by_label[label] = {"programs": len(progs),
+                           "nodes": report.checked.get("nodes", 0),
+                           "events": report.checked.get("events", 0),
+                           "findings": len(report.findings)}
+        total.merge(report)
+        check(not report.findings, f"verify {label}: {report.summary()}")
+    for want in ("faces@4x4x4:plain", "faces@4x4x4:fused", "bcast@",
+                 "ring@", "a2a@", "serve@"):
+        check(any(label.startswith(want) for label in kept),
+              f"no {want} program was scheduled on the card")
+    stream = core.STStream(None, AXES, grid_shape=GRID_FULL)
+    core.halo.build_faces_program(stream, N_FULL, NITER_FULL)
+    kwarg = {}
+    for fused in (False, True):
+        for seg in core.split_segments(stream.program):
+            prog = core.schedule(core.lower_segment(stream, seg),
+                                 resources=16, fused=fused, verify=True)
+            kwarg["fused" if fused else "plain"] = len(prog.nodes)
+    corpus = run_corpus()
+    emit({"phase": "verify", "seconds": time.perf_counter() - t0,
+          "programs": sum(v["programs"] for v in by_label.values()),
+          "nodes": total.checked.get("nodes", 0),
+          "events": total.checked.get("events", 0),
+          "conflict_pairs": total.checked.get("conflict_pairs", 0),
+          "findings": len(total.findings), "by_program": by_label,
+          "schedule_verify_64r_nodes": kwarg,
+          "mutations": {k: {"detected": v["detected"], "kinds": v["kinds"]}
+                        for k, v in corpus.items()}})
+    check(len(corpus) == 6 and all(v["detected"] for v in corpus.values()),
+          f"seeded defects missed: "
+          f"{[k for k, v in corpus.items() if not v['detected']]}")
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
                                  "one NVIDIA card (see the docstring).")
@@ -3700,6 +4248,7 @@ def main():
     import repro_torch.models as models
     import repro_torch.serving as serving_mod
 
+    scheduled = collect_programs(core)      # for phase_verify, at the end
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -3822,6 +4371,9 @@ def main():
     kernels += phase_deepseek(dev, _build, serving, cfgs, attn, attn_errs)
     kernels += phase_short_serves(dev, _build, serving, cfgs, attn,
                                   attn_errs, granite_kernels)
+    kernels += phase_vision(dev, _build, serving, cfgs, attn, attn_errs)
+    phase_musicgen(dev, _build, serving, cfgs, granite_kernels)
+    phase_verify(core, scheduled)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "kernel_rows": [row["name"] for row in kernels]})
     smi = subprocess.run(

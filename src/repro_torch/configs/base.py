@@ -12,12 +12,6 @@ Differences from the copy's original:
     default: the hand-written CUDA kernels for CUDA tensors, their plain
     PyTorch versions for CPU tensors) or ``"plain"`` (the plain versions
     on any device, the reference a run on the card is held against);
-  * the registry holds only the ported architectures (granite-3-2b,
-    qwen3-32b, minitron-4b, granite-34b, rwkv6-1.6b,
-    jamba-1.5-large-398b, deepseek-v2-236b and deepseek-moe-16b); the
-    two with cross attention and a modality frontend
-    (llama-3.2-vision-90b, musicgen-large) raise ``KeyError`` until
-    their slice is ported (ROADMAP Queue 1 item 7d);
   * only the fields the serving path reads are kept: the training,
     sharding and dry-run policy knobs (``param_dtype``, ``optimizer``,
     ``opt_state_dtype``, ``remat``, ``grad_accum``,
@@ -252,7 +246,7 @@ class ModelConfig:
 # Registry
 # ---------------------------------------------------------------------------
 
-# every architecture of the JAX package; only those in _MODULES are ported
+# every architecture of the JAX package
 ARCH_IDS = [
     "llama-3.2-vision-90b",
     "granite-3-2b",
@@ -267,6 +261,7 @@ ARCH_IDS = [
 ]
 
 _MODULES = {
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
     "granite-3-2b": "granite_3_2b",
     "qwen3-32b": "qwen3_32b",
     "minitron-4b": "minitron_4b",
@@ -274,6 +269,7 @@ _MODULES = {
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "deepseek-v2-236b": "deepseek_v2_236b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "musicgen-large": "musicgen_large",
     "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
@@ -281,9 +277,6 @@ _MODULES = {
 def get_config(arch: str) -> ModelConfig:
     import importlib
     if arch not in _MODULES:
-        if arch in ARCH_IDS:
-            raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP "
-                           f"Queue 1 item 7d); ported: {sorted(_MODULES)}")
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG

@@ -2,8 +2,9 @@
 schedule passes, the ST / host / fused executors, the cost simulator,
 the schedule tuner (``core.autotune``), the Faces halo exchange, the
 broadcast, ring and expert-parallel a2a transports (``core.broadcast``,
-``core.ring``, ``core.ep_a2a``) and the serving decode transport
-(``core.serve_decode``)."""
+``core.ring``, ``core.ep_a2a``), the serving decode transport
+(``core.serve_decode``) and the static schedule verifier with its
+seeded-defect corpus (``core.verify``, ``core.defects``)."""
 from repro_torch.core.stream import STStream, counters_expected
 from repro_torch.core.window import STWindow
 from repro_torch.core.triggered import (ResourcePool, TriggeredOp,
@@ -23,7 +24,9 @@ from repro_torch.core.throttle import (CostModel, faces_programs,
                                        host_dispatch_count, simulate_faces,
                                        simulate_pipeline, simulate_program)
 from repro_torch.core.state import state_from_numpy, state_to_numpy
-from repro_torch.core.verify import find_cycle
+from repro_torch.core.verify import (Finding, ScheduleVerificationError,
+                                     VerifyReport, find_cycle, verify,
+                                     verify_programs)
 from repro_torch.core import halo
 
 __all__ = ["STStream", "STWindow", "TriggeredOp", "TriggeredProgram",
@@ -37,4 +40,6 @@ __all__ = ["STStream", "STWindow", "TriggeredOp", "TriggeredProgram",
            "available_patterns", "build_pattern", "pattern_programs",
            "simulate_pattern", "simulate_program", "simulate_pipeline",
            "simulate_faces", "faces_programs", "halo",
-           "state_from_numpy", "state_to_numpy", "find_cycle"]
+           "state_from_numpy", "state_to_numpy", "Finding", "VerifyReport",
+           "ScheduleVerificationError", "verify", "verify_programs",
+           "find_cycle"]

@@ -834,13 +834,11 @@ def schedule(prog: TriggeredProgram, *, throttle: str = "adaptive",
     launches one fused emission unit per segment instead of walking the
     DAG op by op, and the simulator charges host dispatch per segment.
 
-    ``verify=True`` would run the static verifier over the finished
-    schedule; the port has only its cycle finder so far (ROADMAP Queue 1
-    item 5, the verifier), so it raises ``NotImplementedError``."""
-    if verify:
-        raise NotImplementedError(
-            "schedule(verify=True): the static verifier is not ported yet "
-            "(ROADMAP Queue 1 item 5); only verify.find_cycle exists")
+    ``verify=True`` additionally runs the static verifier
+    (:mod:`repro_torch.core.verify`) over the finished schedule and raises
+    :class:`repro_torch.core.verify.ScheduleVerificationError` on any
+    error-severity finding (race, unsatisfiable wait, slot overflow,
+    malformed descriptor, ...)."""
     prog = fuse_signals(prog, merged)
     prog = ordering_pass(prog, ordered)
     prog = pack_puts(prog, pack)
@@ -852,4 +850,7 @@ def schedule(prog: TriggeredProgram, *, throttle: str = "adaptive",
     prog.meta["fused"] = bool(fused)
     if fused:
         plan_segments(prog)
+    if verify:
+        from repro_torch.core.verify import verify as _verify
+        _verify(prog).raise_if_errors()
     return prog

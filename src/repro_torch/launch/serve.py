@@ -9,15 +9,21 @@ card by default.
       --reduced --device cpu --moe-impl gshard
   python -m repro_torch.launch.serve --arch deepseek-v2-236b \\
       --reduced --device cpu
+  python -m repro_torch.launch.serve --arch musicgen-large
+  python -m repro_torch.launch.serve --arch llama-3.2-vision-90b \\
+      --reduced --device cpu
 
-``--arch`` takes the ported architectures (granite-3-2b, qwen3-32b,
-minitron-4b, granite-34b, rwkv6-1.6b, jamba-1.5-large-398b,
-deepseek-v2-236b, deepseek-moe-16b); ``--moe-impl`` the MoE layers'
+``--arch`` takes every architecture of the registry (granite-3-2b,
+qwen3-32b, minitron-4b, granite-34b, rwkv6-1.6b, jamba-1.5-large-398b,
+deepseek-v2-236b, deepseek-moe-16b, llama-3.2-vision-90b,
+musicgen-large); ``--moe-impl`` the MoE layers'
 implementation (the reference's choices; "dense" is its default, "a2a"
-the gather-based expert-parallel MoE on one shard). Models larger than
-one card in bf16 (the full 72-layer jamba, 398.6 B params;
-deepseek-v2-236b, 235.7 B; granite-34b, 47.2 B) are not cut here: on a
-card their init fails with the allocator's out-of-memory error
+the gather-based expert-parallel MoE on one shard). A vlm's prefill
+gets zero vision inputs and musicgen-large is fed token ids, as the
+reference's engine does. Models larger than one card in bf16 (the full
+72-layer jamba, 398.6 B params; deepseek-v2-236b, 235.7 B;
+llama-3.2-vision-90b, 87.7 B; granite-34b, 47.2 B) are not cut here: on
+a card their init fails with the allocator's out-of-memory error
 (chip_smoke.py serves cuts in depth).
 
 Params are random (seed 0), in the config's compute dtype.

@@ -1,5 +1,5 @@
-"""Models of the port (attention, mamba and rwkv mixers; dense, MoE and
-rwkv FFNs so far)."""
+"""Models of the port: attention, cross-attention, MLA, mamba and rwkv
+mixers; dense, MoE and rwkv FFNs; the modality frontend stub."""
 from repro_torch.models.model import (cache_specs, forward,
                                       logits_from_hidden, model_specs)
 from repro_torch.models.params import (ParamSpec, from_reference,

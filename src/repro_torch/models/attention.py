@@ -1,6 +1,6 @@
-"""GQA attention with a KV cache and RoPE, following the JAX package's
-``models/attention.py`` (self-attention blocks of dense models; qk-norm
-included; cross attention is not ported yet).
+"""GQA attention with a KV cache and RoPE, and the tanh-gated cross
+attention of the vlm archs, following the JAX package's
+``models/attention.py`` (qk-norm included).
 
 The attention core dispatches as the reference's Pallas route does
 (``attention.py`` ``attention_core``): one query token goes to the
@@ -12,6 +12,11 @@ any device (the reference a run on the card is held against). The
 reference's chunked ``attention_core_xla`` is not ported: it computes
 the same function as the plain versions, and the CPU tests compare the
 port against it.
+
+A non-causal query (cross attention) sees every key at decode too, as
+on the reference's default ``"xla"`` route: the decode kernel gets no
+query position, so nothing masks the keys past it. (The reference's
+Pallas decode route masks keys past the query position even then.)
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from repro_torch.models.params import ParamSpec
 # Param specs
 # ---------------------------------------------------------------------------
 
-def attn_specs(cfg) -> dict:
+def attn_specs(cfg, cross: bool = False) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = {
         "wq": ParamSpec((d, H, hd), ("embed", "heads", "head_dim")),
@@ -40,6 +45,9 @@ def attn_specs(cfg) -> dict:
     if cfg.qk_norm:
         s["q_norm"] = ParamSpec((hd,), (None,), init="ones")
         s["k_norm"] = ParamSpec((hd,), (None,), init="ones")
+    if cross:
+        # tanh-gated residual (llama-3.2-vision style)
+        s["gate"] = ParamSpec((), (), init="zeros")
     return s
 
 
@@ -50,16 +58,18 @@ def attn_specs(cfg) -> dict:
 def attention_core(cfg, q, k, v, *, q_positions, kv_valid_len=None,
                    causal=True):
     """q (B,Sq,H,hd), k/v (B,Skv,KV,hd[v]), q_positions (B,Sq) absolute
-    -> (B,Sq,H,hdv)."""
+    -> (B,Sq,H,hdv). ``causal=False`` masks no key by position, at
+    decode as at prefill."""
     plain = cfg.attn_impl == "plain"
     if cfg.attn_impl not in ("kernel", "plain"):
         raise ValueError(f"attn_impl {cfg.attn_impl!r}: the port has "
                          "'kernel' and 'plain'")
     if q.shape[1] == 1:
+        pos = q_positions if causal else None
         if plain:
-            return decode_attention_ref(q, k, v, q_positions=q_positions,
+            return decode_attention_ref(q, k, v, q_positions=pos,
                                         kv_valid_len=kv_valid_len)
-        return decode_attention(q, k, v, q_positions=q_positions,
+        return decode_attention(q, k, v, q_positions=pos,
                                 kv_valid_len=kv_valid_len)
     if plain:
         return flash_attention_ref(q, k, v, q_offset=q_positions[:, 0],
@@ -72,9 +82,19 @@ def attention_core(cfg, q, k, v, *, q_positions, kv_valid_len=None,
 # KV cache
 # ---------------------------------------------------------------------------
 
-def attn_cache_specs(cfg, batch: int, max_len: int):
-    """Returns {name: (shape, logical_axes)} for this layer's cache."""
+def attn_cache_specs(cfg, batch: int, max_len: int, cross: bool = False,
+                     n_vis: int = 0):
+    """Returns {name: (shape, logical_axes)} for this layer's cache: a
+    self layer's "k", "v" rows per position, a cross layer's "ck", "cv"
+    of the ``n_vis`` vision rows."""
     KV, hd = cfg.num_kv_heads, cfg.head_dim
+    if cross:
+        return {
+            "ck": ((batch, n_vis, KV, hd),
+                   ("batch", "vis_tokens", "kv_heads", "head_dim")),
+            "cv": ((batch, n_vis, KV, hd),
+                   ("batch", "vis_tokens", "kv_heads", "head_dim")),
+        }
     return {
         "k": ((batch, max_len, KV, hd),
               ("batch", "kv_seq", "kv_heads", "head_dim")),
@@ -118,6 +138,48 @@ def shared_inputs(cfg, positions, rope_dim=None) -> dict:
 # Block apply
 # ---------------------------------------------------------------------------
 
+def _project(x, w, n, hd):
+    """(B,S,D) @ (D,n,hd) -> (B,S,n,hd) in x's dtype."""
+    B, S, _ = x.shape
+    return torch.matmul(x, w.to(x.dtype).reshape(w.shape[0], -1)).view(
+        B, S, n, hd)
+
+
+def cross_attention(cfg, params, x, *, positions, cache=None, vision=None):
+    """Pre-norm'd x -> (tanh(gate) * attention over the vision rows,
+    cache), the reference's ``attention(..., cross=True)``.
+
+    vision: (B, T_vis, D) projected patch embeddings; K and V are
+    projected from them (no RoPE) and, with a cache, written into its
+    {"ck", "cv"} (B, T_vis, KV, hd) IN PLACE. A one-token step with a
+    cache (decode) reads "ck"/"cv" instead and needs no vision. Every
+    query sees every vision row (``causal=False``, no valid length).
+    """
+    dt = x.dtype
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _project(x, params["wq"], H, hd)
+    if cfg.qk_norm:
+        q = rmsnorm_nl(q, cfg.norm_eps) * params["q_norm"].to(dt)
+    if cache is not None and S == 1:
+        k, v = cache["ck"].to(dt), cache["cv"].to(dt)
+    else:
+        if vision is None:
+            raise ValueError("cross attention: a step without a cached "
+                             "vision K/V needs batch['vision']")
+        k = _project(vision, params["wk"], KV, hd)
+        v = _project(vision, params["wv"], KV, hd)
+        if cfg.qk_norm:
+            k = rmsnorm_nl(k, cfg.norm_eps) * params["k_norm"].to(dt)
+        if cache is not None:
+            cache["ck"].copy_(k)
+            cache["cv"].copy_(v)
+    out = attention_core(cfg, q, k, v, q_positions=positions, causal=False)
+    out = torch.matmul(out.reshape(B, S, H * hd),
+                       params["wo"].to(dt).reshape(H * hd, -1))
+    return out * torch.tanh(params["gate"].float()).to(dt), cache
+
+
 def attention(cfg, params, x, *, positions, cache=None, shared=None):
     """Pre-norm'd x -> (attention output, cache).
 
@@ -132,13 +194,9 @@ def attention(cfg, params, x, *, positions, cache=None, shared=None):
     dt = x.dtype
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-
-    def proj(w, n):                     # (B,S,D) @ (D,n,hd) -> (B,S,n,hd)
-        return torch.matmul(x, w.to(dt).reshape(w.shape[0], -1)).view(
-            B, S, n, hd)
-
-    q, k, v = proj(params["wq"], H), proj(params["wk"], KV), \
-        proj(params["wv"], KV)
+    q, k, v = (_project(x, params["wq"], H, hd),
+               _project(x, params["wk"], KV, hd),
+               _project(x, params["wv"], KV, hd))
     if cfg.qk_norm:
         q = rmsnorm_nl(q, cfg.norm_eps) * params["q_norm"].to(dt)
         k = rmsnorm_nl(k, cfg.norm_eps) * params["k_norm"].to(dt)

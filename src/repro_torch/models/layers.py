@@ -1,4 +1,5 @@
-"""Common layers: RMSNorm, RoPE, embeddings, SwiGLU FFN (spec + apply).
+"""Common layers: RMSNorm, RoPE, embeddings, SwiGLU FFN and the modality
+frontend stub (spec + apply).
 
 Follows the JAX package's ``models/layers.py``. Weights arrive in the
 compute dtype (cast at load, :mod:`.params`); ``.to(dt)`` below is then a
@@ -107,3 +108,18 @@ def ffn(params, x):
     g = torch.matmul(x, params["w_gate"].to(dt))
     u = torch.matmul(x, params["w_up"].to(dt))
     return torch.matmul(F.silu(g) * u, params["w_down"].to(dt))
+
+
+# ---------------------------------------------------------------------------
+# Modality frontend stub (VLM patches / audio frames)
+# ---------------------------------------------------------------------------
+
+def frontend_specs(raw_dim: int, d_model: int) -> dict:
+    return {"proj": ParamSpec((raw_dim, d_model), ("vis_dim", "embed"),
+                              scale=0.02)}
+
+
+def frontend(params, raw_embeds, compute_dtype):
+    """raw (B, T, raw_dim) precomputed patch/frame embeddings -> (B, T, D)."""
+    return torch.matmul(raw_embeds.to(compute_dtype),
+                        params["proj"].to(compute_dtype))

@@ -1,7 +1,7 @@
 """Block-pattern LM of the port, following the JAX package's
 ``models/model.py``: per block
 
-    x += mixer(norm(x))     mixer: attn, mla, mamba, rwkv time-mix
+    x += mixer(norm(x))     mixer: attn, cross, mla, mamba, rwkv time-mix
     x += ffn(norm(x))       ffn:   dense SwiGLU, MoE, rwkv channel-mix
 
 mixer and FFN dispatched independently, as the reference's
@@ -9,9 +9,10 @@ mixer and FFN dispatched independently, as the reference's
 repeated unit on a leading "layers" axis and runs it with ``lax.scan``;
 the port keeps one param dict and one cache dict per layer
 (``params["layers"][i]``, ``cache["layers"][i]``) and loops over them.
-Cross-attention mixers and the modality frontends raise
-``NotImplementedError`` until their slice is ported (ROADMAP Queue 1
-item 7d).
+A config with a ``vision`` stub has the modality frontend
+(``params["frontend"]``): a vlm's cross layers attend to its projection
+of ``batch["vision"]``, an audio model's input is its projection of
+``batch["frames"]``.
 """
 from __future__ import annotations
 
@@ -25,24 +26,6 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.params import ParamSpec
 
-_MIXERS = ("attn", "mla", "mamba", "rwkv")
-
-
-def _check_ported(cfg) -> list:
-    specs = cfg.layer_specs()
-    for i, (mixer, _) in enumerate(specs):
-        if mixer not in _MIXERS:
-            raise NotImplementedError(
-                f"{cfg.name}: layer {i} has a {mixer!r} mixer; the port "
-                f"runs {_MIXERS} mixers only so far (ROADMAP Queue 1 item "
-                "7d: cross attention)")
-    if cfg.vision is not None or cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends are not ported yet (ROADMAP "
-            "Queue 1 item 7d)")
-    return specs
-
-
 # ---------------------------------------------------------------------------
 # Specs
 # ---------------------------------------------------------------------------
@@ -53,6 +36,8 @@ def _block_specs(cfg, spec, ff_width: int) -> dict:
     s = {"norm1": L.rmsnorm_specs(d), "norm2": L.rmsnorm_specs(d)}
     if mixer == "attn":
         s["mixer"] = attn_mod.attn_specs(cfg)
+    elif mixer == "cross":
+        s["mixer"] = attn_mod.attn_specs(cfg, cross=True)
     elif mixer == "mla":
         s["mixer"] = mla_mod.mla_specs(cfg)
     elif mixer == "mamba":
@@ -71,12 +56,14 @@ def _block_specs(cfg, spec, ff_width: int) -> dict:
 
 
 def model_specs(cfg) -> dict:
-    specs = _check_ported(cfg)
-    return {"embed": L.embed_specs(cfg.padded_vocab, cfg.d_model,
-                                   cfg.tie_embeddings),
-            "final_norm": L.rmsnorm_specs(cfg.d_model),
-            "layers": [_block_specs(cfg, sp, cfg.dense_ff_for(i))
-                       for i, sp in enumerate(specs)]}
+    specs = {"embed": L.embed_specs(cfg.padded_vocab, cfg.d_model,
+                                    cfg.tie_embeddings),
+             "final_norm": L.rmsnorm_specs(cfg.d_model)}
+    if cfg.vision is not None:
+        specs["frontend"] = L.frontend_specs(cfg.vision.raw_dim, cfg.d_model)
+    specs["layers"] = [_block_specs(cfg, sp, cfg.dense_ff_for(i))
+                       for i, sp in enumerate(cfg.layer_specs())]
+    return specs
 
 
 def cache_specs(cfg, batch: int, max_len: int,
@@ -89,13 +76,18 @@ def cache_specs(cfg, batch: int, max_len: int,
     layer's {"conv"} (batch, d_conv - 1, d_inner) in
     ``cache_dtype`` and {"ssm"} (batch, d_inner, d_state) float32; an
     rwkv layer's {"shift_t", "shift_c"} (batch, D) in ``cache_dtype`` and
-    {"wkv"} (batch, H, hd, hd) float32. Leaves with a "kv_seq" axis hold
-    rows per position; the others hold a sequence's state."""
-    specs = _check_ported(cfg)
+    {"wkv"} (batch, H, hd, hd) float32; a cross layer's {"ck", "cv"}
+    (batch, vision tokens, KV, hd) in ``cache_dtype``. Leaves with a
+    "kv_seq" axis hold rows per position; the others hold a sequence's
+    state."""
     out = []
-    for mixer, _ in specs:
+    for mixer, _ in cfg.layer_specs():
         if mixer == "attn":
             raw = attn_mod.attn_cache_specs(cfg, batch, max_len)
+        elif mixer == "cross":
+            raw = attn_mod.attn_cache_specs(
+                cfg, batch, max_len, cross=True,
+                n_vis=cfg.vision.num_tokens if cfg.vision else 0)
         elif mixer == "mla":
             raw = mla_mod.mla_cache_specs(cfg, batch, max_len)
         elif mixer == "mamba":
@@ -114,7 +106,7 @@ def cache_specs(cfg, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _apply_block(cfg, spec, params, x, *, positions, cache, shared,
-                 moe_impl):
+                 vision, moe_impl):
     """One block; returns (x, cache, MoE aux loss or None)."""
     mixer, ffn_kind = spec
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
@@ -122,6 +114,10 @@ def _apply_block(cfg, spec, params, x, *, positions, cache, shared,
         out, cache = attn_mod.attention(cfg, params["mixer"], h,
                                         positions=positions, cache=cache,
                                         shared=shared[mixer])
+    elif mixer == "cross":
+        out, cache = attn_mod.cross_attention(cfg, params["mixer"], h,
+                                              positions=positions,
+                                              cache=cache, vision=vision)
     elif mixer == "mla":
         out, cache = mla_mod.mla_attention(cfg, params["mixer"], h,
                                            positions=positions, cache=cache,
@@ -147,7 +143,11 @@ def _apply_block(cfg, spec, params, x, *, positions, cache, shared,
 def forward(cfg, params, batch, *, cache=None, moe_impl: str = "gshard"):
     """Forward pass.
 
-    batch: {"tokens": (B,S) int, "positions": (B,S) int absolute}.
+    batch: {"tokens": (B,S) int, "positions": (B,S) int absolute}, and
+    for a vlm "vision" (B,T_vis,raw_dim) patch embeddings (needed where a
+    cross layer has no cached vision K/V: without a cache, and at
+    prefill), for an audio model "frames" (B,S,raw_dim) frame embeddings
+    (then "tokens" is optional and, if given, its embedding is added).
     cache: a cache tree (``cache_specs``), written in place, or None.
     moe_impl: the MoE layers' implementation (:func:`.moe.moe`), the
     reference's default "gshard".
@@ -155,10 +155,19 @@ def forward(cfg, params, batch, *, cache=None, moe_impl: str = "gshard"):
     reference's triple; aux_loss (float32) sums the MoE layers' load-
     balance losses, 0 without one.
     """
-    specs = _check_ported(cfg)
+    specs = cfg.layer_specs()
     cdt = getattr(torch, cfg.compute_dtype)
     positions = batch["positions"]
-    x = L.embed(params["embed"], batch["tokens"], cdt)
+    if "frames" in batch and cfg.family == "audio":
+        x = (L.frontend(params["frontend"], batch["frames"], cdt)
+             if "frontend" in params else batch["frames"].to(cdt))
+        if "tokens" in batch:   # decode continues from generated tokens
+            x = x + L.embed(params["embed"], batch["tokens"], cdt)
+    else:
+        x = L.embed(params["embed"], batch["tokens"], cdt)
+    vision = None
+    if cfg.vision is not None and "vision" in batch:
+        vision = L.frontend(params["frontend"], batch["vision"], cdt)
     # what the attention layers derive from the positions alone, once
     mixers = {sp[0] for sp in specs}
     shared = {}
@@ -170,7 +179,8 @@ def forward(cfg, params, batch, *, cache=None, moe_impl: str = "gshard"):
     for i, (sp, p) in enumerate(zip(specs, params["layers"])):
         c = cache["layers"][i] if cache is not None else None
         x, _, aux = _apply_block(cfg, sp, p, x, positions=positions,
-                                 cache=c, shared=shared, moe_impl=moe_impl)
+                                 cache=c, shared=shared, vision=vision,
+                                 moe_impl=moe_impl)
         if aux is not None:
             aux_total = aux_total + aux
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

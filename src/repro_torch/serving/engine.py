@@ -11,7 +11,7 @@ and prefills each length group in ONE dispatch. Sampling is device-side
 ids to the host instead of the logits. Per-slot positions support ragged
 sequence lengths inside one batch.
 
-Differences from the reference, neither visible in the tokens:
+Differences from the reference, none visible in the tokens:
 
   * a prefill runs on the group's rows only (the reference runs all B
     slots, mostly padding) and writes into the slots' cache rows IN
@@ -26,6 +26,10 @@ Differences from the reference, neither visible in the tokens:
     dispatch (a recycled slot would otherwise start from the previous
     request's state: for mamba, its last 3 conv inputs and its SSM
     state);
+  * a vlm's prefill gets the reference's zero vision inputs, its
+    decode step none: the cross layers read the vision K/V their
+    prefill wrote into the cache (the reference builds zero vision at
+    decode too, which no layer reads);
   * the decode step updates the cache in place (the reference donates
     it to a jitted step). On a CUDA device the (batch_slots, 1) decode
     step is replayed as one CUDA graph, the counterpart of the
@@ -206,6 +210,11 @@ class ServingEngine:
         batch = {"tokens": torch.as_tensor(toks, device=self.device),
                  "positions": torch.arange(L, dtype=torch.int32,
                                            device=self.device).expand(n, L)}
+        if self.cfg.family == "vlm":    # the reference's zero patches
+            vis = self.cfg.vision
+            batch["vision"] = torch.zeros((n, vis.num_tokens, vis.raw_dim),
+                                          dtype=torch.float32,
+                                          device=self.device)
         s0 = slots[0]
         layers = list(zip(self.cache["layers"], self._state_keys))
         if slots == list(range(s0, s0 + n)):        # one view, in place

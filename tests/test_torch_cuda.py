@@ -469,6 +469,11 @@ def _assert_attn_close(out, ref):
     (2, 129, 127, 8, 8, 64, (127, 64), 0, True),
     (1, 1, 1000, 32, 8, 64, (1000,), 999, True),         # one row, last key
     (1, 1000, 1000, 64, 8, 128, (1000,), 0, True),       # jamba prefill
+    # llama-3.2-vision's cross layers: the prompt against every one of
+    # the 1600 vision rows, no valid length; prompts of no multiple of 64
+    (8, 1000, 1600, 64, 8, 128, None, 0, False),
+    (2, 65, 1600, 64, 8, 128, None, 0, False),
+    (8, 1000, 4096, 32, 32, 64, (1000,) * 8, 0, True),   # musicgen prefill
 ])
 def test_flash_attention_kernel_equals_plain(dev, dtype, B, Sq, Skv, H, KV,
                                              hd, kvl, off, causal):
@@ -506,6 +511,8 @@ def test_flash_attention_kernel_equals_plain(dev, dtype, B, Sq, Skv, H, KV,
     # more than 16 heads per KV head: the bf16 kernel's head groups
     (2, 300, 32, 1, 64, (299, 17)),                      # G = 32
     (1, 200, 20, 1, 32, (150,)),                         # G = 20: 16 + 4
+    (8, 4096, 32, 32, 64, (1000, 128, 4095, 0, 600, 257, 3000, 64)),
+    #                                                      musicgen, MHA
 ])
 def test_decode_attention_kernel_equals_plain(dev, dtype, B, S, H, KV, hd,
                                               pos):
@@ -544,6 +551,36 @@ def test_decode_attention_kernel_equals_plain(dev, dtype, B, S, H, KV, hd,
         ref = decode_attention_ref(q, k, v, q_positions=p, kv_valid_len=kvl)
         assert out.shape == ref.shape and out.dtype == dtype
         _assert_attn_close(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_decode_attends_every_vision_row(dev, dtype):
+    """llama-3.2-vision's cross layers at decode: 8 slots at positions
+    below 1600 against the 1600 cached vision rows. ``attention_core``
+    with ``causal=False`` launches the decode kernel once with no query
+    position, so every row is valid: it equals the plain version without
+    positions or valid length, and not the one masked at the
+    positions."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.models.attention import attention_core
+    cfg = get_config("llama-3.2-vision-90b")
+    q, k, v = _attn_inputs(dev, dtype, 8, 1, 1600, 64, 8, 128)
+    pos = torch.tensor([0, 1, 5, 63, 64, 700, 1000, 1598], device=dev,
+                       dtype=torch.int32)[:, None]
+    _build.reset_launches()
+    out = attention_core(cfg, q, k, v, q_positions=pos, causal=False)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode_attention"] == 1
+    ref = decode_attention_ref(q, k, v)
+    _assert_attn_close(out, ref)
+    plain = attention_core(dataclasses.replace(cfg, attn_impl="plain"),
+                           q, k, v, q_positions=pos, causal=False)
+    _assert_attn_close(plain, ref)
+    masked = decode_attention_ref(q, k, v, q_positions=pos)
+    assert (out.float() - masked.float()).abs().max().item() > 0.1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1079,6 +1116,60 @@ def test_jamba_engine_on_the_card_equals_the_cpu_and_launches_the_kernels(
     assert tokens[str(dev)] == tokens["cpu"]
 
 
+def test_vlm_engine_on_the_card_equals_the_cpu_and_launches_the_kernels(
+        dev):
+    """The reduced llama-3.2-vision served on the card with its gates
+    redrawn nonzero and seeded vision inputs at every prefill (the
+    engine's own are zeros): per prefill dispatch one flash attention
+    launch per layer (the 4 self layers causal, the cross layer not), per
+    decode step one decode-attention launch per layer (the cross layer's
+    over the cached vision rows), and the CPU's greedy tokens (float32
+    compute)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Request, ServingEngine
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-90b").reduced(),
+                              compute_dtype="float32")
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         "cpu", torch.float32)
+    for i, (mixer, _) in enumerate(cfg.layer_specs()):
+        if mixer == "cross":
+            params["layers"][i]["mixer"]["gate"].fill_(0.8)
+    rng = np.random.RandomState(0)
+    specs = [(rng.randint(1, cfg.vocab_size, L).astype(np.int32), m)
+             for L, m in ((5, 6), (9, 4), (5, 3), (17, 5), (9, 2),
+                          (70, 3))]
+    tokens = {}
+    for device in ("cpu", dev):
+        eng = ServingEngine(cfg, tree_map(lambda t: t.to(device), params),
+                            batch_slots=3, max_len=128, device=device)
+        inner, calls = eng._prefill_sample, []
+
+        def prefill(p, batch, cache, inner=inner, calls=calls,
+                    device=device):
+            n = batch["tokens"].shape[0]
+            gen = torch.Generator().manual_seed(len(calls))
+            calls.append(n)
+            vis = 4 * torch.randn((n, cfg.vision.num_tokens,
+                                   cfg.vision.raw_dim), generator=gen)
+            return inner(p, dict(batch, vision=vis.to(device)), cache)
+        eng._prefill_sample = prefill
+        reqs = [Request(prompt=pr, max_new_tokens=m) for pr, m in specs]
+        for r in reqs:
+            eng.submit(r)
+        _build.reset_launches()
+        eng.run_until_drained()
+        tokens[str(device)] = [r.out_tokens for r in reqs]
+        if device != "cpu":
+            assert _build.LAUNCHES["flash_attention"] == \
+                cfg.num_layers * eng.prefill_dispatches
+            assert _build.LAUNCHES["decode_attention"] == \
+                cfg.num_layers * eng.decode_steps
+    assert tokens[str(dev)] == tokens["cpu"]
+
+
 # ---------------------------------------------------------------------------
 # the decode step as a CUDA graph
 # ---------------------------------------------------------------------------
@@ -1116,7 +1207,8 @@ def _graph_vs_eager_decode(eng, prompts, steps=8):
 @pytest.mark.parametrize("arch,moe_impl", [
     ("granite-3-2b", "dense"), ("rwkv6-1.6b", "dense"),
     ("jamba-1.5-large-398b", "dense"), ("jamba-1.5-large-398b", "gshard"),
-    ("jamba-1.5-large-398b", "a2a")])
+    ("jamba-1.5-large-398b", "a2a"), ("llama-3.2-vision-90b", "dense"),
+    ("musicgen-large", "dense")])
 def test_decode_graph_equals_eager_decode(dev, arch, moe_impl):
     """Each reduced model's decode step replayed from its CUDA graph
     gives the eager step's ids and cache bit for bit, 8 steps on the same

@@ -106,10 +106,12 @@ def test_simulate_faces_wrapper_matches_reference(policy):
 
 
 def test_verify_and_tuner_are_not_ported_yet():
-    """The verifier is not ported, nor is the calibrated cost model the
-    JAX package's tuner can price with (``core/calibrate.py``); the
-    tuner itself is (tests/test_torch_autotune.py)."""
-    with pytest.raises(NotImplementedError, match="verifier"):
-        schedule(TriggeredProgram(), verify=True)
+    """The verifier is ported (``schedule(verify=True)`` runs it: an
+    empty program verifies clean; tests/test_torch_verify.py holds it to
+    the reference's), and so is the tuner (tests/test_torch_autotune.py);
+    the calibrated cost model the JAX package's tuner can price with
+    (``core/calibrate.py``) is not."""
+    prog = schedule(TriggeredProgram(), verify=True)
+    assert prog.nodes == [] and prog.meta["fused"] is False
     with pytest.raises(NotImplementedError, match="item 3"):
         simulate_pattern("faces", 1, cm="calibrated")

@@ -287,15 +287,21 @@ def test_full_granite_config_and_unported_kinds():
         (40, 2048, 32, 8, 8192, 49155, 49408)
     # ~2.5 B params at full width (tied embeddings over the padded vocab)
     assert 2.4e9 < param_count(model_specs(cfg)) < 2.6e9
-    # what stays unported: the two archs with cross attention and a
-    # modality frontend, and a cross-attention mixer
+    # every arch of the registry comes across now, the two with cross
+    # attention and a modality frontend too, and a cross-attention mixer
+    # gets the gated specs and the vision cache
     for arch in ("llama-3.2-vision-90b", "musicgen-large"):
-        with pytest.raises(KeyError, match="not ported.*item 7d"):
-            get_config(arch)
-    cross = dataclasses.replace(cfg.reduced(), cross_attn_period=2)
+        assert get_config(arch).vision is not None
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama-4")
+    cross = dataclasses.replace(cfg.reduced(), cross_attn_period=2,
+                                vision=get_config(
+                                    "llama-3.2-vision-90b").reduced().vision)
     assert ("cross", "dense") in cross.layer_specs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7d"):
-        model_specs(cross)
+    specs = model_specs(cross)
+    assert specs["layers"][1]["mixer"]["gate"].shape == ()
+    assert specs["frontend"]["proj"].shape == (64, cross.d_model)
+    assert sorted(cache_specs(cross, 2, 8)["layers"][1]) == ["ck", "cv"]
 
 
 # (num_layers, d_model, num_heads, num_kv_heads, head_dim, vocab_size) and
@@ -306,10 +312,12 @@ FULL = {
     "qwen3-32b": ((64, 5120, 64, 8, 128, 151936), 32.76),
     "minitron-4b": ((32, 3072, 24, 8, 128, 256000), 5.10),
     "granite-34b": ((88, 6144, 48, 1, 128, 49152), 47.25),
+    "llama-3.2-vision-90b": ((100, 8192, 64, 8, 128, 128256), 87.665),
+    "musicgen-large": ((48, 2048, 32, 32, 64, 2048), 3.23),
 }
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", list(FULL))
 def test_full_width_configs_equal_the_reference(arch):
     """Every field the port keeps equals the reference's (the attention
     route apart), and the full
