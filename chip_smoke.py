@@ -23,7 +23,10 @@ qwen3-32b and granite-34b (MQA: flash-decode at G = 48) served short at
 full width; llama-3.2-vision-90b at full width cut to 20 layers (cross
 attention over 1600 vision rows: flash attention not causal at prefill,
 flash-decode over every vision row at decode) and musicgen-large whole
-(MHA at hd 64; its frame frontend), served short; and the static
+(MHA at hd 64; its frame frontend), served short; training: granite-3-2b
+at full width, rwkv6-1.6b and a 3-layer jamba cut trained through the
+train step, with flash attention, WKV6 and the selective scan under
+autograd (the kernel forward, the plain version's VJP); and the static
 schedule verifier over every program the run scheduled on the card.
 Run from the repository root, with no arguments:
 
@@ -333,7 +336,46 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  frame embeddings (4 x 1000 x 128) through its frontend,
                  kernel route against plain route (logits within 0.5, 48
                  flash launches).
- 13. verify   — the static schedule verifier over every program the run
+ 13. training — ``train_kernels``: flash attention, WKV6 and the
+                 selective scan as autograd Functions at training shapes
+                 (granite's attention at 2 x 1024 and 2 x 1023, jamba's
+                 at 1 x 256, rwkv6's WKV6 at 2 x 512 and 2 x 511, jamba's
+                 scan at 1 x 256 and 1 x 255): forward bit for bit the
+                 bare kernel, gradients bit for bit autograd through the
+                 plain version, one launch in the forward (the host's
+                 launch calls under the Function) and a wrapper count of
+                 1 over forward and backward. ``train``:
+                 granite-3-2b at full width (random float32 masters from
+                 a seed, bf16 compute, AdamW, grad_accum 4, remat dots),
+                 6 steps of 8 x 1024 SyntheticTokens(seed=0) tokens, a
+                 cosine LR with a one-step warmup: per step loss, aux,
+                 LR, ms and flash launches (40 x 4 x 2 = 320: the block's
+                 forward runs again in the backward); steady step ms,
+                 tokens/s, peak GB, a step split into gradients and
+                 optimizer, a profiled step (busy, idle, GEMM and flash
+                 ms and device launches, top ops); gates: finite losses,
+                 the last below the first, flash launched on the device
+                 in the profiled step, a finite nonzero gradient for
+                 every master.
+                 ``train_route``: granite cut to 2 layers, one step's loss
+                 and gradients through the kernels against the plain
+                 versions (float32: 1e-5 relative and 1e-4 of the
+                 largest |grad|; bf16 2e-2). ``train_restart`` (a
+                 subprocess, deterministic algorithms): 6 steps against
+                 3 + an async checkpoint + a restore into fresh tensors
+                 + 3, params and optimizer state bit for bit, the 2.7 GB
+                 checkpoint removed. rwkv6-1.6b (3 steps of 4 x 512,
+                 grad_accum 2; 96 WKV6 launches a step) and jamba cut to
+                 3 layers without experts (Adafactor, bf16 moments and
+                 accumulator, 3 steps of 16 x 256, grad_accum 16; 64 scan
+                 and 32 flash launches a step), with the same gates; of
+                 these two one micro-batch's forward is profiled (a
+                 step's ~10^6 device ops of the plain backwards take the
+                 profiler minutes), and the device must have run their
+                 kernels in it. The flash attention, WKV6 and scan rows
+                 of the kernels line gain their launches per train
+                 step.
+ 14. verify   — the static schedule verifier over every program the run
                  scheduled on the card (each kept once, as it was first
                  scheduled, by wrapping ``STStream.scheduled_programs``):
                  the 64-rank Faces program (plain for st and host, and
@@ -368,7 +410,9 @@ at 64r warm and cold, halo_unpack at 64r and counter_bump; and the st
 and fused Faces 64r programs' ms per iteration (CUDA-graph replays in
 a tree that has them, the first run apart) with the device's busy ms,
 ops, and pack and unpack ms per iteration (profiler); the unpack in
-bf16 where the tree takes it. The workers
+bf16 where the tree takes it; and granite-3-2b served at full width as
+in phase 6 (decode ms per step, prefill ms per dispatch, tokens/s, peak
+GB). The workers
 go other, this, this, other, so that a drift of the card's clock falls
 on both trees alike; the last JSON line holds each tree's median per
 case.
@@ -378,6 +422,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import os
 import re
 import statistics
@@ -390,6 +435,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 # operations bound: the attention kernels' bf16 products at the bf16
 # tensor-core rate, wkv6's float32 state updates at the float32 rate
@@ -493,7 +539,9 @@ SHORT_SERVES = (("minitron-4b", None), ("qwen3-32b", 48),
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with "t": seconds since the script started."""
+    print(json.dumps(dict(obj, t=round(time.perf_counter() - T0, 1))),
+          flush=True)
 
 
 def fail(msg):
@@ -640,6 +688,15 @@ KERNEL_FUNCS = {"flash_attention": ("flash_fwd_",),
 def kernel_ms(prof, names):
     """{wrapper: device ms of its kernels in the profile ``prof``}."""
     return {n: sum(ms for ms, key, _ in prof["rows"]
+                   if any(re.search(r"(?<!\w)" + f, key)
+                          for f in KERNEL_FUNCS[n]))
+            for n in names}
+
+
+def kernel_device_launches(prof, names):
+    """{wrapper: launches of its kernels the device ran in the profile
+    ``prof``}."""
+    return {n: sum(c for key, c in prof["ops"].items()
                    if any(re.search(r"(?<!\w)" + f, key)
                           for f in KERNEL_FUNCS[n]))
             for n in names}
@@ -2069,6 +2126,49 @@ def layers_of(mixers, which):
                (which if isinstance(which, tuple) else (which,)))
 
 
+def serve_requests(Request, cfg, rng):
+    """``requests(n, lengths=None, new=SERVE_NEW)``: ``n`` requests of
+    prompts drawn from ``rng`` at ``lengths`` (by default drawn from
+    SERVE_LENGTHS), ``new`` tokens each."""
+    def requests(n, lengths=None, new=SERVE_NEW):
+        lengths = (rng.choice(SERVE_LENGTHS, n) if lengths is None
+                   else lengths)
+        return [Request(prompt=rng.randint(1, cfg.vocab_size, int(L))
+                        .astype(np.int32), max_new_tokens=new)
+                for L in lengths]
+    return requests
+
+
+def serve_measured(eng, requests, before_run=lambda: None):
+    """The serve measurement: a warm-up of two requests (the shortest
+    and the longest length, 3 tokens each; cuBLAS handles and kernel
+    libraries loaded, the decode graph captured), not counted; then
+    SERVE_REQUESTS requests of seeded lengths submitted at once and
+    drained, timed on the host clock with the device synchronised.
+    ``before_run()`` runs just before the timed run. Returns (the
+    requests, the engine's stats of the run with its ``wall_s`` and
+    ``engine_steps``, what ``before_run`` returned)."""
+    for r in requests(2, (SERVE_LENGTHS[0], SERVE_LENGTHS[-1]), 3):
+        eng.submit(r)
+    eng.run_until_drained()
+    before = eng.stats()
+    reqs = requests(SERVE_REQUESTS)
+    hooked = before_run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    steps = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    d = {k: st[k] - before[k] for k in ("prefill_dispatches", "decode_steps",
+                                         "tokens_generated", "prefill_seconds",
+                                         "decode_seconds")}
+    d.update(wall_s=wall, engine_steps=steps)
+    return reqs, d, hooked
+
+
 def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
                 profile_rows=SERVE_SLOTS, moe_impl="dense", params=None,
                 short=False, cut=None):
@@ -2106,42 +2206,21 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
     graphed = eng._decode_sample
     check(isinstance(graphed, serving["graphs"].StepGraph),
           f"{arch}: the engine's decode step is not a graph")
-    rng = np.random.RandomState(0)
-    Request = eng_mod.Request
-
-    def requests(n, lengths=None, new=SERVE_NEW):
-        lengths = (rng.choice(SERVE_LENGTHS, n) if lengths is None
-                   else lengths)
-        return [Request(prompt=rng.randint(1, cfg.vocab_size, int(L))
-                        .astype(np.int32), max_new_tokens=new)
-                for L in lengths]
-
-    # warm-up (cuBLAS handles, kernel libraries loaded), not counted
-    for r in requests(2, (SERVE_LENGTHS[0], SERVE_LENGTHS[-1]), 3):
-        eng.submit(r)
-    eng.run_until_drained()
-    check(graphed.captures == 1, f"{arch}: {graphed.captures} decode graph "
-          "captures in the warm-up, want 1")
-    before = eng.stats()
-    reqs = requests(SERVE_REQUESTS)
-    check(len({len(r.prompt) for r in reqs}) > 1, "one prompt length only")
+    requests = serve_requests(eng_mod.Request, cfg, np.random.RandomState(0))
     names = sorted(set(kernels["prefill"]) | set(kernels["decode"]))
-    per = count_dispatches(eng, _build)
-    torch.cuda.synchronize()
-    _build.reset_launches()                 # the counted main-path run
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    steps = eng.run_until_drained()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+
+    def before_run():
+        check(graphed.captures == 1, f"{arch}: {graphed.captures} decode "
+              "graph captures in the warm-up, want 1")
+        per = count_dispatches(eng, _build)
+        _build.reset_launches()             # the counted main-path run
+        return per
+
+    reqs, d, per = serve_measured(eng, requests, before_run)
+    wall, steps = d["wall_s"], d.pop("engine_steps")
     launches = dict(_build.LAUNCHES)
     per = {kind: list(v) for kind, v in per.items()}    # the counted run
-    st = eng.stats()
-    d = {k: st[k] - before[k] for k in ("prefill_dispatches", "decode_steps",
-                                         "tokens_generated", "prefill_seconds",
-                                         "decode_seconds")}
-    d["wall_s"] = wall
+    check(len({len(r.prompt) for r in reqs}) > 1, "one prompt length only")
     check(all(len(r.out_tokens) == SERVE_NEW for r in reqs),
           "a request did not get its 32 tokens")
     for kind, n in (("prefill", d["prefill_dispatches"]),
@@ -3152,7 +3231,8 @@ def ab_worker(tree):
     """Build ``tree``'s recurrent and Faces kernels; time the recurrent
     ones at AB_CASES on the kernels-line rows' inputs (wkv_inputs at 32
     heads of 64; scan_inputs at d_inner 16384, d_state 16, b and c
-    strided after 512 columns), then the Faces path (faces_ab)."""
+    strided after 512 columns), then the Faces path (faces_ab) and
+    granite's serving (serve_ab)."""
     sys.path.insert(0, os.path.join(tree, "src"))
     from repro_torch.kernels import _build
     check(os.path.realpath(_build.__file__).startswith(tree + os.sep),
@@ -3179,12 +3259,42 @@ def ab_worker(tree):
                                              inner=5)
         del ins
     ms.update(faces_ab(dev, core, hp, counter_bump))
+    torch.cuda.empty_cache()
+    ms.update(serve_ab(dev))
     emit({"tree": tree, "sass": sass, "ms": ms})
 
 
+def serve_ab(dev):
+    """granite-3-2b at full width (random bf16 weights, seed 0) served as
+    in phase 6 (:func:`serve_measured`, the same seeded requests)
+    through the tree's ServingEngine: decode ms per step,
+    prefill ms per dispatch, tokens/s (the counted run's host wall time)
+    and peak GB (the units in the keys)."""
+    import repro_torch.configs as cfgs
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.serving import Request, ServingEngine
+    cfg = cfgs.get_config("granite-3-2b")
+    params = init_params(model_specs(cfg), torch.Generator(
+        device=dev).manual_seed(0), dev, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN, moe_impl="dense", device=dev)
+    _, d, _ = serve_measured(eng, serve_requests(
+        Request, cfg, np.random.RandomState(0)))
+    out = {"serve granite tokens_per_s": d["tokens_generated"] / d["wall_s"],
+           "serve granite decode_ms_per_step":
+           d["decode_seconds"] * 1e3 / d["decode_steps"],
+           "serve granite prefill_ms_per_dispatch":
+           d["prefill_seconds"] * 1e3 / d["prefill_dispatches"],
+           "serve granite peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del eng, params
+    return out
+
+
 def ab(other):
-    """This tree's recurrent kernels and Faces path against ``other``'s,
-    one worker process per tree in turns other, this, this, other."""
+    """This tree's recurrent kernels, Faces path and granite serving
+    against ``other``'s, one worker process per tree in turns other,
+    this, this, other."""
     trees = {"other": os.path.realpath(other), "this": ROOT}
     runs = {"other": [], "this": []}
     for who in ("other", "this", "this", "other"):
@@ -4208,6 +4318,538 @@ def phase_verify(core, kept):
           f"{[k for k, v in corpus.items() if not v['detected']]}")
 
 
+# ---------------------------------------------------------------------------
+# training: the kernels under autograd, granite-3-2b at full width, the
+# kernel route against the plain one, a bit-exact restart, rwkv6, jamba
+# ---------------------------------------------------------------------------
+
+# granite-3-2b's train cell: float32 masters, bf16 compute, AdamW,
+# grad_accum 4 (micro-batches of 2), remat "dots", 8 x 1024 tokens. The
+# peak LR is small because the cells start from random weights with no
+# long warmup: Adam's first steps move every weight by about the LR, and
+# at full width 1e-4 (and 3e-5) made granite's loss swing by several
+# nats from step to step, on the plain route as on the kernel route, on
+# an H100 (1e-5 moved it down by ~0.9 in a step)
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 6, 1024, 8
+TRAIN_LR, TRAIN_WARMUP = 1e-5, 1
+# the route check's bounds: float32, loss 1e-5 relative and gradients
+# 1e-4 of the largest |grad| (the float32 flash kernel agrees with its
+# plain version to ~1e-7 a call); bf16, 2e-2 of each (the kernel and the
+# plain version round attention at other points, as in the serve replay)
+ROUTE_LOSS_F32, ROUTE_GRAD_F32, ROUTE_BF16 = 1e-5, 1e-4, 2e-2
+# the restart check's checkpoint: float32 masters and AdamW moments of
+# the 2-layer cut, ~2.7 GB, written inside the checkout and removed
+RESTART_DIR = os.path.join(ROOT, "build", "train_restart_ckpt")
+# rwkv6-1.6b: 3 steps of 4 x 512 (grad_accum 2); the jamba cut: 3 steps
+# of 16 x 256 (grad_accum 16, micro-batches of 1), Adafactor
+SHORT_TRAIN_STEPS = 3
+# train_kernels: forward calls in one profiled window
+FWD_CALLS = 4
+
+
+def remat_factor(cfg):
+    """Forward launches of a kernel per layer and micro-batch: 2 where
+    the block's forward is run again in the backward (remat dots, comm,
+    full), else 1. The backward itself is the plain version's VJP."""
+    return 1 if cfg.remat == "none" else 2
+
+
+# the autograd Function each wrapper's calls with a gradient go through,
+# as the profiler names its forward
+TRAIN_FUNCTIONS = {"flash_attention": "FlashAttention", "wkv6": "WKV6",
+                   "mamba_scan": "MambaScan"}
+
+
+def function_launches(name, fn, leaves):
+    """FWD_CALLS calls of ``fn`` under the profiler: the kernel launch
+    calls the host made inside the Function's forward (the CUDA runtime
+    calls the profiler records). The device's records of a window this
+    short have gone missing late in a run, so the kernels' device
+    launches are counted, and gated, in the train cells' longer profiled
+    windows (:func:`train_cell`)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(FWD_CALLS):
+            fn(*leaves)
+        torch.cuda.synchronize()
+    host = 0
+    for e in prof.events():
+        if "LaunchKernel" in e.name:
+            p = e.cpu_parent
+            while p is not None and p.name != TRAIN_FUNCTIONS[name]:
+                p = p.cpu_parent
+            host += p is not None
+    return host
+
+
+def train_kernel_case(name, _build, fn, bare, ref, args, grad_idx,
+                      out_grads):
+    """One autograd Function at one shape: its forward output against
+    the bare kernel's (bit for bit), its gradients against autograd
+    through the plain version on the same inputs, the kernel's launches
+    in ``FWD_CALLS`` forward calls (:func:`function_launches`) and the
+    wrapper's count over one forward and its backward (the backward
+    launches none)."""
+    leaves = [a.detach().clone().requires_grad_(i in grad_idx)
+              if isinstance(a, torch.Tensor) else a
+              for i, a in enumerate(args)]
+    with torch.no_grad():
+        want = bare(*args)
+    host = function_launches(name, fn, leaves)
+    _build.reset_launches()
+    got = fn(*leaves)
+    outs = got if isinstance(got, tuple) else (got,)
+    torch.autograd.backward(outs[0], out_grads[0])
+    torch.cuda.synchronize()
+    counted = _build.LAUNCHES[name]
+    wants = want if isinstance(want, tuple) else (want,)
+    fwd_equal = all(torch.equal(a, b) for a, b in zip(outs, wants))
+    plain = [a.detach().clone().requires_grad_(i in grad_idx)
+             if isinstance(a, torch.Tensor) else a
+             for i, a in enumerate(args)]
+    r = ref(*plain)
+    r = r if isinstance(r, tuple) else (r,)
+    torch.autograd.backward(r[0], out_grads[0])
+    gdiff = max(float((leaves[i].grad.float() - plain[i].grad.float())
+                      .abs().max()) for i in grad_idx)
+    gscale = max(float(plain[i].grad.float().abs().max()) for i in grad_idx)
+    finite = all(bool(torch.isfinite(leaves[i].grad).all())
+                 for i in grad_idx)
+    return {"forward_equal": fwd_equal, "grad_max_abs_diff": gdiff,
+            "grad_scale": gscale, "grads_finite": finite,
+            "forward_calls_profiled": FWD_CALLS,
+            "forward_host_launches": host,
+            "wrapper_launches_forward_backward": counted}
+
+
+def phase_train_kernels(dev, _build):
+    """The three autograd Functions at the training shapes (granite's
+    attention at 2 x 1024, jamba's at 1 x 256, rwkv6's WKV6 at 2 x 512,
+    jamba's scan at 1 x 256) and at one odd S each: forward equal to the
+    bare kernel, gradients equal to autograd through the plain version
+    (bit for bit: the backward is that computation), one launch per
+    forward on the host (:func:`function_launches`) and per forward +
+    backward in the wrapper's count."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import wkv6_ref
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan import mamba_scan_ref
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)
+                ).to(dtype)
+    cases = []
+    for label, (B, S, H, KV, hd) in (("granite", (2, 1024, 32, 8, 64)),
+                                     ("granite_odd", (2, 1023, 32, 8, 64)),
+                                     ("jamba", (1, 256, 64, 8, 128))):
+        q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV,
+                                                                 hd)
+        pos = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(
+            B, S)
+        g = randn(B, S, H, hd)
+        res = train_kernel_case(
+            "flash_attention", _build,
+            lambda q_, k_, v_: fa_ops.flash_attention(q_, k_, v_,
+                                                      q_positions=pos),
+            lambda q_, k_, v_: fa_ops.flash_attention(q_, k_, v_,
+                                                      q_positions=pos),
+            lambda q_, k_, v_: flash_attention_ref(q_, k_, v_,
+                                                   q_offset=pos[:, 0]),
+            (q, k, v), (0, 1, 2), (g,))
+        cases.append(dict(res, kernel="flash_attention", case=label,
+                          shape=[B, S, H, KV, hd]))
+    for label, (B, S, H, hd) in (("rwkv6", (2, 512, 32, 64)),
+                                 ("rwkv6_odd", (2, 511, 32, 64))):
+        r, k, v = randn(B, S, H, hd), randn(B, S, H, hd), randn(B, S, H, hd)
+        logw = -torch.exp(randn(B, S, H, hd, dtype=torch.float32) - 2.0)
+        u = randn(H, hd, dtype=torch.float32, scale=0.5)
+        s0 = torch.zeros((B, H, hd, hd), device=dev)
+        g = torch.randn((B, S, H, hd), generator=gen, device=dev)
+        res = train_kernel_case("wkv6", _build, wkv_ops.wkv6,
+                                wkv_ops.wkv6, wkv6_ref,
+                                (r, k, v, logw, u, s0),
+                                (0, 1, 2, 3, 4), (g,))
+        cases.append(dict(res, kernel="wkv6", case=label,
+                          shape=[B, S, H, hd]))
+    for label, (B, S, di, ds) in (("jamba", (1, 256, 16384, 16)),
+                                  ("jamba_odd", (1, 255, 16384, 16))):
+        a_log = randn(di, ds, dtype=torch.float32, scale=0.5)
+        dt = torch.nn.functional.softplus(randn(B, S, di, scale=1.0)
+                                          .float() - 2.0).to(bf)
+        bc = randn(B, S, 2 * ds + 8)          # b, c as column slices
+        xc = randn(B, S, di)
+        h0 = torch.zeros((B, di, ds), device=dev)
+        g = randn(B, S, di)
+        b_, c_ = bc[..., 8:8 + ds], bc[..., 8 + ds:]
+        res = train_kernel_case("mamba_scan", _build, ms_ops.mamba_scan,
+                                ms_ops.mamba_scan, mamba_scan_ref,
+                                (a_log, dt, b_, c_, xc, h0),
+                                (0, 1, 2, 3, 4), (g,))
+        cases.append(dict(res, kernel="mamba_scan", case=label,
+                          shape=[B, S, di, ds]))
+    for c in cases:
+        emit(dict(c, phase="train_kernels"))
+    for c in cases:
+        check(c["forward_equal"], f"train_kernels {c['kernel']} "
+              f"{c['case']}: the Function's forward differs from the "
+              "bare kernel")
+        check(c["grad_max_abs_diff"] == 0.0, f"train_kernels "
+              f"{c['kernel']} {c['case']}: gradients differ from the "
+              f"plain version's by {c['grad_max_abs_diff']}")
+        check(c["grads_finite"], f"train_kernels {c['kernel']} "
+              f"{c['case']}: gradients not finite")
+        check(c["forward_host_launches"] == FWD_CALLS
+              and c["wrapper_launches_forward_backward"] == 1,
+              f"train_kernels {c['kernel']} {c['case']}: "
+              f"{c['forward_host_launches']} launches in {FWD_CALLS} "
+              "forward calls, "
+              f"{c['wrapper_launches_forward_backward']} in one forward "
+              f"+ backward, expected {FWD_CALLS} and 1")
+    return cases
+
+
+def train_setup(dev, cfg, seed=0):
+    from repro_torch.models import init_params, model_specs, trainable
+    from repro_torch.optim import opt_init
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = trainable(init_params(model_specs(cfg), gen, device=dev))
+    return params, opt_init(cfg, params)
+
+
+def device_batch(ds, i, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in ds.batch_at(i).items()}
+
+
+def grad_gate(cfg, params, batch, label):
+    """Every float32 master gets a finite gradient that is not all zero
+    (one micro-batch's gradients)."""
+    from repro_torch.models.params import tree_paths
+    from repro_torch.train.steps import _split, effective_accum, \
+        value_and_grad
+    mb = _split(batch, effective_accum(cfg))[0]
+    _, _, grads = value_and_grad(cfg, "gshard", params, mb)
+    paths = [p for p, _ in tree_paths(params)]
+    bad_finite = [str(p) for p, g in zip(paths, grads)
+                  if not bool(torch.isfinite(g).all())]
+    zero = [str(p) for p, g in zip(paths, grads)
+            if not bool((g != 0).any())]
+    del grads
+    check(not bad_finite, f"{label}: gradients not finite at "
+          f"{bad_finite[:5]}")
+    check(not zero, f"{label}: gradients all zero at {zero[:5]}")
+    return len(paths)
+
+
+# device operations counted as matrix products in a profile (cuBLAS's
+# GEMM kernels, nvjet_* on Hopper, and CUTLASS's)
+GEMM_KEYS = re.compile(r"gemm|nvjet|xmma|cutlass|sm90_|sm80_|cublas",
+                       re.I)
+
+
+def train_cell(dev, _build, cfg, label, *, steps, seq, batch, kernels,
+               layers, warmup=0, profile=True):
+    """``steps`` train steps of ``cfg`` (random float32 masters from seed
+    0, the config's optimizer, grad_accum and remat) on
+    SyntheticTokens(seed=0) batches of ``batch`` x ``seq``; per step its
+    loss, aux, lr, ms and the kernels' launches, which must be
+    ``layers[k]`` x micro-batches x :func:`remat_factor` for each kernel
+    k; then steady step ms, tokens/s, peak GB, one step split into its
+    gradients and its optimizer update (host clock, synchronised), and
+    one profiled window: with ``profile`` a train step, else one
+    micro-batch's forward (the loss, through the Functions), since a
+    step of the plain recurrences' backward holds ~10^6 device ops and
+    the profiler's own bookkeeping then takes minutes. Of the window:
+    device busy ms, idle share against its host time, GEMM and kernel
+    ms, the largest device operations, and each kernel's device
+    launches. The gates: finite losses, the last below the first, the
+    device ran every kernel of the cell in the window, finite nonzero
+    gradients for every master."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.optim import cosine_schedule, opt_update
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.train.steps import (_loss_fn, _split, accumulate_grads,
+                                         effective_accum, make_train_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = train_setup(dev, cfg)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    sched = lambda s: cosine_schedule(s, peak_lr=TRAIN_LR, warmup=warmup,
+                                      total=steps)
+    step = make_train_step(cfg, schedule=sched)
+    ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=seq,
+                         global_batch=batch, seed=0)
+    accum = effective_accum(cfg)
+    want = {k: layers[k] * accum * remat_factor(cfg) for k in kernels}
+    losses, times = [], []
+    for i in range(steps):
+        b = device_batch(ds, i, dev)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: _build.LAUNCHES[k] for k in kernels}
+        m = {k: float(v) for k, v in m.items()}
+        emit({"phase": "train", "cell": label, "step": i, "loss": m["loss"],
+              "aux_loss": m["aux_loss"], "lr": m["lr"], "step_ms": ms,
+              "launches": got})
+        check(got == want, f"{label}: launches {got} in a train step, "
+              f"expected {want} (layers x {accum} micro-batches x "
+              f"{remat_factor(cfg)})")
+        losses.append(m["loss"])
+        times.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steady = statistics.median(times[1:])
+    b = device_batch(ds, steps, dev)
+    acc_dtype = (torch.bfloat16 if cfg.opt_state_dtype == "bfloat16"
+                 else torch.float32)
+    t0 = time.perf_counter()
+    _, _, grads = accumulate_grads(cfg, "gshard", params, b, accum,
+                                   acc_dtype)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    opt_update(cfg, params, tree_unflatten(params, grads), opt,
+               sched(opt["count"]))
+    torch.cuda.synchronize()
+    split = {"grads_ms": (t1 - t0) * 1e3,
+             "optimizer_ms": (time.perf_counter() - t1) * 1e3}
+    del grads
+    if profile:
+        window, run, window_ms = "train step", lambda: step(params, opt,
+                                                            b), steady
+        expect = want
+    else:
+        mb = _split(b, accum)[0]
+        window, run = "micro-batch forward", lambda: _loss_fn(
+            cfg, "gshard", params, mb)
+        expect = {k: layers[k] for k in kernels}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    prof = device_profile(run, os.path.join(
+        OUT_DIR, f"profile_train_{label}.txt"))
+    busy = prof["busy_ms"]
+    device_launches = kernel_device_launches(prof, kernels)
+    line = {"phase": "train", "cell": label, "arch": cfg.name,
+            "params": n_params, "layers": cfg.num_layers,
+            "compute_dtype": cfg.compute_dtype, "optimizer": cfg.optimizer,
+            "opt_state_dtype": cfg.opt_state_dtype, "remat": cfg.remat,
+            "grad_accum": accum, "batch": [batch, seq],
+            "losses": losses, "step_ms": times, "steady_step_ms": steady,
+            "tokens_per_s": batch * seq / (steady / 1e3),
+            "peak_gb": peak, "step_split": split,
+            "launches_per_step": want,
+            "profiled": window, "profiled_host_ms": window_ms,
+            "device_busy_ms": busy,
+            "idle_share": (None if busy is None
+                           else max(0.0, 1 - busy / window_ms)),
+            "gemm_device_ms": sum(ms for ms, key, _ in prof["rows"]
+                                  if GEMM_KEYS.search(key)),
+            "device_ops": prof["device_ops"],
+            "top": [[round(ms, 3), key[:120], n]
+                    for ms, key, n in prof["top"]],
+            "kernel_device_ms": kernel_ms(prof, kernels),
+            "kernel_device_launches": device_launches,
+            "kernel_launches_in_window": expect,
+            "profile_s": time.perf_counter() - t0}
+    check(all(math.isfinite(x) for x in losses), f"{label}: a loss is "
+          f"not finite: {losses}")
+    check(all(device_launches[k] > 0 for k in kernels), f"{label}: the "
+          f"device ran {device_launches} of the kernels in the profiled "
+          f"{window}, which launched {expect}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall: "
+          f"{losses}")
+    line["masters_with_finite_nonzero_grads"] = grad_gate(cfg, params, b,
+                                                          label)
+    emit(line)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_train_route(dev, cfg):
+    """granite-3-2b cut to 2 layers at full width: one train step's loss
+    and gradients (its grad_accum micro-batches of 8 x 1024) through the
+    kernels against the plain versions, on the card, in float32 and in
+    bf16 compute."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.train.steps import accumulate_grads, effective_accum
+    ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, seed=0)
+    b = device_batch(ds, 0, dev)
+    out = {}
+    for dtype, loss_tol, grad_tol in (("float32", ROUTE_LOSS_F32,
+                                       ROUTE_GRAD_F32),
+                                      ("bfloat16", ROUTE_BF16, ROUTE_BF16)):
+        res = {}
+        for route in ("kernel", "plain"):
+            c = dataclasses.replace(cfg, num_layers=2, compute_dtype=dtype,
+                                    attn_impl=route)
+            params, _ = train_setup(dev, c)
+            loss, _, g = accumulate_grads(c, "gshard", params, b,
+                                          effective_accum(c))
+            res[route] = (float(loss), [t.float() for t in g])
+            del params
+        (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+        scale = max(float(t.abs().max()) for t in gp)
+        diff = max(float((a - c).abs().max()) for a, c in zip(gk, gp))
+        line = {"phase": "train_route", "compute_dtype": dtype,
+                "loss_kernel": lk, "loss_plain": lp,
+                "loss_rel_diff": abs(lk - lp) / abs(lp),
+                "grad_max_abs_diff": diff, "grad_scale": scale,
+                "grad_rel_diff": diff / scale, "loss_tol": loss_tol,
+                "grad_tol": grad_tol}
+        emit(line)
+        out[dtype] = line
+        check(line["loss_rel_diff"] <= loss_tol, f"train_route {dtype}: "
+              f"loss {lk} against {lp}")
+        check(line["grad_rel_diff"] <= grad_tol, f"train_route {dtype}: "
+              f"gradients {diff} of {scale}")
+        del res, gk, gp
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def restart_worker():
+    """The restart check, in a process of its own, since
+    ``torch.use_deterministic_algorithms`` needs CUBLAS_WORKSPACE_CONFIG
+    before CUDA starts: the 2-layer cut trained 6 steps, and 3 steps,
+    an async Checkpointer save, a restore into fresh tensors and 3 more;
+    params and optimizer state bit for bit. Prints one JSON line."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import shutil
+    import repro_torch.configs as cfgs
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.train.steps import make_train_step
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(cfgs.get_config("granite-3-2b"), num_layers=2)
+    ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, seed=0)
+    step = make_train_step(cfg, schedule=lambda s: cosine_schedule(
+        s, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total=6))
+
+    def train(params, opt, start, n):
+        for i in range(start, start + n):
+            params, opt, _ = step(params, opt, device_batch(ds, i, dev))
+        return params, opt
+
+    pa, oa = train(*train_setup(dev, cfg), 0, 6)
+    a = [t.detach().clone() for t in tree_leaves({"p": pa, "o": oa})]
+    del pa, oa
+    shutil.rmtree(RESTART_DIR, ignore_errors=True)
+    pb, ob = train(*train_setup(dev, cfg), 0, 3)
+    ck = Checkpointer(RESTART_DIR, keep=1, async_save=True)
+    t0 = time.perf_counter()
+    ck.save(3, {"p": pb, "o": ob}, {"note": "restart check"})
+    save_return_s = time.perf_counter() - t0
+    # what the caller does next does not reach the checkpoint
+    for t in tree_leaves(pb):
+        t.data.mul_(0.5)
+    ck.wait()
+    save_total_s = time.perf_counter() - t0
+    like = tree_map(lambda t: torch.zeros_like(t).requires_grad_(
+        t.requires_grad), {"p": pb, "o": ob})
+    del pb, ob
+    t0 = time.perf_counter()
+    restored, at, extra = ck.restore(like, device=dev)
+    restore_s = time.perf_counter() - t0
+    pc, oc = train(restored["p"], restored["o"], 3, 3)
+    c = [t.detach() for t in tree_leaves({"p": pc, "o": oc})]
+    size = sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, fs in os.walk(RESTART_DIR) for f in fs)
+    shutil.rmtree(RESTART_DIR, ignore_errors=True)
+    print(json.dumps({
+        "phase": "train_restart", "leaves": len(a), "restored_step": at,
+        "extra": extra,
+        "bit_identical": all(torch.equal(x, y) for x, y in zip(a, c)),
+        "unequal_leaves": sum(not torch.equal(x, y) for x, y in zip(a, c)),
+        "checkpoint_gb": size / 1e9, "save_return_s": save_return_s,
+        "save_total_s": save_total_s, "restore_s": restore_s,
+        "deterministic": torch.are_deterministic_algorithms_enabled()}),
+        flush=True)
+
+
+def phase_train_restart():
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--restart-worker"], env=env, capture_output=True,
+                       text=True, timeout=900)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    check(r.returncode == 0 and lines, "train_restart worker failed: "
+          f"{r.stderr[-2000:]}")
+    line = json.loads(lines[-1])
+    emit(line)
+    check(line["bit_identical"], f"train_restart: {line['unequal_leaves']}"
+          " leaves differ after 3 + restore + 3 steps from 6 steps")
+    check(not os.path.exists(RESTART_DIR), "the restart checkpoint was "
+          "not removed")
+    return line
+
+
+def phase_training(dev, _build, cfgs, kernels):
+    """The training phases; adds each kernel's launches per train step
+    to its row of the kernels line. granite's train step is profiled,
+    rwkv6's and jamba's micro-batch forward (:func:`train_cell`)."""
+    t0 = time.perf_counter()
+    phase_train_kernels(dev, _build)
+    granite = cfgs.get_config("granite-3-2b")
+    check((granite.grad_accum, granite.remat, granite.optimizer)
+          == (4, "dots", "adamw"), "granite-3-2b's training knobs")
+    g = train_cell(dev, _build, granite, "granite-3-2b",
+                   steps=TRAIN_STEPS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                   kernels=("flash_attention",),
+                   layers={"flash_attention": granite.num_layers},
+                   warmup=TRAIN_WARMUP)
+    phase_train_route(dev, granite)
+    phase_train_restart()
+    rwkv = dataclasses.replace(cfgs.get_config("rwkv6-1.6b"))
+    check((rwkv.grad_accum, rwkv.remat) == (2, "dots"), "rwkv6's knobs")
+    r = train_cell(dev, _build, rwkv, "rwkv6-1.6b",
+                   steps=SHORT_TRAIN_STEPS, seq=512, batch=4,
+                   kernels=("wkv6",), layers={"wkv6": rwkv.num_layers},
+                   profile=False)
+    jamba = dataclasses.replace(cfgs.get_config("jamba-1.5-large-398b"),
+                                num_layers=3, moe=None)
+    specs = jamba.layer_specs()
+    check(specs == [("attn", "dense"), ("mamba", "dense"),
+                    ("mamba", "dense")], "the jamba cut's layers")
+    check((jamba.optimizer, jamba.opt_state_dtype, jamba.grad_accum)
+          == ("adafactor", "bfloat16", 16), "jamba's training knobs")
+    j = train_cell(dev, _build, jamba, "jamba-3-layer-cut",
+                   steps=SHORT_TRAIN_STEPS, seq=256, batch=16,
+                   kernels=("mamba_scan", "flash_attention"),
+                   layers={"mamba_scan": 2, "flash_attention": 1},
+                   profile=False)
+    per_step = {"flash_attention": {"granite-3-2b": g["launches_per_step"]
+                                    ["flash_attention"],
+                                    "jamba-3-layer-cut":
+                                    j["launches_per_step"]
+                                    ["flash_attention"]},
+                "wkv6": {"rwkv6-1.6b": r["launches_per_step"]["wkv6"]},
+                "mamba_scan": {"jamba-3-layer-cut":
+                               j["launches_per_step"]["mamba_scan"]}}
+    for row in kernels:
+        if row["name"] in per_step:
+            row["train_launches_per_step"] = per_step[row["name"]]
+    emit({"phase": "training", "seconds": time.perf_counter() - t0})
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
                                  "one NVIDIA card (see the docstring).")
@@ -4215,6 +4857,10 @@ def main():
                     "kernels and the Faces path of this tree against "
                     "DIR's")
     ap.add_argument("--ab-worker", metavar="TREE", help=argparse.SUPPRESS)
+    ap.add_argument("--restart-worker", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--only", choices=("train",), help="run the build "
+                    "and only these phases (no result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -4222,6 +4868,9 @@ def main():
         return 2
     if args.ab_worker:
         ab_worker(os.path.realpath(args.ab_worker))
+        return 0
+    if args.restart_worker:
+        restart_worker()
         return 0
     if args.ab:
         ab(args.ab)
@@ -4256,6 +4905,10 @@ def main():
           "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
     phase_build(_build)
+    if args.only == "train":
+        phase_training(dev, _build, cfgs, [])
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+        return 0
     errs = phase_kernels(dev, core, hp, hp_ref, cb)
     mcast_err = phase_multicast(dev, core, cb)
     attn = (flash_attention, flash_attention_ref, decode_attention,
@@ -4373,6 +5026,7 @@ def main():
                                   attn_errs, granite_kernels)
     kernels += phase_vision(dev, _build, serving, cfgs, attn, attn_errs)
     phase_musicgen(dev, _build, serving, cfgs, granite_kernels)
+    phase_training(dev, _build, cfgs, kernels)
     phase_verify(core, scheduled)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "kernel_rows": [row["name"] for row in kernels]})

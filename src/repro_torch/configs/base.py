@@ -12,13 +12,18 @@ Differences from the copy's original:
     default: the hand-written CUDA kernels for CUDA tensors, their plain
     PyTorch versions for CPU tensors) or ``"plain"`` (the plain versions
     on any device, the reference a run on the card is held against);
-  * only the fields the serving path reads are kept: the training,
-    sharding and dry-run policy knobs (``param_dtype``, ``optimizer``,
-    ``opt_state_dtype``, ``remat``, ``grad_accum``,
-    ``seq_shard_activations``, ``overlap_grad_reduce``, ``subquadratic``,
-    ``sharding_overrides``, ``unroll_inner``), ``param_counts()`` and the
-    input-shape sets (``SHAPES``) come with the slices that read them
-    (ROADMAP Queue 1 items 9 and 10).
+  * of the reference's training knobs only those a step reads are kept
+    (``optimizer``, ``opt_state_dtype``, ``remat``, ``grad_accum``), with
+    the reference's defaults and each arch's values; ``reduced()`` sets
+    them as the reference's does, but keeps ``attn_impl``. The port
+    trains float32 masters, as the reference's launcher makes them, so
+    ``param_dtype`` is not kept; ``seq_shard_activations`` and
+    ``overlap_grad_reduce`` shape the reference's sharding and gradient
+    reduction and come with sharding (ROADMAP Queue 1 item 10);
+  * the dry-run knobs (``subquadratic``, ``sharding_overrides``,
+    ``unroll_inner``), ``param_counts()`` and the input-shape sets
+    (``SHAPES``) come with the launch and analysis tooling (ROADMAP
+    Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -153,8 +158,12 @@ class ModelConfig:
     cross_attn_period: int = 0    # vlm: 1 cross-attn layer per k layers
     vision: Optional[VisionStub] = None
 
-    # numerics and attention route
+    # memory / numerics policy, and the attention route
     compute_dtype: str = "bfloat16"
+    optimizer: str = "adamw"          # adamw | adafactor
+    opt_state_dtype: str = "float32"  # moments dtype
+    remat: str = "full"               # none | dots | comm | full
+    grad_accum: int = 1               # microbatch accumulation steps
     attn_impl: str = "kernel"         # kernel | plain (see module doc)
 
     def __post_init__(self):
@@ -218,6 +227,10 @@ class ModelConfig:
             vocab_size=512,
             head_dim=32,
             first_dense_ff=64 if self.first_dense_ff else 0,
+            grad_accum=1,
+            remat="none",
+            opt_state_dtype="float32",
+            optimizer="adamw",
         )
         if self.moe is not None:
             changes["moe"] = dataclasses.replace(

@@ -3,9 +3,6 @@ vocab=102400, 2 shared + 64 routed top-6, fine-grained. [arXiv:2401.06066; hf]
 
 First layer dense FFN (width 10944) per the HF config; layers 1..27 MoE.
 16.38 B params, 32.8 GB in bf16: one card holds it whole.
-
-The reference's training knobs (``grad_accum``, ``remat``) are not
-fields of the port's config (``base.py``).
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig
 
@@ -23,4 +20,6 @@ CONFIG = ModelConfig(
     moe=MoEConfig(num_experts=64, top_k=6, expert_ff=1408,
                   num_shared=2, shared_ff=2816),
     first_dense_ff=10944,
+    grad_accum=2,
+    remat="dots",
 )

@@ -9,10 +9,6 @@ v_head_dim 128, so a prefill's attention runs at (hd, hdv) = (192, 128).
 235.7 B params: no single card holds it. A caller that serves it on one
 card cuts depth, never width, with ``dataclasses.replace(CONFIG,
 num_layers=4)``: (mla, dense), then 3 x (mla, moe), 13.30 B params.
-
-The reference's training knobs (``param_dtype``, ``opt_state_dtype``,
-``grad_accum``, ``remat``) are not fields of the port's config
-(``base.py``).
 """
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 
@@ -32,4 +28,7 @@ CONFIG = ModelConfig(
     first_dense_ff=12288,
     mla=MLAConfig(kv_lora_rank=512, q_lora_rank=1536,
                   qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128),
+    opt_state_dtype="bfloat16",
+    grad_accum=8,
+    remat="full",
 )

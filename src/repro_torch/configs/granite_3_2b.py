@@ -14,4 +14,6 @@ CONFIG = ModelConfig(
     head_dim=64,
     rope_theta=10_000.0,
     tie_embeddings=True,
+    grad_accum=4,
+    remat="dots",
 )

@@ -9,9 +9,8 @@ it on one card cuts depth, never width, with
 ``dataclasses.replace(CONFIG, num_layers=4)``: (attn, dense), (mamba,
 moe), (mamba, dense), (mamba, moe), 23.0 B params.
 
-The reference's training knobs (``subquadratic``, ``param_dtype``,
-``optimizer``, ``opt_state_dtype``, ``grad_accum``, ``remat``) are not
-fields of the port's config (``base.py``).
+The reference's ``subquadratic`` flag comes with the launch and
+analysis tooling (ROADMAP Queue 1 item 10).
 """
 from repro_torch.configs.base import MambaConfig, ModelConfig, MoEConfig
 
@@ -30,4 +29,8 @@ CONFIG = ModelConfig(
     moe_every=2,
     mamba=MambaConfig(d_state=16, d_conv=4, expand=2),
     mamba_attn_period=8,
+    optimizer="adafactor",
+    opt_state_dtype="bfloat16",
+    grad_accum=16,
+    remat="full",
 )

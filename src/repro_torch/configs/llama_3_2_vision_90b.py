@@ -9,9 +9,6 @@ embeddings (num_tokens x raw_dim); a learned projection maps them to d_model.
 card cuts depth, never width, in whole 5-layer periods, with
 ``dataclasses.replace(CONFIG, num_layers=20)``: 4 x (4 attn, 1 cross),
 19.21 B params.
-
-The reference's training knobs (``opt_state_dtype``, ``grad_accum``,
-``remat``) are not fields of the port's config (``base.py``).
 """
 from repro_torch.configs.base import ModelConfig, VisionStub
 
@@ -28,4 +25,7 @@ CONFIG = ModelConfig(
     rope_theta=500_000.0,
     cross_attn_period=5,          # 80 self-attn + 20 cross-attn layers
     vision=VisionStub(num_tokens=1600, raw_dim=1280),
+    opt_state_dtype="bfloat16",
+    grad_accum=16,
+    remat="full",
 )

@@ -1,9 +1,8 @@
 """minitron-4b [dense] — 32L d_model=3072 24H (GQA kv=8) d_ff=9216
 vocab=256000 (pruned nemotron). [arXiv:2407.14679; hf]
 
-The reference's training and sharding knobs (``grad_accum``,
-``remat``, ``sharding_overrides``) are not fields of the port's config
-(``base.py``).
+The reference's ``sharding_overrides`` come with the launch and
+analysis tooling (ROADMAP Queue 1 item 10).
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -18,4 +17,6 @@ CONFIG = ModelConfig(
     vocab_size=256000,
     head_dim=128,
     rope_theta=10_000.0,
+    grad_accum=8,
+    remat="dots",
 )

@@ -4,9 +4,6 @@ vocab=2048, decoder-only over EnCodec tokens. [arXiv:2306.05284; hf]
 Modality frontend is a STUB: the caller provides precomputed EnCodec
 frame embeddings; the decoder backbone is what we build (the transformer
 operates on frame embeddings and predicts codebook tokens, vocab=2048).
-
-The reference's training knobs (``grad_accum``, ``remat``) are not
-fields of the port's config (``base.py``).
 """
 from repro_torch.configs.base import ModelConfig, VisionStub
 
@@ -25,4 +22,6 @@ CONFIG = ModelConfig(
     # is the frame-embedding width, projected to d_model by one matmul.
     # The assigned spec is the decoder backbone only, so no cross-attn.
     vision=VisionStub(num_tokens=0, raw_dim=128),
+    grad_accum=2,
+    remat="dots",
 )

@@ -1,8 +1,5 @@
 """qwen3-32b [dense] — 64L d_model=5120 64H (GQA kv=8) d_ff=25600
 vocab=151936, qk_norm. [hf:Qwen/Qwen3-8B; hf]
-
-The reference's training knobs (``grad_accum``, ``remat``) are not
-fields of the port's config (``base.py``).
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -18,4 +15,6 @@ CONFIG = ModelConfig(
     head_dim=128,
     qk_norm=True,
     rope_theta=1_000_000.0,
+    grad_accum=4,
+    remat="full",
 )

@@ -17,4 +17,6 @@ CONFIG = ModelConfig(
     vocab_size=65536,
     head_dim=64,
     rwkv=RWKVConfig(head_size=64),
+    grad_accum=2,
+    remat="dots",
 )

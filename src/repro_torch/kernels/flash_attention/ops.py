@@ -3,7 +3,14 @@
 On a CUDA tensor it launches the hand-written kernel, or raises if the
 kernel does not take the inputs (:func:`.._attn.check_inputs`); on a CPU
 tensor it runs the plain version :func:`.ref.flash_attention_ref`. No
-fallback between the two. Forward only: serving needs no gradient.
+fallback between the two.
+
+Where a gradient is needed (grad mode on, q, k or v requiring one) the
+call goes through :class:`FlashAttention`, the counterpart of the
+reference's ``custom_vjp`` (``kernels/flash_attention/ops.py``): its
+forward is the same launch, its backward the VJP of the plain version,
+recomputed from the saved inputs. No backward kernel exists in the
+reference either.
 """
 from __future__ import annotations
 
@@ -13,25 +20,13 @@ from repro_torch.kernels import _attn, _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 
-def flash_attention(q, k, v, *, q_positions=None, kv_valid_len=None,
-                    causal=True):
-    """q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd[v]) -> (B,Sq,H,hdv) in q's
-    dtype. ``q_positions`` (B,Sq): absolute positions, of which the
-    first gives each sequence's query offset (default 0);
-    ``kv_valid_len`` (B,): keys at or past it are masked (default none)."""
+def _forward(q, k, v, q_offset, kvl, causal):
+    """The kernel (CUDA) or the plain version (CPU), no autograd;
+    ``q_offset`` and ``kvl``: (B,) int32 (:func:`_norm_inputs`)."""
     B = q.shape[0]
-    if q_positions is None:
-        q_offset = torch.zeros((B,), dtype=torch.int32, device=q.device)
-    else:
-        q_offset = q_positions[:, 0].to(torch.int32)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_offset=q_offset,
-                                   kv_valid_len=kv_valid_len, causal=causal)
-    if kv_valid_len is None:
-        kvl = torch.full((B,), 1 << 30, dtype=torch.int32, device=q.device)
-    else:
-        kvl = kv_valid_len.to(torch.int32).contiguous()
-    q_offset = q_offset.contiguous()
+                                   kv_valid_len=kvl, causal=causal)
     _attn.check_inputs("flash attention", q, k, v, q_offset, kvl)
     _, Sq, H, hd = q.shape
     _, Skv, KV, hdv = v.shape
@@ -44,3 +39,56 @@ def flash_attention(q, k, v, *, q_positions=None, kv_valid_len=None,
         torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "flash_attention")
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: the kernel (the plain version on the CPU). Backward: the
+    gradient of :func:`.ref.flash_attention_ref` at the saved q, k, v,
+    as the reference's ``_fa_bwd``; none for the offsets and lengths."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, kvl, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, q_offset, kvl)
+        return _forward(q, k, v, q_offset, kvl, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_offset, kv_valid_len = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = flash_attention_ref(*ins, q_offset=q_offset,
+                                      kv_valid_len=kv_valid_len,
+                                      causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, ins, g)
+        return dq, dk, dv, None, None, None
+
+
+def _norm_inputs(q, q_positions, kv_valid_len):
+    """(q_offset, kv_valid_len) as contiguous (B,) int32, as the
+    reference's ``_norm_inputs``: offset 0 and length 2^30 (no key
+    masked) by default."""
+    B = q.shape[0]
+    if q_positions is None:
+        q_offset = torch.zeros((B,), dtype=torch.int32, device=q.device)
+    else:
+        q_offset = q_positions[:, 0].to(torch.int32).contiguous()
+    if kv_valid_len is None:
+        kvl = torch.full((B,), 1 << 30, dtype=torch.int32, device=q.device)
+    else:
+        kvl = kv_valid_len.to(torch.int32).contiguous()
+    return q_offset, kvl
+
+
+def flash_attention(q, k, v, *, q_positions=None, kv_valid_len=None,
+                    causal=True):
+    """q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd[v]) -> (B,Sq,H,hdv) in q's
+    dtype. ``q_positions`` (B,Sq): absolute positions, of which the
+    first gives each sequence's query offset (default 0);
+    ``kv_valid_len`` (B,): keys at or past it are masked (default none).
+    Differentiable in q, k and v (:class:`FlashAttention`)."""
+    q_offset, kvl = _norm_inputs(q, q_positions, kv_valid_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, q_offset, kvl, causal)
+    return _forward(q, k, v, q_offset, kvl, causal)

@@ -3,8 +3,12 @@
 On CUDA tensors it launches the hand-written kernel, or raises if the
 kernel does not take the inputs; on CPU tensors it runs the plain
 version :func:`.ref.mamba_scan_ref`. No fallback between the two.
-Forward only: the reference's ``custom_vjp`` backward is training
-(ROADMAP Queue 1 item 9).
+
+Where a gradient is needed (grad mode on, an input requiring one) the
+call goes through :class:`MambaScan`, the counterpart of the
+reference's ``custom_vjp`` (``kernels/mamba_scan/ops.py``): its forward
+is the same launch, its backward the VJP of the plain version,
+recomputed from the saved inputs.
 """
 from __future__ import annotations
 
@@ -80,17 +84,8 @@ def _check(a_log, dt, b, c, xc, h0, hT) -> None:
                              f"{torch.cuda.current_device()}")
 
 
-def mamba_scan(a_log, dt, b, c, xc, h0, *, inplace: bool = False):
-    """a_log: (di,ds) float32; dt, xc: (B,S,di) and b, c: (B,S,ds), bf16
-    or float32; h0: (B,di,ds) float32. Returns (y (B,S,di) in xc's
-    dtype, hT (B,di,ds) float32), the function of
-    :func:`.ref.mamba_scan_ref`, for any S >= 1.
-
-    ``inplace=True`` writes the final state over ``h0`` and returns h0
-    as hT: the serving path hands the slots' rows of the ``ssm`` cache
-    and keeps them. The kernel can, since each thread reads its (b, d)
-    state row once before it writes it; on the CPU the plain version's
-    hT is copied into h0."""
+def _forward(a_log, dt, b, c, xc, h0, inplace):
+    """The kernel (CUDA) or the plain version (CPU), no autograd."""
     if dt.device.type == "cpu":
         y, hT = mamba_scan_ref(a_log, dt, b, c, xc, h0)
         if inplace:
@@ -112,3 +107,53 @@ def mamba_scan(a_log, dt, b, c, xc, h0, *, inplace: bool = False):
         torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "mamba_scan")
     return y, hT
+
+
+class MambaScan(torch.autograd.Function):
+    """Forward: the kernel (the plain version on the CPU), returning
+    (y, hT). Backward: the gradients of :func:`.ref.mamba_scan_ref` at
+    the saved inputs, as the reference's ``_ms_b``; a None (unused) or
+    zero gradient of hT is taken as it is."""
+
+    @staticmethod
+    def forward(ctx, a_log, dt, b, c, xc, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(a_log, dt, b, c, xc, h0)
+        return _forward(a_log, dt, b, c, xc, h0, False)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            outs = mamba_scan_ref(*ins)
+            pairs = [(o, g) for o, g in zip(outs, (gy, gh)) if g is not None]
+            if not pairs:
+                return (None,) * 6
+            grads = torch.autograd.grad([o for o, _ in pairs], ins,
+                                        [g for _, g in pairs],
+                                        allow_unused=True)
+        return tuple(grads)
+
+
+def mamba_scan(a_log, dt, b, c, xc, h0, *, inplace: bool = False):
+    """a_log: (di,ds) float32; dt, xc: (B,S,di) and b, c: (B,S,ds), bf16
+    or float32; h0: (B,di,ds) float32. Returns (y (B,S,di) in xc's
+    dtype, hT (B,di,ds) float32), the function of
+    :func:`.ref.mamba_scan_ref`, for any S >= 1.
+
+    ``inplace=True`` writes the final state over ``h0`` and returns h0
+    as hT: the serving path hands the slots' rows of the ``ssm`` cache
+    and keeps them. The kernel can, since each thread reads its (b, d)
+    state row once before it writes it; on the CPU the plain version's
+    hT is copied into h0.
+
+    Differentiable in every input (:class:`MambaScan`) when not
+    ``inplace``; a call that needs a gradient and asks for ``inplace``
+    raises."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (a_log, dt, b, c, xc, h0)):
+        if inplace:
+            raise ValueError("mamba_scan: inplace=True writes h0, which a "
+                             "call that needs a gradient keeps")
+        return MambaScan.apply(a_log, dt, b, c, xc, h0)
+    return _forward(a_log, dt, b, c, xc, h0, inplace)

@@ -2,9 +2,13 @@
 
 On CUDA tensors it launches the hand-written kernel, or raises if the
 kernel does not take the inputs; on CPU tensors it runs the plain
-version :func:`.ref.wkv6_ref`. No fallback between the two. Forward
-only: the reference's ``custom_vjp`` backward is training (ROADMAP
-Queue 1 item 9).
+version :func:`.ref.wkv6_ref`. No fallback between the two.
+
+Where a gradient is needed (grad mode on, an input requiring one) the
+call goes through :class:`WKV6`, the counterpart of the reference's
+``custom_vjp`` (``kernels/rwkv6/ops.py``): its forward is the same
+launch, its backward the VJP of the plain version, recomputed from the
+saved inputs.
 """
 from __future__ import annotations
 
@@ -70,17 +74,8 @@ def _check(r, k, v, logw, u, s0, sT) -> None:
                              f"CUDA device is {torch.cuda.current_device()}")
 
 
-def wkv6(r, k, v, logw, u, s0, *, inplace: bool = False):
-    """r,k,v: (B,S,H,hd) bf16 or float32; logw: (B,S,H,hd) float32 (the
-    log decay, < 0); u: (H,hd) float32; s0: (B,H,hd,hd) float32. Returns
-    (y (B,S,H,hd) float32, sT (B,H,hd,hd) float32), the function of
-    :func:`.ref.wkv6_ref`, for any S >= 1.
-
-    ``inplace=True`` writes the final state over ``s0`` and returns s0
-    as sT: the serving path hands the slots' rows of the ``wkv`` cache
-    and keeps them. The kernel can, since each (b, h) block reads its
-    state once before it writes it; on the CPU the plain version's sT is
-    copied into s0."""
+def _forward(r, k, v, logw, u, s0, inplace):
+    """The kernel (CUDA) or the plain version (CPU), no autograd."""
     if r.device.type == "cpu":
         y, sT = wkv6_ref(r, k, v, logw, u, s0)
         if inplace:
@@ -101,3 +96,52 @@ def wkv6(r, k, v, logw, u, s0, *, inplace: bool = False):
         torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "wkv6")
     return y, sT
+
+
+class WKV6(torch.autograd.Function):
+    """Forward: the kernel (the plain version on the CPU), returning
+    (y, sT). Backward: the gradients of :func:`.ref.wkv6_ref` at the
+    saved inputs, as the reference's ``_wkv_b``; a None (unused) or zero
+    gradient of sT is taken as it is."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        return _forward(r, k, v, logw, u, s0, False)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            outs = wkv6_ref(*ins)
+            pairs = [(o, g) for o, g in zip(outs, (gy, gs)) if g is not None]
+            if not pairs:
+                return (None,) * 6
+            grads = torch.autograd.grad([o for o, _ in pairs], ins,
+                                        [g for _, g in pairs],
+                                        allow_unused=True)
+        return tuple(grads)
+
+
+def wkv6(r, k, v, logw, u, s0, *, inplace: bool = False):
+    """r,k,v: (B,S,H,hd) bf16 or float32; logw: (B,S,H,hd) float32 (the
+    log decay, < 0); u: (H,hd) float32; s0: (B,H,hd,hd) float32. Returns
+    (y (B,S,H,hd) float32, sT (B,H,hd,hd) float32), the function of
+    :func:`.ref.wkv6_ref`, for any S >= 1.
+
+    ``inplace=True`` writes the final state over ``s0`` and returns s0
+    as sT: the serving path hands the slots' rows of the ``wkv`` cache
+    and keeps them. The kernel can, since each (b, h) block reads its
+    state once before it writes it; on the CPU the plain version's sT is
+    copied into s0.
+
+    Differentiable in every input (:class:`WKV6`) when not ``inplace``;
+    a call that needs a gradient and asks for ``inplace`` raises."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, logw, u, s0)):
+        if inplace:
+            raise ValueError("wkv6: inplace=True writes s0, which a call "
+                             "that needs a gradient keeps")
+        return WKV6.apply(r, k, v, logw, u, s0)
+    return _forward(r, k, v, logw, u, s0, inplace)

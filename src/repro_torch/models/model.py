@@ -13,10 +13,22 @@ A config with a ``vision`` stub has the modality frontend
 (``params["frontend"]``): a vlm's cross layers attend to its projection
 of ``batch["vision"]``, an audio model's input is its projection of
 ``batch["frames"]``.
+
+Training: ``forward`` is differentiable, and each block runs under the
+config's activation checkpointing (:func:`_maybe_remat`); the loss is
+:func:`lm_loss_fused`. The reference's ``cast_big_params`` casts the
+large float32 weights to the compute dtype before its FSDP all-gather;
+the port's layers cast each weight at its use (``.to(dt)``), which is
+the same bf16 product, with the weight's gradient cast back to float32
+by autograd. On one device nothing else is left of it, so it is not
+copied.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
@@ -24,7 +36,7 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, tree_leaves
 
 # ---------------------------------------------------------------------------
 # Specs
@@ -139,7 +151,55 @@ def _apply_block(cfg, spec, params, x, *, positions, cache, shared,
     return x + out2, cache, aux
 
 
-@torch.no_grad()
+# the products whose outputs remat "dots" keeps: matrix products with no
+# batch dims, as the reference's checkpoint_dots_with_no_batch_dims
+# policy (a (B,S,D) @ (D,F) matmul runs as one mm; attention's batched
+# einsums run as bmm and are recomputed)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(cfg, fn):
+    """``fn`` under the config's activation checkpointing, the
+    reference's ``_maybe_remat`` per block: "none" as it is; "full"
+    recomputes the block's forward in the backward
+    (``torch.utils.checkpoint``); "comm" keeps what "full" keeps on one
+    device (the reference's saved ``block_out`` is a block's output,
+    which "full" keeps as the next block's input); "dots" recomputes all
+    but the outputs of the matrix products with no batch dims (selective
+    activation checkpointing). The gradients are the same in every mode.
+    ``fn(params, x)`` runs as it is where no gradient is needed (grad
+    mode off, or neither ``x`` nor a leaf of ``params`` requiring one):
+    checkpointing would only intercept every operation."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("dots", "comm", "full"):
+        raise ValueError(f"remat {cfg.remat!r}: none, dots, comm or full")
+
+    def run(params, x):
+        if not _needs_grad(params, x):
+            return fn(params, x)
+        if cfg.remat == "dots":
+            return ckpt.checkpoint(
+                fn, params, x, use_reentrant=False,
+                context_fn=functools.partial(
+                    ckpt.create_selective_checkpoint_contexts, _dots_policy))
+        return ckpt.checkpoint(fn, params, x, use_reentrant=False)
+    return run
+
+
+def _needs_grad(params, *tensors) -> bool:
+    """Grad mode on and a tensor of ``tensors`` or a leaf of ``params``
+    requiring a gradient."""
+    return torch.is_grad_enabled() and (
+        any(t.requires_grad for t in tensors)
+        or any(t.requires_grad for t in tree_leaves(params)))
+
+
 def forward(cfg, params, batch, *, cache=None, moe_impl: str = "gshard"):
     """Forward pass.
 
@@ -154,6 +214,10 @@ def forward(cfg, params, batch, *, cache=None, moe_impl: str = "gshard"):
     Returns (hidden (B,S,D) after the final norm, cache, aux_loss) — the
     reference's triple; aux_loss (float32) sums the MoE layers' load-
     balance losses, 0 without one.
+
+    Differentiable in the params (a train step marks its masters
+    trainable and passes no cache); the serving steps run it under
+    ``torch.no_grad()``. Each block runs under :func:`_maybe_remat`.
     """
     specs = cfg.layer_specs()
     cdt = getattr(torch, cfg.compute_dtype)
@@ -178,9 +242,10 @@ def forward(cfg, params, batch, *, cache=None, moe_impl: str = "gshard"):
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (sp, p) in enumerate(zip(specs, params["layers"])):
         c = cache["layers"][i] if cache is not None else None
-        x, _, aux = _apply_block(cfg, sp, p, x, positions=positions,
-                                 cache=c, shared=shared, vision=vision,
-                                 moe_impl=moe_impl)
+        block = functools.partial(_apply_block, cfg, sp, positions=positions,
+                                  cache=c, shared=shared, vision=vision,
+                                  moe_impl=moe_impl)
+        x, _, aux = _maybe_remat(cfg, block)(p, x)
         if aux is not None:
             aux_total = aux_total + aux
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -191,3 +256,54 @@ def logits_from_hidden(cfg, params, x, last_only: bool = False):
     if last_only:
         x = x[:, -1:, :]
     return L.unembed(params["embed"], x, cfg.tie_embeddings)
+
+
+def lm_loss_fused(cfg, params, x, targets, chunk: int = 512):
+    """Fused unembed + cross-entropy, the reference's ``lm_loss_fused``:
+    chunked over ``chunk`` positions (the whole sequence where ``chunk``
+    does not divide it), each chunk checkpointed, so the (B, S, padded
+    vocab) logits are never built; the padded vocab columns masked to
+    -1e30; tied or untied unembedding. x: (B,S,D) hidden after the final
+    norm; targets (B,S) int. Returns the mean loss, float32."""
+    B, S, D = x.shape
+    vp = cfg.padded_vocab
+    w = (params["embed"]["tok"].t() if cfg.tie_embeddings
+         else params["embed"]["unembed"])
+    chunk = min(chunk, S)
+    if S % chunk != 0:
+        chunk = S
+    targets = targets.long()
+
+    def body(xc, tc, w):
+        lf = torch.matmul(xc, w.to(xc.dtype)).float()
+        if vp != cfg.vocab_size:
+            keep = torch.arange(vp, device=lf.device) < cfg.vocab_size
+            lf = torch.where(keep, lf, -1e30)
+        lse = torch.logsumexp(lf, dim=-1)
+        tgt = torch.gather(lf, -1, tc[..., None])[..., 0]
+        return torch.sum(lse - tgt)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = _needs_grad({}, x, w)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        if remat:
+            part = ckpt.checkpoint(body, x[:, sl], targets[:, sl], w,
+                                   use_reentrant=False)
+        else:
+            part = body(x[:, sl], targets[:, sl], w)
+        tot = tot + part
+    return tot / (B * S)
+
+
+def lm_loss(cfg, logits, targets):
+    """Cross-entropy of (B,S,padded vocab) logits, the padded columns
+    masked to -1e30, as the reference's ``lm_loss``."""
+    lf = logits.float()
+    vp = cfg.padded_vocab
+    if vp != cfg.vocab_size:
+        keep = torch.arange(vp, device=lf.device) < cfg.vocab_size
+        lf = torch.where(keep, lf, -1e30)
+    lse = torch.logsumexp(lf, dim=-1)
+    tgt = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(lse - tgt)

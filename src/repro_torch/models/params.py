@@ -68,6 +68,20 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure holding ``leaves``, given in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+    return build(tree)
+
+
 def _fan_in(shape) -> int:
     if len(shape) == 0:
         return 1
@@ -144,18 +158,23 @@ def stack_specs(spec_tree, n: int):
 
 
 def _to_tensor(a, device, dtype, name) -> torch.Tensor:
+    """A numpy leaf as a tensor of :func:`leaf_dtype`, or, with ``dtype``
+    None, of the leaf's own dtype (bf16 numpy leaves as torch.bfloat16)."""
     a = np.array(a)                       # a writable copy
+    own = torch.bfloat16 if a.dtype.name == "bfloat16" else None
     if a.dtype.kind not in "biu" and a.dtype not in (np.float32, np.float64,
                                                      np.float16):
         # bfloat16 and kin (ml_dtypes' kind is "V", not "f")
         a = a.astype(np.float32)
-    return torch.from_numpy(a).to(
-        device=device, dtype=leaf_dtype(a.shape, dtype, name))
+    t = torch.from_numpy(a)
+    if dtype is None:
+        return t.to(device=device, dtype=own or t.dtype)
+    return t.to(device=device, dtype=leaf_dtype(a.shape, dtype, name))
 
 
 def _convert(tree, device, dtype, name=None):
     """A numpy tree as tensors, each leaf by :func:`leaf_dtype` of its
-    key."""
+    key (its own dtype with ``dtype`` None)."""
     if isinstance(tree, dict):
         return {k: _convert(v, device, dtype, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -164,10 +183,12 @@ def _convert(tree, device, dtype, name=None):
 
 
 def from_reference(cfg, tree, device="cuda",
-                   dtype: torch.dtype = torch.float32):
+                   dtype: Optional[torch.dtype] = torch.float32):
     """The JAX package's param tree (numpy leaves, e.g.
     ``jax.tree.map(np.asarray, params)``) as the port's tree on
-    ``device`` (CUDA unless the caller asks for the CPU).
+    ``device`` (CUDA unless the caller asks for the CPU). Leaves take
+    :func:`leaf_dtype` of ``dtype``, or with ``dtype=None`` their own
+    dtype (an optimizer's moments).
 
     The reference keeps ``{"embed", "final_norm", "prefix": [block],
     "unit": [stacked block]}``, where ``unit[j]``'s leaves carry a
@@ -190,4 +211,101 @@ def from_reference(cfg, tree, device="cuda",
     out = {k: conv(v) for k, v in tree.items()
            if k not in ("prefix", "unit")}
     out["layers"] = layers
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training: the reference's leaf groups, trainable masters, optimizer state
+# ---------------------------------------------------------------------------
+
+def tree_paths(tree, prefix=()):
+    """(path, leaf) pairs in :func:`tree_leaves` order; a path is a tuple
+    of dict keys and list indices."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_paths(v, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def get_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def reference_groups(cfg, tree):
+    """The port's leaves in the reference's layout: a list of
+    ``(path, port_paths, stacked)``, one entry per leaf of the
+    reference's tree. ``path`` is that leaf's path there (``("embed",
+    "tok")``, ``("prefix", i, ...)``, ``("unit", j, ...)``);
+    ``port_paths`` the paths of the port's leaves it holds: one, or for
+    a unit leaf (``stacked``) those of the ``repeats`` layers
+    ``len(prefix) + r * len(unit) + j`` that the reference stacks on a
+    leading axis. The same paths index the params, their gradients and
+    the optimizer's per-layer moments."""
+    groups = cfg.layer_groups()
+    P, U = len(groups.prefix), len(groups.unit)
+    out = [(p, [p], False) for p, _ in tree_paths(
+        {k: v for k, v in tree.items() if k != "layers"})]
+    layers = tree["layers"]
+    for i in range(P):
+        out += [(("prefix", i) + p, [("layers", i) + p], False)
+                for p, _ in tree_paths(layers[i])]
+    for j in range(U):
+        idx = [P + r * U + j for r in range(groups.repeats)]
+        out += [(("unit", j) + p, [("layers", i) + p for i in idx], True)
+                for p, _ in tree_paths(layers[idx[0]])]
+    return out
+
+
+def reference_tree(cfg, tree, fn):
+    """A tree in the reference's layout (``{..., "prefix": [...],
+    "unit": [...]}``) whose leaf at each path of
+    :func:`reference_groups` is ``fn(leaves, stacked)``, ``leaves`` the
+    port's tensors there."""
+    groups = cfg.layer_groups()
+    out = {"prefix": [{} for _ in groups.prefix],
+           "unit": [{} for _ in groups.unit]}
+    for path, port_paths, stacked in reference_groups(cfg, tree):
+        node = out
+        for k in path[:-1]:
+            node = node[k] if isinstance(node, list) else \
+                node.setdefault(k, {})
+        node[path[-1]] = fn([get_path(tree, q) for q in port_paths],
+                            stacked)
+    return out
+
+
+def trainable(params):
+    """Marks every floating leaf of ``params`` as a leaf that autograd
+    gives a gradient (the float32 masters of a train step); returns the
+    tree."""
+    for t in tree_leaves(params):
+        if t.is_floating_point():
+            t.requires_grad_(True)
+    return params
+
+
+def opt_state_from_reference(cfg, opt_tree, device="cuda"):
+    """The JAX package's optimizer state (numpy leaves) as the port's,
+    on ``device`` (CUDA unless the caller asks for the CPU): ``mu`` and
+    ``nu`` per layer through :func:`from_reference`, each leaf in its own
+    dtype; Adafactor's ``vr`` and ``vc`` as they are, since the port
+    keeps them in the reference's layout (:mod:`repro_torch.optim`);
+    ``count`` as an int32 scalar."""
+    device = resolve_device(device)
+    out = {}
+    for k, v in opt_tree.items():
+        if k in ("mu", "nu"):
+            out[k] = from_reference(cfg, v, device, dtype=None)
+        elif k in ("vr", "vc"):
+            out[k] = _convert(v, device, None)
+        elif k == "count":
+            out[k] = torch.as_tensor(np.array(v), dtype=torch.int32,
+                                     device=device)
+        else:
+            raise KeyError(f"optimizer state has no {k!r}")
     return out

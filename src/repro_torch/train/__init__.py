@@ -1,2 +1,3 @@
-"""Step functions of the port (the serving half so far; training is
-ROADMAP Queue 1 item 9)."""
+"""Step functions of the port: the train step (gradient accumulation,
+the optimizer) and the serving steps (prefill and decode with
+device-side greedy sampling)."""

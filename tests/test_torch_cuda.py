@@ -19,7 +19,12 @@ the state and a float32 y, 2e-2 of it for a bf16 y (one rounding of the
 same float32 value). The serving engine on the card must serve the CPU's
 greedy tokens, granite-3-2b's, rwkv6's, jamba's and deepseek-v2's (MLA:
 flash attention at (hd, hdv) = (192, 128) at prefill, absorbed products
-at decode).
+at decode). Training: each autograd Function (flash attention, WKV6, the
+selective scan) gives the bare kernel's forward and the plain version's
+gradients bit for bit (its backward is that computation); a reduced
+train step through the kernels equals the plain route (1e-5 relative
+loss, 1e-4 of the largest gradient, float32); a bf16 checkpoint written
+from the card restores on the CPU and back, bit for bit.
 """
 import numpy as np
 import pytest
@@ -1568,3 +1573,149 @@ def test_program_graph_copies_out_only_what_it_writes(dev):
     grown = torch.cuda.memory_allocated(dev) - before
     assert grown == sum(-(-sizes[k] // 512) * 512 for k in g.written)
     assert all(second[k] is state[k] for k in read_only)
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels under autograd, a train step, the checkpointer
+# ---------------------------------------------------------------------------
+
+def _function_case(fn, ref, args, grad_idx, g):
+    """The Function's forward against the bare kernel (no grad), its
+    gradients against autograd through the plain version; returns the
+    largest gradient difference."""
+    leaves = [a.clone().requires_grad_(i in grad_idx)
+              for i, a in enumerate(args)]
+    with torch.no_grad():
+        bare = fn(*args)
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    bares = bare if isinstance(bare, tuple) else (bare,)
+    for a, b in zip(outs, bares):
+        assert torch.equal(a, b)
+    outs[0].backward(g)
+    plain = [a.clone().requires_grad_(i in grad_idx)
+             for i, a in enumerate(args)]
+    r = ref(*plain)
+    (r[0] if isinstance(r, tuple) else r).backward(g)
+    for i in grad_idx:         # at S = 1 logw takes no part: both None
+        if plain[i].grad is None:
+            assert leaves[i].grad is None, i
+            continue
+        assert torch.isfinite(leaves[i].grad).all()
+        assert torch.equal(leaves[i].grad, plain[i].grad), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [16, 77])
+def test_flash_attention_function_equals_plain_version(dev, dtype, S):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    gen = torch.Generator(device=dev).manual_seed(S)
+    B, H, KV, hd = 2, 4, 2, 64
+    q, k, v, g = (torch.randn((B, S, h, hd), generator=gen,
+                              device=dev).to(dtype)
+                  for h in (H, KV, KV, H))
+    pos = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(B, S)
+    _function_case(
+        lambda *a: flash_attention(*a, q_positions=pos),
+        lambda *a: flash_attention_ref(*a, q_offset=pos[:, 0]),
+        (q, k, v), (0, 1, 2), g)
+
+
+@pytest.mark.parametrize("S", [1, 40])
+def test_wkv6_function_equals_plain_version(dev, S):
+    from repro_torch.kernels.rwkv6 import wkv6, wkv6_ref
+    gen = torch.Generator(device=dev).manual_seed(S)
+    B, H, hd = 2, 2, 32
+    r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    logw = -torch.exp(torch.randn((B, S, H, hd), generator=gen, device=dev)
+                      - 2.0)
+    u = 0.5 * torch.randn((H, hd), generator=gen, device=dev)
+    s0 = torch.randn((B, H, hd, hd), generator=gen, device=dev)
+    g = torch.randn((B, S, H, hd), generator=gen, device=dev)
+    _function_case(wkv6, wkv6_ref, (r, k, v, logw, u, s0),
+                   (0, 1, 2, 3, 4, 5), g)
+
+
+@pytest.mark.parametrize("S", [1, 33])
+def test_mamba_scan_function_equals_plain_version(dev, S):
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+    gen = torch.Generator(device=dev).manual_seed(S)
+    B, di, ds = 2, 64, 8
+    a_log = 0.5 * torch.randn((di, ds), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, di), generator=gen, device=dev) - 2.0)
+    b, c = (torch.randn((B, S, ds), generator=gen, device=dev)
+            for _ in range(2))
+    xc = torch.randn((B, S, di), generator=gen, device=dev)
+    h0 = torch.randn((B, di, ds), generator=gen, device=dev)
+    g = torch.randn((B, S, di), generator=gen, device=dev)
+    _function_case(mamba_scan, mamba_scan_ref, (a_log, dt, b, c, xc, h0),
+                   (0, 1, 2, 3, 4, 5), g)
+
+
+def test_inplace_call_needing_a_gradient_raises(dev):
+    from repro_torch.kernels.rwkv6 import wkv6
+    r = torch.zeros((1, 2, 1, 32), device=dev, requires_grad=True)
+    with pytest.raises(ValueError):
+        wkv6(r, r, r, r.detach() - 1, torch.zeros((1, 32), device=dev),
+             torch.zeros((1, 1, 32, 32), device=dev), inplace=True)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "rwkv6-1.6b",
+                                  "jamba-1.5-large-398b"])
+def test_train_step_through_the_kernels_equals_the_plain_route(dev, arch):
+    """A reduced config in float32, its remat mode "dots": the loss and
+    gradients of one step through the kernels against the plain route
+    on the card (1e-5 relative; 1e-4 of the largest |grad|)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import init_params, model_specs, trainable
+    from repro_torch.train.steps import value_and_grad
+    base = dataclasses.replace(get_config(arch).reduced(),
+                               compute_dtype="float32", remat="dots")
+    ds = SyntheticTokens(vocab_size=base.vocab_size, seq_len=64,
+                         global_batch=2, seed=0)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch_at(0).items()}
+    res = {}
+    for route in ("kernel", "plain"):
+        cfg = dataclasses.replace(base, attn_impl=route)
+        params = trainable(init_params(
+            model_specs(cfg), torch.Generator(device=dev).manual_seed(0),
+            device=dev))
+        _build.reset_launches()
+        loss, _, g = value_and_grad(cfg, "dense", params, b)
+        res[route] = (float(loss), g, dict(_build.LAUNCHES))
+    (lk, gk, nk), (lp, gp, np_) = res["kernel"], res["plain"]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    scale = max(float(t.abs().max()) for t in gp)
+    assert max(float((a - c).abs().max()) for a, c in zip(gk, gp)) \
+        <= 1e-4 * scale
+    kernel = {"granite-3-2b": "flash_attention", "rwkv6-1.6b": "wkv6",
+              "jamba-1.5-large-398b": "mamba_scan"}[arch]
+    assert nk[kernel] > 0 and np_[kernel] == 0
+
+
+def test_checkpoint_bf16_round_trip_from_the_device(dev, tmp_path):
+    from repro_torch.checkpoint import Checkpointer
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = {"w": torch.randn((64, 32), generator=gen, device=dev),
+            "m": torch.randn((64, 32), generator=gen,
+                             device=dev).to(torch.bfloat16),
+            "count": torch.tensor(5, dtype=torch.int32, device=dev)}
+    ck = Checkpointer(str(tmp_path), async_save=True)
+    ck.save(5, tree)
+    want = {k: v.clone() for k, v in tree.items()}
+    tree["m"].add_(1)                       # after the snapshot
+    ck.wait()
+    like = {k: torch.empty_like(v) for k, v in tree.items()}
+    on_cpu, step, _ = ck.restore(like, device="cpu")
+    assert step == 5
+    for k, v in on_cpu.items():
+        assert v.device.type == "cpu" and v.dtype == want[k].dtype
+        assert torch.equal(v, want[k].cpu())
+    back, _, _ = ck.restore({k: v for k, v in on_cpu.items()}, device=dev)
+    for k, v in back.items():
+        assert v.device == want[k].device and torch.equal(v, want[k])
