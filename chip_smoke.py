@@ -26,8 +26,10 @@ flash-decode over every vision row at decode) and musicgen-large whole
 (MHA at hd 64; its frame frontend), served short; training: granite-3-2b
 at full width, rwkv6-1.6b and a 3-layer jamba cut trained through the
 train step, with flash attention, WKV6 and the selective scan under
-autograd (the kernel forward, the plain version's VJP); and the static
-schedule verifier over every program the run scheduled on the card.
+autograd (the kernel forward, the plain version's VJP); the dry run's
+accounting of each of those served and trained cells beside what the
+card measured; and the static schedule verifier over every program the
+run scheduled on the card.
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
@@ -375,7 +377,24 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  kernels in it. The flash attention, WKV6 and scan rows
                  of the kernels line gain their launches per train
                  step.
- 14. verify   — the static schedule verifier over every program the run
+ 14. accounting — the dry run's accounting (``launch/dryrun_lib.account``,
+                 one card, no mesh, on fake tensors on the host) of
+                 every cell served or trained above, at its own shape:
+                 a served cell's 8-slot, 4096-position cache and its
+                 largest prefill dispatch of the counted run beside its
+                 decode step, a train cell's batch, length and
+                 micro-batches. Per cell the counted parameter,
+                 optimizer-state and cache bytes, the predicted
+                 activation bytes and peak, beside the live tensors'
+                 summed nbytes and the measured peak
+                 (``max_memory_allocated``: a served cell's from just
+                 before its counted run, after the engine was built, its
+                 ``serve_peak_gb``; a train cell's whole phase) and
+                 their ratio, with the whole phase's peak beside them
+                 (``peak_mem_gb``, weight drawing included). Gate: the
+                 counted bytes equal the live bytes exactly; the ratio
+                 is reported, not gated.
+ 15. verify   — the static schedule verifier over every program the run
                  scheduled on the card (each kept once, as it was first
                  scheduled, by wrapping ``STStream.scheduled_programs``):
                  the 64-rank Faces program (plain for st and host, and
@@ -2169,6 +2188,22 @@ def serve_measured(eng, requests, before_run=lambda: None):
     return reqs, d, hooked
 
 
+SCOPED = {"phase_peak": 0}
+
+
+def scope_peak():
+    """Reset the card's peak so that it counts from here (a run inside a
+    phase), keeping the phase's peak so far for :func:`phase_peak`."""
+    SCOPED["phase_peak"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_peak():
+    """The phase's peak across a :func:`scope_peak` in it (a phase resets
+    the card's peak at its start, before the scoped run)."""
+    return max(SCOPED["phase_peak"], torch.cuda.max_memory_allocated())
+
+
 def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
                 profile_rows=SERVE_SLOTS, moe_impl="dense", params=None,
                 short=False, cut=None):
@@ -2216,7 +2251,11 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
         _build.reset_launches()             # the counted main-path run
         return per
 
+    torch.cuda.synchronize()
+    scope_peak()                                # the serving run's peak
+    allocated = torch.cuda.memory_allocated()
     reqs, d, per = serve_measured(eng, requests, before_run)
+    serve_peak = torch.cuda.max_memory_allocated()
     wall, steps = d["wall_s"], d.pop("engine_steps")
     launches = dict(_build.LAUNCHES)
     per = {kind: list(v) for kind, v in per.items()}    # the counted run
@@ -2241,6 +2280,16 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
         key = (r.admitted_at, len(r.prompt))
         groups[key] = groups.get(key, 0) + 1
     check(len(groups) == d["prefill_dispatches"], "dispatch groups differ")
+    ACCOUNTED.append({
+        "cell": f"{arch} serve, {cfg.num_layers} layers, {moe_impl} MoE"
+        if cfg.moe is not None else f"{arch} serve, {cfg.num_layers} layers",
+        "kind": "serve", "cfg": cfg, "moe_impl": moe_impl,
+        "prefill": max(((n, L) for (_, L), n in groups.items()),
+                       key=lambda nl: nl[0] * nl[1]),
+        "peak": serve_peak, "phase_peak": phase_peak(),
+        "allocated_at_start": allocated,
+        "live": {"params": live_bytes(params), "opt_state": 0,
+                 "cache": live_bytes(eng.cache)}})
     lat = [r.done_at - r.submitted_at for r in reqs]
     ttft = [r.first_token_at - r.submitted_at for r in reqs]
     emit({"phase": "serve", "arch": cfg.name, "moe_impl": moe_impl,
@@ -2268,7 +2317,8 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
           "launches_per_decode_step": {
               k: sum(p[k] for p in per["decode"]) / d["decode_steps"]
               for k in names},
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "peak_mem_gb": phase_peak() / 1e9,
+          "serve_peak_gb": serve_peak / 1e9})
     if short:
         versus = decode_graph_vs_eager(
             eng, graphed, requests(SERVE_SLOTS,
@@ -2280,7 +2330,7 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
               "decode_graph_captures": graphed.captures,
               "decode_capture_ms": 1e3 * graphed.capture_seconds,
               "decode_graph_vs_eager": versus,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+              "peak_mem_gb": phase_peak() / 1e9})
         del eng
         torch.cuda.empty_cache()
         return cfg, launches, d, groups, per, params, reqs
@@ -4169,7 +4219,7 @@ def phase_vision(dev, _build, serving, cfgs, attn, attn_errs):
         for k in CROSS_ROWS:
             del _build.LAUNCHES[k]
     emit({"phase": "serve", "arch": cfg.name,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "peak_mem_gb": phase_peak() / 1e9})
     del params
     torch.cuda.empty_cache()
     return rows
@@ -4233,6 +4283,66 @@ def frames_check(dev, _build, models, cfg, params):
           f"(kernel), {out['plain_launches']} (plain)")
     check(err <= LOGITS_ATOL, f"musicgen frames: kernel route logits "
           f"differ from the plain route by {err} > {LOGITS_ATOL}")
+
+
+# ---------------------------------------------------------------------------
+# the dry run's accounting against the card's measured memory
+# ---------------------------------------------------------------------------
+
+# one entry per cell the run measured (phase_serve, train_cell): the
+# config, its shape, the peak since its state was built, the live bytes
+ACCOUNTED = []
+
+
+def live_bytes(tree):
+    """Summed nbytes of a tree's tensors."""
+    from repro_torch.models.params import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def phase_accounting():
+    """The dry run's accounting of every cell in ACCOUNTED at its own
+    shape, one card and no mesh (``launch/dryrun_lib.account``: the
+    port's step on fake tensors on the host): the counted parameter,
+    optimizer-state and cache bytes must equal the live tensors' bytes
+    the phase summed; the predicted peak (those bytes plus the
+    activations: a train step's, or the larger of the served cell's
+    largest prefill dispatch and its decode step) is printed beside the
+    measured one, not gated."""
+    from repro_torch.launch.dryrun_lib import account
+    t0 = time.perf_counter()
+    for c in ACCOUNTED:
+        t1 = time.perf_counter()
+        cfg = c["cfg"]
+        if c["kind"] == "train":
+            a = account(cfg, "train", c["batch"], c["seq"])
+            state, act = a["state"], {"train": a["activation_bytes"]}
+            shape = {"batch": c["batch"], "seq": c["seq"],
+                     "micro_batches": c["accum"]}
+        else:
+            n, L = c["prefill"]
+            kw = dict(cache_len=SERVE_MAX_LEN, moe_impl=c["moe_impl"])
+            pre = account(cfg, "prefill", n, L, **kw)
+            dec = account(cfg, "decode", SERVE_SLOTS, 1, **kw)
+            state = dec["state"]
+            act = {"prefill": pre["activation_bytes"],
+                   "decode": dec["activation_bytes"]}
+            shape = {"slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+                     "largest_prefill": [n, L]}
+        counted = {k: state[k] for k in ("params", "opt_state", "cache")}
+        pred = sum(counted.values()) + max(act.values())
+        emit({"phase": "accounting", "cell": c["cell"], "shape": shape,
+              "counted_bytes": counted, "live_bytes": c["live"],
+              "activation_bytes_pred": act, "peak_pred_gb": pred / 1e9,
+              "peak_measured_gb": c["peak"] / 1e9,
+              "phase_peak_gb": c["phase_peak"] / 1e9,
+              "pred_over_measured": pred / c["peak"],
+              "allocated_at_start_gb": c["allocated_at_start"] / 1e9,
+              "count_s": time.perf_counter() - t1})
+        check(counted == c["live"], f"accounting, {c['cell']}: counted "
+              f"bytes {counted}, live {c['live']}")
+    emit({"phase": "accounting", "cells": len(ACCOUNTED),
+          "seconds": time.perf_counter() - t0})
 
 
 # ---------------------------------------------------------------------------
@@ -4577,6 +4687,7 @@ def train_cell(dev, _build, cfg, label, *, steps, seq, batch, kernels,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    allocated = torch.cuda.memory_allocated()
     params, opt = train_setup(dev, cfg)
     n_params = sum(t.numel() for t in tree_leaves(params))
     sched = lambda s: cosine_schedule(s, peak_lr=TRAIN_LR, warmup=warmup,
@@ -4606,6 +4717,13 @@ def train_cell(dev, _build, cfg, label, *, steps, seq, batch, kernels,
         losses.append(m["loss"])
         times.append(ms)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    ACCOUNTED.append({"cell": f"{label} train", "kind": "train", "cfg": cfg,
+                      "batch": batch, "seq": seq, "accum": accum,
+                      "peak": torch.cuda.max_memory_allocated(),
+                      "phase_peak": torch.cuda.max_memory_allocated(),
+                      "allocated_at_start": allocated,
+                      "live": {"params": live_bytes(params),
+                               "opt_state": live_bytes(opt), "cache": 0}})
     steady = statistics.median(times[1:])
     b = device_batch(ds, steps, dev)
     acc_dtype = (torch.bfloat16 if cfg.opt_state_dtype == "bfloat16"
@@ -4907,6 +5025,7 @@ def main():
     phase_build(_build)
     if args.only == "train":
         phase_training(dev, _build, cfgs, [])
+        phase_accounting()
         emit({"phase": "done", "seconds": time.perf_counter() - t_start})
         return 0
     errs = phase_kernels(dev, core, hp, hp_ref, cb)
@@ -5027,6 +5146,7 @@ def main():
     kernels += phase_vision(dev, _build, serving, cfgs, attn, attn_errs)
     phase_musicgen(dev, _build, serving, cfgs, granite_kernels)
     phase_training(dev, _build, cfgs, kernels)
+    phase_accounting()
     phase_verify(core, scheduled)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "kernel_rows": [row["name"] for row in kernels]})

@@ -7,12 +7,16 @@ from repro_torch.configs.base import (
     ModelConfig,
     MoEConfig,
     RWKVConfig,
+    SHAPES,
+    ShapeConfig,
     VisionStub,
     get_config,
     group_layers,
+    shape_applicable,
 )
 
 __all__ = [
     "ARCH_IDS", "LayerGroups", "MLAConfig", "MambaConfig", "ModelConfig",
-    "MoEConfig", "RWKVConfig", "VisionStub", "get_config", "group_layers",
+    "MoEConfig", "RWKVConfig", "SHAPES", "ShapeConfig", "VisionStub",
+    "get_config", "group_layers", "shape_applicable",
 ]

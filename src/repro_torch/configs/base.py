@@ -15,15 +15,20 @@ Differences from the copy's original:
   * of the reference's training knobs only those a step reads are kept
     (``optimizer``, ``opt_state_dtype``, ``remat``, ``grad_accum``), with
     the reference's defaults and each arch's values; ``reduced()`` sets
-    them as the reference's does, but keeps ``attn_impl``. The port
-    trains float32 masters, as the reference's launcher makes them, so
-    ``param_dtype`` is not kept; ``seq_shard_activations`` and
-    ``overlap_grad_reduce`` shape the reference's sharding and gradient
-    reduction and come with sharding (ROADMAP Queue 1 item 10);
-  * the dry-run knobs (``subquadratic``, ``sharding_overrides``,
-    ``unroll_inner``), ``param_counts()`` and the input-shape sets
-    (``SHAPES``) come with the launch and analysis tooling (ROADMAP
-    Queue 1 item 10).
+    them as the reference's does, but keeps ``attn_impl``;
+  * ``param_dtype`` keeps the reference's per-arch value for
+    ``launch/specs.abstract_model``, the reference's abstract params,
+    which nothing else reads: the port's trainer keeps float32 masters,
+    as the reference's launcher makes them, serving casts its weights to
+    bf16 at load, and the dry run's accounting counts those (its records
+    say which dtype, ``param_dtype_why``);
+  * ``seq_shard_activations`` and ``sharding_overrides`` are read by
+    ``sharding.make_rules``; ``subquadratic`` by ``shape_applicable``;
+  * the reference's ``overlap_grad_reduce`` (per-group gradient
+    reduction over a mesh) and ``unroll_inner`` (unrolled inner scans so
+    that XLA's cost analysis sees their trip count) steer XLA and a
+    mesh, which the port has neither of; nothing reads them, so they are
+    not kept.
 """
 from __future__ import annotations
 
@@ -159,12 +164,18 @@ class ModelConfig:
     vision: Optional[VisionStub] = None
 
     # memory / numerics policy, and the attention route
+    param_dtype: str = "float32"      # abstract_model's (module doc)
     compute_dtype: str = "bfloat16"
     optimizer: str = "adamw"          # adamw | adafactor
     opt_state_dtype: str = "float32"  # moments dtype
     remat: str = "full"               # none | dots | comm | full
     grad_accum: int = 1               # microbatch accumulation steps
     attn_impl: str = "kernel"         # kernel | plain (see module doc)
+    seq_shard_activations: bool = True  # sequence-parallel residual stream
+    subquadratic: bool = False          # can run long_500k
+    # per-arch logical->mesh overrides, e.g. (("heads", None),) when head
+    # count is indivisible by the model axis (minitron: 24 heads).
+    sharding_overrides: tuple = ()
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -216,6 +227,56 @@ class ModelConfig:
             return self.first_dense_ff
         return self.d_ff
 
+    # -- parameter counting (for MODEL_FLOPS) -------------------------------
+    def param_counts(self) -> dict:
+        """Returns dict with total and active (per-token) param counts."""
+        d = self.d_model
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        total = emb
+        active = emb
+        for i, (mixer, ffn) in enumerate(self.layer_specs()):
+            if mixer in ("attn", "cross"):
+                hd = self.head_dim
+                p = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
+                    + self.num_heads * hd * d
+                total += p; active += p
+            elif mixer == "mla":
+                m = self.mla
+                qh = self.num_heads
+                p = (d * m.q_lora_rank
+                     + m.q_lora_rank * qh * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                     + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                     + m.kv_lora_rank * qh * (m.qk_nope_head_dim + m.v_head_dim)
+                     + qh * m.v_head_dim * d)
+                total += p; active += p
+            elif mixer == "mamba":
+                mb = self.mamba
+                di = mb.expand * d
+                dtr = mb.dt_rank or -(-d // 16)
+                p = d * di * 2 + di * mb.d_conv + di * (dtr + 2 * mb.d_state) \
+                    + dtr * di + di * mb.d_state + di * d
+                total += p; active += p
+            elif mixer == "rwkv":
+                H = d // self.rwkv.head_size
+                p = 4 * d * d + d * d  # r,k,v,g,o projections (loras ~small)
+                total += p; active += p
+            if ffn == "dense":
+                f = self.dense_ff_for(i)
+                p = 3 * d * f
+                total += p; active += p
+            elif ffn == "moe":
+                mo = self.moe
+                pe = 3 * d * mo.expert_ff
+                total += mo.num_experts * pe + d * mo.num_experts
+                active += mo.top_k * pe + d * mo.num_experts
+                if mo.num_shared:
+                    ps = 3 * d * mo.shared_ff
+                    total += ps; active += ps
+            elif ffn == "rwkv":
+                p = 2 * d * self.d_ff  # k: d->ff, v: ff->d  (receptance d*d)
+                total += p + d * d; active += p + d * d
+        return {"total": total, "active": active}
+
     # -- reduced config for CPU smoke tests ---------------------------------
     def reduced(self) -> "ModelConfig":
         changes: dict = dict(
@@ -253,6 +314,35 @@ class ModelConfig:
         if self.vision is not None:
             changes["vision"] = VisionStub(num_tokens=16, raw_dim=64)
         return dataclasses.replace(self, **changes)
+
+
+# ---------------------------------------------------------------------------
+# Shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """long_500k only for sub-quadratic archs (a quadratic attention over
+    524,288 keys is not served)."""
+    if shape.name == "long_500k":
+        return cfg.subquadratic
+    return True
 
 
 # ---------------------------------------------------------------------------

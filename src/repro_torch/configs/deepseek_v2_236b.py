@@ -28,6 +28,7 @@ CONFIG = ModelConfig(
     first_dense_ff=12288,
     mla=MLAConfig(kv_lora_rank=512, q_lora_rank=1536,
                   qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128),
+    param_dtype="bfloat16",
     opt_state_dtype="bfloat16",
     grad_accum=8,
     remat="full",

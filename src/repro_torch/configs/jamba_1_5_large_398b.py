@@ -8,9 +8,7 @@ Layer pattern: every 8-layer block = 1 attention + 7 Mamba layers
 it on one card cuts depth, never width, with
 ``dataclasses.replace(CONFIG, num_layers=4)``: (attn, dense), (mamba,
 moe), (mamba, dense), (mamba, moe), 23.0 B params.
-
-The reference's ``subquadratic`` flag comes with the launch and
-analysis tooling (ROADMAP Queue 1 item 10).
+Sub-quadratic (Mamba state) -> runs long_500k.
 """
 from repro_torch.configs.base import MambaConfig, ModelConfig, MoEConfig
 
@@ -29,6 +27,8 @@ CONFIG = ModelConfig(
     moe_every=2,
     mamba=MambaConfig(d_state=16, d_conv=4, expand=2),
     mamba_attn_period=8,
+    subquadratic=True,
+    param_dtype="bfloat16",        # f32 master absorbed into moments
     optimizer="adafactor",
     opt_state_dtype="bfloat16",
     grad_accum=16,

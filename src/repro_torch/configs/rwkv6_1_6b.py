@@ -2,7 +2,7 @@
 Finch: data-dependent decay. [arXiv:2404.05892; unverified]
 
 Attention-free; time-mix (WKV6) + channel-mix blocks. head_size=64 ->
-32 heads.
+32 heads. Sub-quadratic -> runs long_500k.
 """
 from repro_torch.configs.base import ModelConfig, RWKVConfig
 
@@ -17,6 +17,7 @@ CONFIG = ModelConfig(
     vocab_size=65536,
     head_dim=64,
     rwkv=RWKVConfig(head_size=64),
+    subquadratic=True,
     grad_accum=2,
     remat="dots",
 )

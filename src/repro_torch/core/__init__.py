@@ -3,8 +3,9 @@ schedule passes, the ST / host / fused executors, the cost simulator,
 the schedule tuner (``core.autotune``), the Faces halo exchange, the
 broadcast, ring and expert-parallel a2a transports (``core.broadcast``,
 ``core.ring``, ``core.ep_a2a``), the serving decode transport
-(``core.serve_decode``) and the static schedule verifier with its
-seeded-defect corpus (``core.verify``, ``core.defects``)."""
+(``core.serve_decode``), the static schedule verifier with its
+seeded-defect corpus (``core.verify``, ``core.defects``) and the cost
+model's alpha-beta calibration (``core.calibrate``)."""
 from repro_torch.core.stream import STStream, counters_expected
 from repro_torch.core.window import STWindow
 from repro_torch.core.triggered import (ResourcePool, TriggeredOp,
@@ -23,6 +24,9 @@ from repro_torch.core.engine import emit_node, run_fused
 from repro_torch.core.throttle import (CostModel, faces_programs,
                                        host_dispatch_count, simulate_faces,
                                        simulate_pipeline, simulate_program)
+from repro_torch.core.calibrate import (calibrated_cost_model,
+                                        fit_cost_model, fit_link,
+                                        load_calibration, save_calibration)
 from repro_torch.core.state import state_from_numpy, state_to_numpy
 from repro_torch.core.verify import (Finding, ScheduleVerificationError,
                                      VerifyReport, find_cycle, verify,
@@ -42,4 +46,5 @@ __all__ = ["STStream", "STWindow", "TriggeredOp", "TriggeredProgram",
            "simulate_faces", "faces_programs", "halo",
            "state_from_numpy", "state_to_numpy", "Finding", "VerifyReport",
            "ScheduleVerificationError", "verify", "verify_programs",
-           "find_cycle"]
+           "find_cycle", "fit_link", "fit_cost_model",
+           "calibrated_cost_model", "save_calibration", "load_calibration"]

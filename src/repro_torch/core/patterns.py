@@ -298,9 +298,10 @@ def simulate_pattern(name: str, niter: int, *, policy: str = "adaptive",
     one NIC injection per group); ``chunk_bytes`` splits larger off-node
     puts into pipelined chunk chains (per-chunk beta, first-chunk-only
     alpha). ``cm`` is a :class:`~repro_torch.core.throttle.CostModel`
-    (the default constants when None); ``cm="calibrated"`` (the JAX
-    package's measured-constants model) raises ``NotImplementedError``:
-    ``core/calibrate.py`` is not ported (ROADMAP item 3).
+    (the default constants when None); ``cm="calibrated"`` prices with
+    the measured-constants model from ``results/calibration.json``
+    (seed constants when no calibration exists;
+    :func:`~repro_torch.core.calibrate.calibrated_cost_model`).
 
     ``config`` overrides the schedule/build knobs with a tuned
     :class:`~repro_torch.core.autotune.ScheduleConfig` (``"auto"``
@@ -308,10 +309,9 @@ def simulate_pattern(name: str, niter: int, *, policy: str = "adaptive",
     wins over ``policy`` for the throttle choice."""
     from repro_torch.core.throttle import simulate_pipeline
 
-    if isinstance(cm, str):
-        raise NotImplementedError(
-            f"cm={cm!r} needs core/calibrate.py, which is not ported yet "
-            "(ROADMAP item 3, the bench harness and calibration)")
+    if cm == "calibrated":
+        from repro_torch.core.calibrate import calibrated_cost_model
+        cm = calibrated_cost_model()
 
     host_sync_every = 1 if policy == "application" else 0
     throttle = "static" if policy == "application" else policy

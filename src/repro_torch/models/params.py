@@ -7,7 +7,10 @@ The port materializes them as trees of tensors on one device:
   * :func:`init_params` — seeded random params (a ``torch.Generator``);
   * :func:`from_reference` — the JAX package's parameter tree, given as
     numpy arrays, as the port's tree (the tests hand both frameworks the
-    same weights this way).
+    same weights this way);
+  * :func:`abstract_params`, :func:`abstract_init_params` — tensors on
+    the meta device, no allocation; :func:`param_pspecs` — partition
+    specs through sharding rules (the accounting, ``launch/``).
 
 Unlike the reference, which stacks its repeated layers on a leading
 axis for ``lax.scan``, the port keeps one dict of params per layer in
@@ -142,6 +145,45 @@ def zeros_from_specs(spec_tree, device="cuda"):
     device = resolve_device(device)
     return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                           device=device), spec_tree)
+
+
+# ---------------------------------------------------------------------------
+# Accounting: meta tensors and partition specs (no allocation)
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def abstract_params(spec_tree, dtype: Optional[torch.dtype] = torch.float32):
+    """Tensors on the meta device in the specs' shapes, each in ``dtype``
+    (each spec's own dtype where ``dtype`` is None): the reference's
+    ``ShapeDtypeStruct`` stand-ins, safe at any scale, no allocation."""
+    return tree_map(lambda s: torch.empty(
+        s.shape, dtype=s.dtype if dtype is None else dtype, device=META),
+        spec_tree)
+
+
+def abstract_init_params(spec_tree, dtype: torch.dtype = torch.float32):
+    """The meta tensors :func:`init_params` would make at ``dtype``: each
+    leaf in its :func:`leaf_dtype` (weights in ``dtype``, vectors and
+    :data:`FLOAT32_LEAVES` float32), as the port holds them."""
+    def build(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: build(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [build(v) for v in tree]
+        return torch.empty(tree.shape, device=META,
+                           dtype=leaf_dtype(tree.shape, dtype, name))
+    return build(spec_tree)
+
+
+def param_axes(spec_tree):
+    return tree_map(lambda s: s.axes, spec_tree)
+
+
+def param_pspecs(spec_tree, rules):
+    """Tree of partition specs (tuples) derived via sharding rules."""
+    return tree_map(lambda s: rules.pspec(s.axes), spec_tree)
 
 
 def param_count(spec_tree) -> int:

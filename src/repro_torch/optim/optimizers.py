@@ -19,9 +19,12 @@ per layer it would be another optimizer.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from repro_torch.models.params import (get_path, reference_groups,
+from repro_torch.models.params import (ParamSpec, get_path,
+                                       reference_groups,
                                        reference_tree, tree_leaves,
                                        tree_map)
 
@@ -79,6 +82,58 @@ def opt_init(cfg, params) -> OptState:
     if cfg.optimizer == "adafactor":
         return adafactor_init(cfg, params, dtype)
     return adamw_init(params, dtype)
+
+
+def _moment_spec(spec: ParamSpec, dtype) -> ParamSpec:
+    return dataclasses.replace(spec, init="zeros", dtype=dtype)
+
+
+def _group_spec(specs, stacked) -> ParamSpec:
+    """The spec of one reference leaf: a unit position's layers stacked
+    on a leading "layers" axis, as the reference's ``stack_specs``."""
+    s = specs[0]
+    if not stacked:
+        return s
+    return dataclasses.replace(s, shape=(len(specs),) + tuple(s.shape),
+                               axes=("layers",) + tuple(s.axes))
+
+
+def opt_init_specs(cfg, param_specs) -> OptState:
+    """The state :func:`opt_init` makes, as ParamSpecs (shapes, logical
+    axes, dtypes) of the model's ``param_specs``, for the accounting:
+    moments mirror the params; Adafactor's ``vr``/``vc`` are factored
+    over the reference's stacked groups, as :func:`adafactor_init`."""
+    dtype = getattr(torch, cfg.opt_state_dtype)
+    moment = lambda s: _moment_spec(s, dtype)
+    count = ParamSpec((), (), init="zeros", dtype=torch.int32)
+    if cfg.optimizer != "adafactor":
+        return {"mu": tree_map(moment, param_specs),
+                "nu": tree_map(moment, param_specs), "count": count}
+
+    def vrow(specs, stacked):
+        s = _group_spec(specs, stacked)
+        f = _factored_axes(s.shape)
+        if f is None:
+            return moment(s)
+        return ParamSpec(
+            tuple(d for i, d in enumerate(s.shape) if i != f[1]),
+            tuple(a for i, a in enumerate(s.axes) if i != f[1]),
+            init="zeros", dtype=dtype)
+
+    def vcol(specs, stacked):
+        s = _group_spec(specs, stacked)
+        f = _factored_axes(s.shape)
+        if f is None:
+            return ParamSpec((1,), (None,), init="zeros", dtype=dtype)
+        return ParamSpec(
+            tuple(d for i, d in enumerate(s.shape) if i != f[0]),
+            tuple(a for i, a in enumerate(s.axes) if i != f[0]),
+            init="zeros", dtype=dtype)
+
+    return {"mu": tree_map(moment, param_specs),
+            "vr": reference_tree(cfg, param_specs, vrow),
+            "vc": reference_tree(cfg, param_specs, vcol),
+            "count": count}
 
 
 # ---------------------------------------------------------------------------

@@ -28,13 +28,28 @@ def _loss_fn(cfg, moe_impl, params, mbatch):
     return loss + aux, (loss, aux)
 
 
-def effective_accum(cfg) -> int:
-    """The number of micro-batches: ``cfg.grad_accum`` (at least 1). The
-    reference clamps it so that each micro-batch still covers every
-    batch shard of its mesh (from its ``global_batch``); on one device
-    there is one shard, and it returns ``cfg.grad_accum`` as the
-    reference does without a mesh."""
-    return max(cfg.grad_accum, 1)
+def effective_accum(cfg, rules=None, global_batch=None) -> int:
+    """Clamp grad_accum so each microbatch still covers every batch shard
+    (a microbatch smaller than the batch-sharding degree idles devices and
+    cannot even be sharded as a pjit argument), as the reference does.
+    ``rules``: sharding rules (``repro_torch.sharding.make_rules``) whose
+    mesh gives the batch shards; without a mesh, or without
+    ``global_batch``, it is ``cfg.grad_accum`` (at least 1), the one
+    device's case."""
+    accum = max(cfg.grad_accum, 1)
+    if not global_batch or rules is None or rules.mesh is None:
+        return accum
+    ba = rules.map.get("batch")
+    if not ba:
+        return accum
+    shard = 1
+    for a in (ba if isinstance(ba, tuple) else (ba,)):
+        shard *= rules.mesh.shape[a]
+    accum = min(accum, max(1, global_batch // shard))
+    while accum > 1 and (global_batch % accum
+                         or (global_batch // accum) % shard):
+        accum -= 1
+    return accum
 
 
 def _split(batch, accum):

@@ -1719,3 +1719,42 @@ def test_checkpoint_bf16_round_trip_from_the_device(dev, tmp_path):
     back, _, _ = ck.restore({k: v for k, v in on_cpu.items()}, device=dev)
     for k, v in back.items():
         assert v.device == want[k].device and torch.equal(v, want[k])
+
+
+def test_accounting_bytes_equal_the_live_tensors_on_the_card(dev):
+    """The dry run's spec-counted bytes (one card, no mesh) against the
+    tensors on the card: a reduced granite train step's float32 masters
+    and AdamW state after one step, and the reduced served engine's bf16
+    weights and cache after a request: exactly their summed nbytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.dryrun_lib import state_bytes
+    from repro_torch.models import init_params, model_specs, trainable
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import opt_init
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.sharding import make_rules
+    from repro_torch.train.steps import make_train_step
+    nbytes = lambda t: sum(x.numel() * x.element_size()
+                           for x in tree_leaves(t))
+    cfg = get_config("granite-3-2b").reduced()
+    rules = make_rules(cfg, None, None)
+    params = trainable(init_params(
+        model_specs(cfg), torch.Generator(device=dev).manual_seed(0), dev))
+    opt = opt_init(cfg, params)
+    ds = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=64,
+                         global_batch=2, seed=0)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch_at(0).items()}
+    params, opt, _ = make_train_step(cfg)(params, opt, b)
+    st = state_bytes(cfg, "train", 2, 64, rules)
+    assert (st["params"], st["opt_state"], st["batch"]) == (
+        nbytes(params), nbytes(opt), nbytes(b))
+    served = init_params(model_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev,
+                         torch.bfloat16)
+    eng = ServingEngine(cfg, served, batch_slots=4, max_len=64, device=dev)
+    eng.submit(Request(prompt=np.array([1, 2, 3], np.int32),
+                       max_new_tokens=4))
+    eng.run_until_drained()
+    st = state_bytes(cfg, "decode", 4, 1, rules, cache_len=64)
+    assert (st["params"], st["cache"]) == (nbytes(served), nbytes(eng.cache))
