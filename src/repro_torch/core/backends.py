@@ -45,6 +45,7 @@ from repro_torch.core.compat import block
 from repro_torch.core.engine import (_emit_completion_signal, emit_node,
                                      program_graph)
 from repro_torch.core.schedule import stream_interleaved_order
+from repro_torch.core.spans import span
 
 
 def _emit_st(stream, prog, state):
@@ -65,10 +66,11 @@ def run_compiled(stream, prog, state):
         return _emit_st(stream, prog, state)
     # the graph, held by the stream, holds the stream weakly
     ref = weakref.proxy(stream)
-    g = program_graph(
-        stream, stream._compiled_cache, prog, state,
-        f"the ST program ({len(prog.nodes)} descriptors)",
-        lambda: [lambda st: _emit_st(ref, prog, st)])
+    with span("repro_torch.st.lookup"):
+        g = program_graph(
+            stream, stream._compiled_cache, prog, state,
+            f"the ST program ({len(prog.nodes)} descriptors)",
+            lambda: [lambda st: _emit_st(ref, prog, st)])
     return g(state)
 
 

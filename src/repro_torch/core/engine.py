@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import graphs
+from repro_torch.core.spans import span
 from repro_torch.kernels.counter_bump.ops import (counter_bump,
                                                   put_multicast, put_signal,
                                                   rank_rows)
@@ -324,10 +325,11 @@ def run_fused(stream, prog, state):
         return _emit_fused(stream, prog, state)
     # the graphs, held by the stream, hold the stream weakly
     ref = weakref.proxy(stream)
-    g = program_graph(
-        stream, stream._fused_cache, prog, state,
-        f"the fused program ({len(prog.nodes)} descriptors)",
-        lambda: [lambda st, nodes=nodes: _emit_segment(ref, nodes, st)
-                 for nodes in _segment_nodes(prog)])
+    with span("repro_torch.st.lookup"):
+        g = program_graph(
+            stream, stream._fused_cache, prog, state,
+            f"the fused program ({len(prog.nodes)} descriptors)",
+            lambda: [lambda st, nodes=nodes: _emit_segment(ref, nodes, st)
+                     for nodes in _segment_nodes(prog)])
     stream.dispatches += len(g.segments)
     return g(state)

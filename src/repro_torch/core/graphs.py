@@ -48,6 +48,7 @@ from typing import Callable, Dict, List, Sequence
 
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.kernels import _build
 
 
@@ -113,11 +114,12 @@ class _Captured:
         self.seconds = time.perf_counter() - t0
 
     def replay(self):
-        try:
-            self.graph.replay()
-        except Exception as e:
-            raise RuntimeError(f"CUDA graph replay of {self.name} failed: "
-                               f"{e}") from e
+        with span("repro_torch.graph.replay"):
+            try:
+                self.graph.replay()
+            except Exception as e:
+                raise RuntimeError(f"CUDA graph replay of {self.name} "
+                                   f"failed: {e}") from e
         for k, v in self.delta.items():
             _build.LAUNCHES[k] += v
 
@@ -199,11 +201,13 @@ class ProgramGraph:
         if not self.chain:
             self._capture(state)
         else:
-            _copy([self.static[k] for k in state], list(state.values()))
+            with span("repro_torch.graph.copy_in"):
+                _copy([self.static[k] for k in state], list(state.values()))
         for g in self.chain:
             g.replay()
-        fresh = {k: _fresh(self.out[k]) for k in self.written}
-        _copy(list(fresh.values()), [self.out[k] for k in fresh])
+        with span("repro_torch.graph.copy_out"):
+            fresh = {k: _fresh(self.out[k]) for k in self.written}
+            _copy(list(fresh.values()), [self.out[k] for k in fresh])
         return {k: fresh[k] if k in fresh else state[k] for k in self.out}
 
     def copied_bytes(self) -> Dict[str, int]:
@@ -286,14 +290,16 @@ class StepGraph:
         _, static, g = entry
         g.replay()
         held = [a for i, a in enumerate(static) if i not in self.copied]
-        return self._out(g.out, held)
+        with span("repro_torch.graph.copy_out"):
+            return self._out(g.out, held)
 
     def _copy_in(self, static, args):
-        dsts, srcs = [], []
-        for i in self.copied:
-            dsts += _leaves(static[i])
-            srcs += _leaves(args[i])
-        _copy(dsts, srcs)
+        with span("repro_torch.graph.copy_in"):
+            dsts, srcs = [], []
+            for i in self.copied:
+                dsts += _leaves(static[i])
+                srcs += _leaves(args[i])
+            _copy(dsts, srcs)
 
     def _out(self, tree, held):
         if any(tree is h for h in held):

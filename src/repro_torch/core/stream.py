@@ -47,6 +47,7 @@ from repro_torch.core import backends, engine
 from repro_torch.core.compat import block, resolve_device
 from repro_torch.core.lower import lower_segment, split_segments
 from repro_torch.core.schedule import schedule
+from repro_torch.core.spans import span
 from repro_torch.core.triggered import TriggeredProgram
 from repro_torch.core.window import STWindow, torch_dtype
 
@@ -328,6 +329,30 @@ class STStream:
         ``config`` expands a tuned
         :class:`~repro_torch.core.autotune.ScheduleConfig` into the
         schedule knobs (see :meth:`scheduled_programs`)."""
+        with span("repro_torch.st.sync"):
+            with span("repro_torch.st.lookup"):
+                progs = self._checked_programs(
+                    state, mode, throttle=throttle, resources=resources,
+                    merged=merged, ordered=ordered, nstreams=nstreams,
+                    node_aware=node_aware, coalesce=coalesce, pack=pack,
+                    chunk_bytes=chunk_bytes,
+                    fused=fused or mode == "fused", config=config)
+            for prog in progs:
+                if mode == "fused":
+                    state = engine.run_fused(self, prog, state)
+                elif mode == "st":
+                    state = backends.run_compiled(self, prog, state)
+                else:
+                    state = backends.run_host(self, prog, state)
+                # application-level sync between segments, and the single
+                # host sync at the end of an ST program
+                with span("repro_torch.st.block"):
+                    block(self.device)
+        return state
+
+    def _checked_programs(self, state, mode, **sched_kw):
+        """The scheduled programs of a synchronize call, once its
+        arguments are checked against the stream."""
         if self.device is None:
             raise ValueError("cannot execute a device-free stream "
                              "(constructed with device=None)")
@@ -342,22 +367,7 @@ class STStream:
             if v.device != self.device:
                 raise ValueError(f"state[{k!r}] is on {v.device}, the "
                                  f"stream on {self.device}")
-        fused = fused or mode == "fused"
-        for prog in self.scheduled_programs(
-                throttle=throttle, resources=resources, merged=merged,
-                ordered=ordered, nstreams=nstreams, node_aware=node_aware,
-                coalesce=coalesce, pack=pack, chunk_bytes=chunk_bytes,
-                fused=fused, config=config):
-            if mode == "fused":
-                state = engine.run_fused(self, prog, state)
-            elif mode == "st":
-                state = backends.run_compiled(self, prog, state)
-            else:
-                state = backends.run_host(self, prog, state)
-            # application-level sync between segments, and the single
-            # host sync at the end of an ST program
-            block(self.device)
-        return state
+        return self.scheduled_programs(**sched_kw)
 
 
 def counters_expected(niter: int, npeers: int):

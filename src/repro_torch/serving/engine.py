@@ -77,6 +77,7 @@ import torch
 
 from repro_torch.core import graphs
 from repro_torch.core.compat import resolve_device
+from repro_torch.core.spans import span
 from repro_torch.models import cache_specs
 from repro_torch.models.params import zeros_from_specs
 from repro_torch.train.steps import (make_decode_sample_step,
@@ -217,26 +218,32 @@ class ServingEngine:
                                           device=self.device)
         s0 = slots[0]
         layers = list(zip(self.cache["layers"], self._state_keys))
-        if slots == list(range(s0, s0 + n)):        # one view, in place
-            view = {"layers": [{k: c[k][s0:s0 + n] for k in c}
-                               for c, _ in layers]}
-            for vc, (_, state) in zip(view["layers"], layers):
-                for k in state:
-                    vc[k].zero_()
+        scattered = slots != list(range(s0, s0 + n))
+        with span("repro_torch.engine.gather"):
+            if not scattered:                       # one view, in place
+                view = {"layers": [{k: c[k][s0:s0 + n] for k in c}
+                                   for c, _ in layers]}
+                for vc, (_, state) in zip(view["layers"], layers):
+                    for k in state:
+                        vc[k].zero_()
+            else:                                   # gather, write back
+                idx = torch.as_tensor(slots, device=self.device)
+                view = {"layers": [
+                    {k: (c[k].new_zeros((n,) + c[k].shape[1:])
+                         if k in state else c[k][idx, :L]) for k in c}
+                    for c, state in layers]}
+        with span("repro_torch.engine.forward"):
             ids, _ = self._prefill_sample(self.params, batch, view)
-        else:                                       # gather, write back
-            idx = torch.as_tensor(slots, device=self.device)
-            view = {"layers": [
-                {k: (c[k].new_zeros((n,) + c[k].shape[1:]) if k in state
-                     else c[k][idx, :L]) for k in c} for c, state in layers]}
-            ids, _ = self._prefill_sample(self.params, batch, view)
-            for vc, (c, state) in zip(view["layers"], layers):
-                for k in c:
-                    if k in state:
-                        c[k][idx] = vc[k]
-                    else:
-                        c[k][idx, :L] = vc[k]
-        return ids.cpu().numpy()
+        if scattered:
+            with span("repro_torch.engine.scatter"):
+                for vc, (c, state) in zip(view["layers"], layers):
+                    for k in c:
+                        if k in state:
+                            c[k][idx] = vc[k]
+                        else:
+                            c[k][idx, :L] = vc[k]
+        with span("repro_torch.engine.readback"):
+            return ids.cpu().numpy()
 
     def _admit(self):
         """Fill free slots from the queue: take requests FIFO, group by
@@ -256,7 +263,8 @@ class ServingEngine:
             slots = [next(free_iter) for _ in reqs]
             toks = np.stack([np.asarray(r.prompt, np.int32) for r in reqs])
             t0 = time.perf_counter()
-            ids_np = self._prefill_group(slots, toks)
+            with span("repro_torch.engine.prefill"):
+                ids_np = self._prefill_group(slots, toks)
             self.prefill_seconds += time.perf_counter() - t0
             self.prefill_dispatches += 1
             now = time.monotonic()
@@ -282,34 +290,43 @@ class ServingEngine:
 
     def step(self):
         """One engine step: admit, batched decode, recycle finished slots."""
-        self._admit()
-        active = self._active()
-        if not active:
-            return 0
-        batch = self._decode_batch(active)
-        t0 = time.perf_counter()
-        ids, hid, self.cache = self._decode_sample(self.params, batch,
-                                                   self.cache)
-        ids_np = ids.cpu().numpy()
-        self.decode_seconds += time.perf_counter() - t0
-        self.decode_steps += 1
-        if self._router is not None:
-            t0 = time.perf_counter()
-            # the active slots and the rows this decode wrote (their
-            # positions advance in _record_decode), in one upload
-            idx = torch.as_tensor(np.stack([np.asarray(active, np.int64),
-                                            self.slot_pos[active]]),
-                                  device=self.device)
-            act = idx[0]
-            committed, _, _ = self._router.dispatch(
-                self._extract(idx), ids[act],
-                hid=hid[act] if self._router.moe_on else None)
-            # the transported ids are authoritative: serving reads its
-            # tokens off the committed window buffer
-            ids_np[active] = committed
-            self.st_dispatch_seconds += time.perf_counter() - t0
-        self._record_decode(active, ids_np)
-        return len(active)
+        with span("repro_torch.engine.step"):
+            with span("repro_torch.engine.admit"):
+                self._admit()
+            active = self._active()
+            if not active:
+                return 0
+            with span("repro_torch.engine.decode"):
+                with span("repro_torch.engine.upload"):
+                    batch = self._decode_batch(active)
+                t0 = time.perf_counter()
+                ids, hid, self.cache = self._decode_sample(
+                    self.params, batch, self.cache)
+                with span("repro_torch.engine.readback"):
+                    ids_np = ids.cpu().numpy()
+                self.decode_seconds += time.perf_counter() - t0
+                self.decode_steps += 1
+            if self._router is not None:
+                with span("repro_torch.router.dispatch"):
+                    t0 = time.perf_counter()
+                    # the active slots and the rows this decode wrote
+                    # (their positions advance in _record_decode), in one
+                    # upload
+                    idx = torch.as_tensor(
+                        np.stack([np.asarray(active, np.int64),
+                                  self.slot_pos[active]]),
+                        device=self.device)
+                    act = idx[0]
+                    committed, _, _ = self._router.dispatch(
+                        self._extract(idx), ids[act],
+                        hid=hid[act] if self._router.moe_on else None)
+                    # the transported ids are authoritative: serving reads
+                    # its tokens off the committed window buffer
+                    ids_np[active] = committed
+                    self.st_dispatch_seconds += time.perf_counter() - t0
+            with span("repro_torch.engine.record"):
+                self._record_decode(active, ids_np)
+            return len(active)
 
     def _decode_batch(self, active):
         """The (B, 1) decode batch: each active slot's last token at its

@@ -50,6 +50,7 @@ from repro_torch.core.autotune import (ScheduleConfig, resolve_config,
                                        slot_bucket)
 from repro_torch.core.compat import resolve_device
 from repro_torch.core.patterns import get_pattern
+from repro_torch.core.spans import span
 from repro_torch.core.stream import STStream
 
 _MODES = ("st", "host", "fused")
@@ -162,16 +163,18 @@ class STDecodeRouter:
         A = int(tok_ids.shape[0])
         bucket = slot_bucket(A, self.slot_cap)
         e = self._entry(bucket)
-        self._stage(e, "kv", kv_rows)
-        self._stage(e, "tok", tok_ids)
-        if self.moe_on:
-            if hid is None:
-                raise ValueError("dispatch: hid payload required with moe")
-            self._stage(e, "hid", hid)
-        # the persistent counters accumulate across dispatches; reset
-        # them so every epoch starts from the program's expected zeros
-        for cname in e.win.counter_names():
-            e.state[cname].zero_()
+        with span("repro_torch.router.stage"):
+            self._stage(e, "kv", kv_rows)
+            self._stage(e, "tok", tok_ids)
+            if self.moe_on:
+                if hid is None:
+                    raise ValueError("dispatch: hid payload required "
+                                     "with moe")
+                self._stage(e, "hid", hid)
+            # the persistent counters accumulate across dispatches; reset
+            # them so every epoch starts from the program's expected zeros
+            for cname in e.win.counter_names():
+                e.state[cname].zero_()
         sync_kw = dict(mode=self.mode)
         if e.config is not None:
             sync_kw["config"] = e.config
@@ -182,8 +185,9 @@ class STDecodeRouter:
         def host(name):
             return e.state[q(name)][0, :A].cpu().numpy().copy()
 
-        return (host("outtok"), host("mirror"),
-                host("hmir") if self.moe_on else None)
+        with span("repro_torch.router.readback"):
+            return (host("outtok"), host("mirror"),
+                    host("hmir") if self.moe_on else None)
 
     # -- reporting ------------------------------------------------------------
     def stats(self) -> dict:
