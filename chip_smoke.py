@@ -52,6 +52,10 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  max refused, as the plain norm refuses it); the pack in
                  uint8 and int8 and the unpack in uint8, int8 and int16
                  (wrapping adds) at (64,64,64) and (6,5,3);
+                 the Faces increment in float32 and float64 at
+                 (64,64,64), (128,128,128), (5,6,7), (4,4,4) and
+                 (1,1,1) (both outputs; the inputs unchanged; bf16
+                 refused);
                  put_signal (gather, and the zero-filled scatter
                  of a non-periodic grid; float32, bf16 and int32; rows of
                  1, 3, 64 and 4096 elements, each also one element off a
@@ -110,7 +114,8 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  the last exchange against a numpy exchange of the final
                  blocks, every Faces kernel launched in the counted run
                  of every mode — per iteration one halo_pack, one
-                 halo_unpack, 26 put_signal and one counter_bump (the
+                 halo_unpack, one faces_increment, 26 put_signal and
+                 one counter_bump (the
                  merged post) in st and fused, 27 counter_bump in host
                  (each completion its own bump). st and fused replay one
                  CUDA graph per program (fused: one per planned segment,
@@ -126,7 +131,8 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  mode's first run (warm-up, capture, instantiation)
                  apart; from torch.profiler (full tables in
                  ``chiprun_out/``) the device's busy time and idle share,
-                 the pack's and the unpack's device ms, the device ops
+                 the pack's, the unpack's and the increment's device
+                 ms, the device ops
                  per iteration (the graphs' state copies apart: the
                  program's own ops equal the eager emission's) and the
                  host's launch calls (one cudaGraphLaunch per graph),
@@ -145,10 +151,13 @@ Phases (each prints JSON lines; any failure exits non-zero):
                  the unpack
                  with the max beside it (with_max_ms) and in bf16
                  (bf16_ms), an empty kernel's
-                 time beside the bump (launch_floor_ms), and put_signal
+                 time beside the bump (launch_floor_ms), put_signal
                  at Faces' face, edge and corner payloads beside the two
                  launches it replaces (index_select + add) and
-                 index_select alone;
+                 index_select alone, and the increment at 64r (cold too)
+                 and at n = 128^3 (at_n128) beside its bound, its plain
+                 version (the four PyTorch kernels it replaced) and one
+                 PyTorch pass (src + 1.0);
   5b. patterns — the broadcast, ring and a2a transports at full width,
                  each through st, host and fused (``run_pattern``): the
                  first run apart, a counted run whose put_multicast,
@@ -409,10 +418,18 @@ Phases (each prints JSON lines; any failure exits non-zero):
 
 The last three lines are the kernels JSON (one row per kernel, and a
 row each for flash attention at (192, 128), flash-decode at G = 48, and
-both in llama-3.2-vision's cross layers: thirteen), the card's name and
+both in llama-3.2-vision's cross layers: fourteen), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 Without a CUDA card the script exits non-zero before printing any
 result.
+
+    python3 chip_smoke.py --only faces
+
+runs the build and the Faces phases alone: kernels (2), parity (3),
+full (4) and timing (5, without the fetch probe), then one
+``kernel_row`` line per Faces kernel and a ``done`` line with the
+card's name and power limit. ``--only train`` runs the build and the
+training phases.
 
     python3 chip_smoke.py --ab DIR
 
@@ -679,6 +696,9 @@ def device_profile(run, out_path):
                     w in e.key for w in ("Launch", "Memset", "Memcpy")):
                 host_calls[e.key] = e.count
             continue            # host ops; their kernels are rows of their own
+        if getattr(e, "is_user_annotation", False) \
+                or e.key.startswith("repro_torch."):
+            continue            # a program span's range, on the device
         device_ops += e.count
         ops[e.key] = ops.get(e.key, 0) + e.count
         us = getattr(e, "self_device_time_total", None)
@@ -701,7 +721,8 @@ KERNEL_FUNCS = {"flash_attention": ("flash_fwd_",),
                 "decode_attention": ("decode_split_", "decode_merge"),
                 "wkv6": ("wkv6_",), "mamba_scan": ("mamba_scan_",),
                 "halo_pack": ("halo_pack_kernel", "pack_kernel"),
-                "halo_unpack": ("unpack_kernel",)}
+                "halo_unpack": ("unpack_kernel",),
+                "faces_increment": ("faces_increment_kernel",)}
 
 
 def kernel_ms(prof, names):
@@ -796,6 +817,15 @@ UNPACK_DTYPES = (torch.bfloat16, torch.int32, torch.float64)
 SMALL_SHAPES = (N_FULL, (6, 5, 3))
 SMALL_PACK = (torch.uint8, torch.int8)
 SMALL_UNPACK = (torch.uint8, torch.int8, torch.int16)
+# the Faces increment's blocks, R = 64, in float32 and float64: the main
+# paths' (the benchmark's n64 and n128), then blocks of 5 x 6 x 7 and 1
+# cell (each rank's block off a 16-byte boundary: head and tail cells)
+INCREMENT_SHAPES = (N_FULL, (128, 128, 128), (5, 6, 7), (4, 4, 4),
+                    (1, 1, 1))
+INCREMENT_DTYPES = (torch.float32, torch.float64)
+# iteration counts dealt to the ranks in turn: each step, a count past 3,
+# one near 2^24 and the remainder's sign rule
+INCREMENT_ITS = (0.0, 1.0, 2.0, 3.0, float(2 ** 24 - 3), -1.0, 2.5)
 
 
 def nan_equal(a, b):
@@ -815,7 +845,7 @@ def phase_kernels(dev, core, hp, hp_ref, cb, R=64):
     launches are comparisons, made before the counted main-path runs)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     errs = {"halo_pack": 0.0, "halo_unpack": 0.0, "counter_bump": 0.0,
-            "put_signal": 0.0}
+            "put_signal": 0.0, "faces_increment": 0.0}
     max_abs = core.halo._max_abs
     for n in UNPACK_SHAPES:
         field = torch.rand((R,) + n, generator=gen, device=dev)
@@ -892,6 +922,7 @@ def phase_kernels(dev, core, hp, hp_ref, cb, R=64):
           "pack_dtypes": [str(d) for d in SMALL_PACK], "pack": "equal",
           "unpack_dtypes": [str(d) for d in SMALL_UNPACK],
           "unpack": "equal, split and flat, wrapping; with_max refused"})
+    errs["faces_increment"] = increment_cases(hp, hp_ref, gen, dev, R)
     sig = torch.randint(0, 1 << 20, (R, 26), generator=gen, device=dev,
                         dtype=torch.int32)
     upd = torch.randint(0, 3, (R, 26), generator=gen, device=dev,
@@ -931,6 +962,49 @@ def phase_kernels(dev, core, hp, hp_ref, cb, R=64):
     emit({"phase": "kernels", "bump": "equal", "put_signal": "equal",
           "put_signal_cases": cases, "max_abs_err": errs})
     return errs
+
+
+def increment_inputs(gen, dev, R, n, dtype=torch.float32):
+    """Blocks of unit-normal values times 1000 and iteration counts dealt
+    from INCREMENT_ITS."""
+    src = (torch.randn((R,) + n, generator=gen, device=dev,
+                       dtype=torch.float64) * 1000).to(dtype)
+    it = torch.tensor([INCREMENT_ITS[r % len(INCREMENT_ITS)]
+                       for r in range(R)], dtype=dtype,
+                      device=dev).reshape(R, 1)
+    return src, it
+
+
+def increment_cases(hp, hp_ref, gen, dev, R):
+    """The Faces increment at INCREMENT_SHAPES in INCREMENT_DTYPES: both
+    outputs bit for bit the plain closure's, the inputs unchanged, a
+    bfloat16 block refused. Returns the largest difference seen (0.0)."""
+    err = 0.0
+    for dtype in INCREMENT_DTYPES:
+        for n in INCREMENT_SHAPES:
+            src, it = increment_inputs(gen, dev, R, n, dtype)
+            kept = (src.clone(), it.clone())
+            got, got_it = hp.faces_increment(src, it)
+            want, want_it = hp_ref.faces_increment_ref(src, it)
+            err = max(err, diff(got, want), diff(got_it, want_it))
+            check(torch.equal(got, want) and torch.equal(got_it, want_it)
+                  and got.dtype == dtype,
+                  f"faces increment != plain closure in {dtype} at n={n}")
+            check(torch.equal(src, kept[0]) and torch.equal(it, kept[1]),
+                  f"faces increment wrote into its inputs at n={n}")
+            del src, it, kept, got, want
+    try:
+        hp.faces_increment(*(t.bfloat16() for t in increment_inputs(
+            gen, dev, R, (4, 4, 4))))
+    except TypeError:
+        pass
+    else:
+        fail("faces increment took a bfloat16 block")
+    emit({"phase": "kernels", "R": R,
+          "increment_n": [list(n) for n in INCREMENT_SHAPES],
+          "increment_dtypes": [str(d) for d in INCREMENT_DTYPES],
+          "increment": "equal, inputs unchanged; bfloat16 refused"})
+    return err
 
 
 def int_draw(gen, dev, shape, dtype):
@@ -1082,7 +1156,8 @@ def phase_parity(core, dev):
               "graphs": graphed, "ok": True})
 
 
-FACES_KERNELS = ("halo_pack", "halo_unpack", "counter_bump", "put_signal")
+FACES_KERNELS = ("halo_pack", "halo_unpack", "counter_bump", "put_signal",
+                 "faces_increment")
 
 
 def phase_full(core, _build, dev):
@@ -1138,6 +1213,7 @@ def phase_full(core, _build, dev):
         # per iteration: one merged post bump and 26 puts carrying their
         # completion signals; host keeps each completion a bump of its own
         want = {"halo_pack": 1, "halo_unpack": 1, "put_signal": 26,
+                "faces_increment": 1,
                 "counter_bump": 27 if mode == "host" else 1}
         got = {k: _build.LAUNCHES[k] / NITER_FULL for k in want}
         check(got == want, f"{mode}: launches per iteration {got} != {want}")
@@ -1261,7 +1337,8 @@ def faces_timing(core, dev, dispatches):
                     program_ops[mode] == program_ops["st_eager"]:
                 break
         busy = prof["busy_ms"]
-        faces_ms = kernel_ms(prof, ("halo_pack", "halo_unpack"))
+        faces_ms = kernel_ms(prof, ("halo_pack", "halo_unpack",
+                                    "faces_increment"))
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1375,6 +1452,8 @@ def phase_timing(core, hp, hp_ref, cb, lib_cb, dev, launches, dispatches,
                                atol=1e-5)
     lib_err = {k: float((a - b).abs().max().item())
                for k, (a, b) in pairs.items()}
+    # the increment's yardstick times a pass; it computes another function
+    lib_err["faces_increment"] = None
     empty = lib_cb.empty_launch
 
     def launch_floor():
@@ -1385,6 +1464,9 @@ def phase_timing(core, hp, hp_ref, cb, lib_cb, dev, launches, dispatches,
     fields = [field] + [torch.rand(field.shape, generator=gen, device=dev)
                         for _ in range(3)]
     written = R * total * 4
+    _, it = increment_inputs(gen, dev, R, (1, 1, 1))
+    # the increment at the n128 cell's block too (537 MB a buffer)
+    big, _ = increment_inputs(gen, dev, R, (128, 128, 128))
     rows = [
         # bound: the distinct 32-byte sectors of the field the shell covers
         # and the surfaces written; the useful bytes' bound beside it
@@ -1428,6 +1510,25 @@ def phase_timing(core, hp, hp_ref, cb, lib_cb, dev, launches, dispatches,
          lambda: cb.counter_bump_ref(sig, upd),
          lambda: torch.add(sig, upd), "torch.add", 3 * sig.numel() * 4,
          {"launch_floor_ms": lambda: graph_ms(launch_floor)}),
+        # no TPU kernel: the reference's jnp closure; its plain version is
+        # the four PyTorch kernels it replaced, its yardstick one PyTorch
+        # pass over the block (src + 1.0 alone); at n64 and n128, warm and
+        # (n64) cold
+        ("faces_increment", "src/repro_torch/csrc/halo_pack.cu",
+         "none: the jnp closure at src/repro/core/halo.py:95-96",
+         lambda: hp.faces_increment(field, it),
+         lambda: hp_ref.faces_increment_ref(field, it),
+         lambda: torch.add(field, 1.0), "torch.add (src + 1.0 alone)",
+         2 * (field.numel() + it.numel()) * 4,
+         {"cold_ms": lambda: cold_ms(lambda f: hp.faces_increment(f, it),
+                                     fields),
+          "at_n128": lambda: {
+              "ms": graph_ms(lambda: hp.faces_increment(big, it)),
+              "plain_ms": graph_ms(
+                  lambda: hp_ref.faces_increment_ref(big, it)),
+              "library_ms": graph_ms(lambda: torch.add(big, 1.0)),
+              "bound_ms": 2 * (big.numel() + it.numel()) * 4
+              / HBM_BYTES_PER_S * 1e3}}),
     ]
     kernels = []
     for (name, source, replaces, kern, plain, lib, lib_name, nbytes,
@@ -4977,8 +5078,10 @@ def main():
     ap.add_argument("--ab-worker", metavar="TREE", help=argparse.SUPPRESS)
     ap.add_argument("--restart-worker", action="store_true",
                     help=argparse.SUPPRESS)
-    ap.add_argument("--only", choices=("train",), help="run the build "
-                    "and only these phases (no result lines)")
+    ap.add_argument("--only", choices=("train", "faces"), help="run the "
+                    "build and only these phases: training (no result "
+                    "lines), or the Faces kernels, parity, full and timing "
+                    "phases (their kernel rows as result lines)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -5029,6 +5132,20 @@ def main():
         emit({"phase": "done", "seconds": time.perf_counter() - t_start})
         return 0
     errs = phase_kernels(dev, core, hp, hp_ref, cb)
+    if args.only == "faces":
+        phase_parity(core, dev)
+        launches, dispatches = phase_full(core, _build, dev)
+        for row in phase_timing(core, hp, hp_ref, cb,
+                                _build.load("counter_bump"), dev, launches,
+                                dispatches, errs):
+            emit(dict(row, phase="kernel_row"))
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+              "card": smi.stdout.strip()})
+        return 0
     mcast_err = phase_multicast(dev, core, cb)
     attn = (flash_attention, flash_attention_ref, decode_attention,
             decode_attention_ref)

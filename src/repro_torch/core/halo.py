@@ -12,6 +12,7 @@ This module provides the domain logic used by the ST stream programs:
                           (kernels/halo_pack) and their plain PyTorch
                           versions on the CPU
   * increment / compare — the paper's compute kernels around the exchange
+                          (the increment, too, a kernel of kernels/halo_pack)
   * build_faces_program — enqueues the full Faces program on an STStream
 
 Kernel closures see the GLOBAL view: every tensor carries all R ranks on
@@ -74,16 +75,19 @@ def make_faces_kernels(n):
     kernels). Every closure returns new tensors and leaves its inputs
     untouched, so a state dict handed to ``synchronize`` is never
     written into."""
-    from repro_torch.kernels.halo_pack.ops import (halo_pack_split,
+    from repro_torch.kernels.halo_pack.ops import (faces_increment,
+                                                   halo_pack_split,
                                                    halo_unpack_split)
 
     n = tuple(n)
 
     def increment(src, it):
-        # the JAX package's association: (src + 1.0) + mod(it, 3.0), with
-        # the per-rank iteration count broadcast over the rank's block
-        step = torch.remainder(it, 3.0).reshape((-1,) + (1,) * len(n))
-        return (src + 1.0) + step, it + 1.0
+        # (src + 1.0) + mod(it, 3.0), the per-rank iteration count
+        # broadcast over the rank's block, and it + 1.0: one launch on the
+        # card. A closure of its own per call, as every kernel here, so
+        # each program's ops keep the function identities (fn_token) the
+        # JAX package's do
+        return faces_increment(src, it)
 
     def pack_all(src):
         # merged pack (§5.4): one launch writes all 26 send buffers

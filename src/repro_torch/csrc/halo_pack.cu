@@ -94,6 +94,28 @@
 //     compare-and-swap loop on 2-byte ones. Integer accumulators have no
 //     max (the plain version's norm refuses them). The accumulator is not
 //     read back.
+//
+// Beside them, Faces' increment, which replaces no TPU kernel: the
+// reference computes it as a jnp closure (src/repro/core/halo.py,
+// make_faces_kernels' increment), which the port first wrote as four
+// PyTorch kernels (remainder, + 1, the broadcast + step, it + 1) that read
+// and wrote the whole block twice. One launch reads each element once and
+// writes it once: src' = (src + 1) + remainder(it[r], 3) over rank r's
+// block, and it' = it + 1. Bound by bytes: 537 MB read and 537 MB written
+// at R = 64, n = 128^3, float32 (0.32 ms at 3.35 TB/s). The grid is
+// (chunks of a rank's block) x R, so a block's step comes from one
+// uniform load of it[r]; each thread issues kIncVectors 16-byte loads
+// (evict-first: the old block is not read again) before its first store,
+// 16 KB a block in flight; 0.367 ms at n = 128^3 (87 % of the bound) and
+// 0.048 at 64^3 on an H100 SXM at 700 W. 2 or 8 vectors a thread, plain
+// or read-only loads, evict-first stores: within 1.5 % alone and no
+// faster in the Faces program (evict-first stores 2 % slower there: the
+// pack reads the new block next). Where a block's cell count is not a
+// multiple of a vector's, a rank's block may start off a 16-byte boundary;
+// its cells before the first boundary and after its last whole vector are
+// added one by one. Two roundings in the plain version's order, remainder
+// as torch.remainder takes it (fmod, then the divisor added where the
+// signs differ): bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -646,6 +668,102 @@ unpack_kernel(T* __restrict__ acc, const Rows h,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Faces increment
+// ---------------------------------------------------------------------------
+
+// 16-byte vectors a thread loads before its first store.
+constexpr int kIncVectors = 4;
+
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  using V = float4;
+  static constexpr int kW = 4;
+  __device__ static float& at(V& v, int i) { return (&v.x)[i]; }
+};
+template <> struct Vec16<double> {
+  using V = double2;
+  static constexpr int kW = 2;
+  __device__ static double& at(V& v, int i) { return (&v.x)[i]; }
+};
+
+// a + b rounded to nearest even, never contracted into another operation
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+__device__ __forceinline__ float fmod3(float x) { return fmodf(x, 3.0f); }
+__device__ __forceinline__ double fmod3(double x) { return fmod(x, 3.0); }
+
+// torch.remainder(x, 3): fmod, plus the divisor where the remainder is
+// nonzero and its sign is not the divisor's (fmod is exact)
+template <typename T>
+__device__ __forceinline__ T remainder3(T x) {
+  const T m = fmod3(x);
+  return m < T(0) ? add_rn(m, T(3)) : m;
+}
+
+template <typename T>
+__device__ __forceinline__ T increment(T s, T step) {
+  return add_rn(add_rn(s, T(1)), step);
+}
+
+// grid: (chunks, R); chunk c of rank r holds the rank's vectors
+// [c * kThreads * kIncVectors, (c + 1) * kThreads * kIncVectors), a
+// thread's a block apart. src and out are 16-byte aligned and their rank
+// blocks of `cells` elements adjoin, so rank r's first vector starts
+// `head` cells into its block; chunk 0 also adds the head's and the
+// tail's cells and writes it'[r].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+faces_increment_kernel(const T* __restrict__ src, const T* __restrict__ it,
+                       T* __restrict__ out, T* __restrict__ it_out,
+                       long long cells) {
+  using Vec = Vec16<T>;
+  using V = typename Vec::V;
+  constexpr int W = Vec::kW;
+  const int r = blockIdx.y;
+  const T i = it[r];
+  const T step = remainder3(i);
+  const long long base = (long long)r * cells;
+  const int head = (int)min((W - base % W) % W, cells);
+  const long long nvec = (cells - head) / W;
+  const T* s = src + base;
+  T* o = out + base;
+  if (blockIdx.x == 0) {
+    const long long tail = cells - head - nvec * W;
+    if (threadIdx.x == 0) it_out[r] = add_rn(i, T(1));
+    if (threadIdx.x < head) o[threadIdx.x] = increment(s[threadIdx.x], step);
+    if (threadIdx.x < tail) {
+      const long long j = head + nvec * W + threadIdx.x;
+      o[j] = increment(s[j], step);
+    }
+  }
+  const V* sv = reinterpret_cast<const V*>(s + head);
+  V* ov = reinterpret_cast<V*>(o + head);
+  const long long v0 =
+      (long long)blockIdx.x * (kThreads * kIncVectors) + threadIdx.x;
+  V v[kIncVectors];
+#pragma unroll
+  for (int u = 0; u < kIncVectors; ++u) {
+    const long long j = v0 + u * kThreads;
+    if (j < nvec) v[u] = __ldcs(sv + j);
+  }
+#pragma unroll
+  for (int u = 0; u < kIncVectors; ++u) {
+    const long long j = v0 + u * kThreads;
+    if (j < nvec) {
+#pragma unroll
+      for (int e = 0; e < W; ++e)
+        Vec::at(v[u], e) = increment(Vec::at(v[u], e), step);
+      ov[j] = v[u];
+    }
+  }
+}
+
 // The fetch-granularity probe (chip_smoke.py): thread i sums the first k
 // floats (1, or a multiple of 4 up to 16) of 256-byte row i of buf into
 // out[i], its loads issued together; k = 2 sums the row's first and last
@@ -743,6 +861,21 @@ cudaError_t unpack_typed(void* acc, int R, int nx, int ny, int nz,
                  : launch_unpack<T, 1, false>(acc, h, s, rmax, grid, st);
 }
 
+template <typename T>
+cudaError_t increment_typed(const void* src, const void* it, void* out,
+                            void* it_out, int R, long long cells,
+                            cudaStream_t st) {
+  const long long chunks =
+      (cells / Vec16<T>::kW + kThreads * kIncVectors - 1) /
+      (kThreads * kIncVectors);
+  if (chunks >= (1LL << 31)) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(chunks > 0 ? chunks : 1), (unsigned)R);
+  faces_increment_kernel<T><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(src), static_cast<const T*>(it),
+      static_cast<T*>(out), static_cast<T*>(it_out), cells);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // src: contiguous (R, nx, ny, nz) elements of es = 1, 2, 4 or 8 bytes;
@@ -807,6 +940,27 @@ extern "C" int halo_unpack_launch(void* acc, int dtype, int R, int nx, int ny,
     case 7: return (int)unpack_typed<int8_t>(acc, R, nx, ny, nz, s, rmax, st);
     case 8:
       return (int)unpack_typed<int16_t>(acc, R, nx, ny, nz, s, rmax, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// src, out: contiguous (R, cells) elements of dtype 0 float32 or 1
+// float64, both 16-byte aligned; it, it_out: R elements of that dtype.
+// out = (src + 1) + remainder(it[r], 3) in rank r's cells, it_out = it + 1.
+extern "C" int faces_increment_launch(const void* src, const void* it,
+                                      void* out, void* it_out, int dtype,
+                                      int R, long long cells, void* stream) {
+  if (R == 0) return 0;
+  if (R < 0 || R > 65535 || cells < 1 ||
+      (reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(out)) %
+          16)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0:
+      return (int)increment_typed<float>(src, it, out, it_out, R, cells, st);
+    case 1:
+      return (int)increment_typed<double>(src, it, out, it_out, R, cells, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

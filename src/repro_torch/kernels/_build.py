@@ -42,6 +42,9 @@ LIBRARIES = {
         #  stream)
         "halo_unpack_launch": (_PTR, _INT, _INT, _INT, _INT, _INT, _PTRS,
                                _STRIDES, _PTR, _PTR),
+        # (src, it, out, it out, dtype, R, cells of a rank, stream)
+        "faces_increment_launch": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _I64,
+                                   _PTR),
         # (buf, rows, floats per row, out, stream): chip_smoke.py's probe
         "fetch_probe_launch": (_PTR, _INT, _INT, _PTR, _PTR),
     },
@@ -87,8 +90,8 @@ LIBRARIES = {
 # launches per kernel since the last reset_launches(); a wrapper adds
 # one only after its kernel was launched without error
 LAUNCHES: Dict[str, int] = {"halo_pack": 0, "halo_unpack": 0,
-                            "counter_bump": 0, "put_signal": 0,
-                            "put_multicast": 0,
+                            "faces_increment": 0, "counter_bump": 0,
+                            "put_signal": 0, "put_multicast": 0,
                             "flash_attention": 0,
                             "decode_attention": 0, "wkv6": 0,
                             "mamba_scan": 0}

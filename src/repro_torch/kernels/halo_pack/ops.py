@@ -1,4 +1,5 @@
-"""Wrappers of the merged halo pack/unpack kernels (csrc/halo_pack.cu).
+"""Wrappers of the merged halo pack/unpack kernels and of Faces' increment
+(csrc/halo_pack.cu).
 
 Each wrapper takes its route from the device of the tensor it is given:
 on a CUDA tensor it launches the hand-written kernel (or raises), on a
@@ -16,7 +17,9 @@ as the plain version:
   * :func:`halo_unpack_split` — 26 (R, s_d) surfaces -> (R, nx, ny, nz)
     accumulator, one launch; with ``with_max=True`` the same launch also
     writes the per-rank max|acc| (Faces' merged ``unpack_compare``);
-  * :func:`halo_unpack` — the same kernel from one flat (R, total) buffer.
+  * :func:`halo_unpack` — the same kernel from one flat (R, total) buffer;
+  * :func:`faces_increment` — ``(src + 1) + mod(it, 3)`` and ``it + 1``,
+    one launch that reads and writes each cell once (Faces' increment).
 
 The kernels address each of the 26 surfaces through its own base
 pointer and rank stride, so the split and flat forms differ only in the
@@ -236,3 +239,46 @@ def halo_unpack(flat, n, with_max=False):
     flat = _rows(flat, total, "halo unpack: flat")
     return _unpack(R, n, flat.device, with_max, [flat] * NDIR,
                    [flat.stride(0)] * NDIR, offs)
+
+
+# the increment's element types, by the C entry's dtype code
+INCREMENT_DTYPES = {torch.float32: 0, torch.float64: 1}
+
+
+def faces_increment(src, it):
+    """Faces' increment: new tensors ``(src + 1.0) + mod(it, 3.0)``, each
+    rank's step broadcast over its block and each add rounded, and
+    ``it + 1.0``; ``src`` (R, nx, ny, nz), ``it`` (R, 1) on its device,
+    neither written into. On the card one launch: float32 or float64,
+    ``src`` and ``it`` of one dtype, both contiguous, ``src`` 16-byte
+    aligned."""
+    if src.dim() != 4 or min(src.shape[1:]) < 1:
+        raise ValueError("faces increment: src must be (R, nx, ny, nz), "
+                         f"got {tuple(src.shape)}")
+    R = src.shape[0]
+    if tuple(it.shape) != (R, 1):
+        raise ValueError(f"faces increment: it must be ({R}, 1), got "
+                         f"{tuple(it.shape)}")
+    if it.device != src.device:
+        raise ValueError(f"faces increment: it on {it.device}, src on "
+                         f"{src.device}")
+    if src.device.type == "cpu":
+        return ref.faces_increment_ref(src, it)
+    _check_cuda(src, "faces increment: src")
+    if src.dtype not in INCREMENT_DTYPES or it.dtype != src.dtype:
+        raise TypeError("faces increment: the kernel takes float32 or "
+                        f"float64, src and it alike; got {src.dtype} and "
+                        f"{it.dtype}")
+    if not (src.is_contiguous() and it.is_contiguous()) \
+            or src.data_ptr() % 16:
+        raise ValueError("faces increment: src and it must be contiguous, "
+                         "src 16-byte aligned")
+    out = torch.empty(src.shape, dtype=src.dtype, device=src.device)
+    it_out = torch.empty((R, 1), dtype=it.dtype, device=it.device)
+    if R:
+        rc = _build.load("halo_pack").faces_increment_launch(
+            src.data_ptr(), it.data_ptr(), out.data_ptr(), it_out.data_ptr(),
+            INCREMENT_DTYPES[src.dtype], R, src[0].numel(),
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, "faces_increment")
+    return out, it_out

@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the merged halo pack/unpack (batched over a
-leading rank dim), plus the GENERIC flat pack/unpack and chunk helpers
-the executors use to materialize packed multi-buffer and chunked put
-descriptors (schedule.pack_puts / schedule.chunk_puts) — a pure byte
-reshuffle, so packed and chunked schedules stay bit-identical to the
-plain one.
+"""Plain PyTorch versions of the merged halo pack/unpack and of Faces'
+increment (batched over a leading rank dim), plus the GENERIC flat
+pack/unpack and chunk helpers the executors use to materialize packed
+multi-buffer and chunked put descriptors (schedule.pack_puts /
+schedule.chunk_puts) — a pure byte reshuffle, so packed and chunked
+schedules stay bit-identical to the plain one.
 
 The CPU path runs these; on CUDA the wrappers in
 :mod:`repro_torch.kernels.halo_pack.ops` launch the hand-written kernels
@@ -114,3 +114,11 @@ def halo_unpack_ref(flat, n):
     offs, _ = offsets_of(tuple(n))
     return halo_unpack_split_ref(
         [flat[:, o:o + s] for o, s in (offs[d] for d in DIRECTIONS)], n)
+
+
+def faces_increment_ref(src, it):
+    """src (R, nx, ny, nz), it (R, 1) -> (``(src + 1.0) + mod(it, 3.0)``,
+    ``it + 1.0``): the JAX package's association, each rank's iteration
+    count broadcast over its block."""
+    step = torch.remainder(it, 3.0).reshape((-1,) + (1,) * (src.dim() - 1))
+    return (src + 1.0) + step, it + 1.0

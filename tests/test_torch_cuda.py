@@ -36,8 +36,9 @@ from repro_torch.core.halo import _max_abs
 from repro_torch.kernels import _build
 from repro_torch.kernels.counter_bump import (counter_bump, put_signal,
                                               put_signal_ref)
-from repro_torch.kernels.halo_pack import (halo_pack, halo_pack_split,
-                                           halo_unpack, halo_unpack_split)
+from repro_torch.kernels.halo_pack import (faces_increment, halo_pack,
+                                           halo_pack_split, halo_unpack,
+                                           halo_unpack_split)
 from repro_torch.kernels.halo_pack import ref
 
 pytestmark = pytest.mark.cuda
@@ -427,8 +428,120 @@ def test_faces_graph_launch_counts_and_freed_graphs(dev):
         stream.synchronize(state)
     assert _build.LAUNCHES == {k: 2 * v for k, v in once.items()}
     assert once["put_signal"] == 26 * 3 and once["halo_unpack"] == 3
+    assert once["faces_increment"] == 3
     stream.clear_graphs()
     assert not stream._compiled_cache
+
+
+# iteration counts: each step, a count past 3, one near 2^24 and the
+# remainder's sign rule (as tests/test_torch_faces_increment.py)
+IT_VALUES = (0.0, 1.0, 2.0, 3.0, float(2 ** 24 - 3), -1.0, 2.5)
+
+
+def _increment_inputs(dev, R, n, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = (torch.randn((R,) + n, generator=gen, device=dev,
+                       dtype=torch.float64) * 1000).to(dtype)
+    it = torch.tensor([IT_VALUES[r % len(IT_VALUES)] for r in range(R)],
+                      dtype=dtype, device=dev).reshape(R, 1)
+    return src, it
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("R,n", [(64, (64, 64, 64)), (64, (128, 128, 128)),
+                                 (1, (4, 4, 4)), (8, (5, 6, 7)),
+                                 (64, (5, 6, 7)), (64, (16, 16, 16)),
+                                 (3, (1, 1, 1))])
+def test_faces_increment_equals_the_plain_version(dev, R, n, dtype):
+    """One launch, bit for bit the plain closure (both outputs), inputs
+    unchanged; blocks whose cell count is no multiple of a 16-byte
+    vector's start off its boundary in every rank but the first."""
+    src, it = _increment_inputs(dev, R, n, dtype)
+    kept = (src.clone(), it.clone())
+    want, want_it = ref.faces_increment_ref(src, it)
+    _build.reset_launches()
+    got, got_it = faces_increment(src, it)
+    assert _build.LAUNCHES["faces_increment"] == 1
+    assert got.dtype == got_it.dtype == dtype
+    assert torch.equal(got, want) and torch.equal(got_it, want_it)
+    assert torch.equal(src, kept[0]) and torch.equal(it, kept[1])
+    del want, kept
+    names = _device_kernels(lambda: faces_increment(src, it))
+    assert len(names) == 3 and all("faces_increment_kernel" in k
+                                   for k in names), names
+
+
+def test_faces_increment_under_graph_capture_and_replay(dev):
+    """Captured once, replayed on new values copied into its inputs: each
+    replay gives the plain version's result on those values."""
+    R, n = 8, (5, 6, 7)
+    src, it = _increment_inputs(dev, R, n, torch.float32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        faces_increment(src, it)                    # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, out_it = faces_increment(src, it)
+    for seed in (1, 2, 3):
+        new_src, new_it = _increment_inputs(dev, R, n, torch.float32, seed)
+        new_it = new_it.roll(seed)
+        src.copy_(new_src)
+        it.copy_(new_it)
+        graph.replay()
+        want, want_it = ref.faces_increment_ref(new_src, new_it)
+        assert torch.equal(out, want) and torch.equal(out_it, want_it)
+        assert torch.equal(src, new_src) and torch.equal(it, new_it)
+
+
+def test_faces_increment_refuses_what_the_kernel_does_not_take(dev):
+    src, it = _increment_inputs(dev, 4, (4, 4, 4), torch.float32)
+    with pytest.raises(TypeError, match="float32 or"):
+        faces_increment(src.bfloat16(), it.bfloat16())
+    with pytest.raises(TypeError):
+        faces_increment(src, it.double())
+    off = torch.empty(src.numel() + 1, device=dev)[1:].view(src.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        faces_increment(off, it)                    # 4 bytes off
+    with pytest.raises(ValueError, match="it on"):
+        faces_increment(src, it.cpu())
+
+
+def _faces_replay(src, grid, n, iters):
+    """(src, acc) of Faces after ``iters`` iterations from blocks ``src``
+    (R, *n): each iteration adds 1 + it % 3; acc is the last iteration's
+    periodic exchange (every sum exact on integer-valued float32)."""
+    for i in range(iters):
+        src = src + np.float32(1.0 + i % 3)
+    g = src.reshape(tuple(grid) + tuple(n))
+    acc = np.zeros_like(g)
+    for d in halo.DIRECTIONS:
+        sl = (slice(None),) * 3 + halo.surface_slices(n, d)
+        acc[sl] += np.roll(g[sl], shift=d, axis=(0, 1, 2))
+    return src, acc.reshape(src.shape)
+
+
+@pytest.mark.parametrize("n", [(4, 4, 4), (5, 6, 7)])
+def test_faces_st_programs_hold_to_the_numpy_replay(dev, n):
+    """Three 4-iteration programs on the ST executor (CUDA graphs), each
+    on the state the last returned: src, acc, it and the per-rank max
+    equal the NumPy replay of 12 iterations."""
+    grid, niter = (2, 2, 2), 4
+    stream = STStream(dev, ("x", "y", "z"), grid_shape=grid)
+    halo.build_faces_program(stream, n, niter)
+    state = stream.allocate()
+    src0 = np.random.RandomState(5).randint(0, 4096, (8,) + n).astype(
+        np.float32)
+    state["faces.src"] = torch.from_numpy(src0).to(dev)
+    for _ in range(3):
+        state = stream.synchronize(state)
+    src, acc = _faces_replay(src0, grid, n, 3 * niter)
+    assert np.array_equal(state["faces.src"].cpu().numpy(), src)
+    assert np.array_equal(state["faces.acc"].cpu().numpy(), acc)
+    assert bool((state["faces.it"] == 3 * niter).all())
+    assert np.array_equal(state["faces.res"].cpu().numpy()[:, 0],
+                          np.abs(acc).reshape(8, -1).max(1))
 
 
 # ---------------------------------------------------------------------------

@@ -115,6 +115,9 @@ def counted(monkeypatch):
                         counting(halo_ops.halo_pack_split, "halo_pack"))
     monkeypatch.setattr(halo_ops, "halo_unpack_split",
                         counting(halo_ops.halo_unpack_split, "halo_unpack"))
+    monkeypatch.setattr(halo_ops, "faces_increment",
+                        counting(halo_ops.faces_increment,
+                                 "faces_increment"))
     _build.reset_launches()
     yield
     _build.reset_launches()
@@ -240,6 +243,7 @@ def test_launches_after_n_replays_equal_n_eager_emissions(stand_in, counted,
     _eager(stream, state, sync)
     once = dict(_build.LAUNCHES)
     assert once["halo_pack"] == NITER and once["put_signal"] == 26 * NITER
+    assert once["faces_increment"] == NITER
     _build.reset_launches()
     stream.synchronize(state, **sync)
     # the first run: the warm-up's eager emission, then one replay (the

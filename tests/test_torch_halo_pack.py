@@ -27,8 +27,9 @@ from repro.kernels.halo_pack.ops import halo_unpack as jax_halo_unpack
 from repro_torch.core.halo import DIRECTIONS, offsets_of, surface_size
 from repro_torch.kernels import _build
 from repro_torch.kernels.counter_bump import counter_bump
-from repro_torch.kernels.halo_pack import (halo_pack, halo_pack_split,
-                                           halo_unpack, halo_unpack_split)
+from repro_torch.kernels.halo_pack import (faces_increment, halo_pack,
+                                           halo_pack_split, halo_unpack,
+                                           halo_unpack_split)
 from repro_torch.kernels.halo_pack import ops
 from repro_torch.kernels.halo_pack import ref as tref
 
@@ -169,6 +170,7 @@ def test_cpu_wrappers_launch_no_kernel(rng):
     f = torch.from_numpy(_field(rng, (4, 3, 5)))
     halo_unpack_split(halo_pack_split(f), (4, 3, 5))
     halo_unpack(halo_pack(f), (4, 3, 5))
+    faces_increment(f, torch.zeros(R, 1))
     sig = torch.arange(12, dtype=torch.int32).reshape(3, 4)
     assert torch.equal(counter_bump(sig, sig), sig * 2)
     assert set(_build.LAUNCHES.values()) == {0}
