@@ -24,6 +24,13 @@ Differences from the copy's original:
     say which dtype, ``param_dtype_why``);
   * ``seq_shard_activations`` and ``sharding_overrides`` are read by
     ``sharding.make_rules``; ``subquadratic`` by ``shape_applicable``;
+  * switches the JAX package has not, each off by default so that every
+    architecture of that package is computed as there, and on for the
+    port's own ``jamba2-mini``: ``attn_layer_offset`` (the attention
+    layer's index within a ``mamba_attn_period``), ``use_rope``
+    (attention without positions), ``MambaConfig.inner_norms`` (RMSNorms
+    on the mixer's dt, B and C) and ``MoEConfig.renormalize`` (on by
+    default: the top-k gates divided by their sum);
   * the reference's ``overlap_grad_reduce`` (per-group gradient
     reduction over a mesh) and ``unroll_inner`` (unrolled inner scans so
     that XLA's cost analysis sees their trip count) steer XLA and a
@@ -50,6 +57,9 @@ class MoEConfig:
     shared_ff: int = 0        # total d_ff of the shared expert block
     router_aux_coef: float = 0.01
     capacity_factor: float = 1.25
+    # the top-k gates divided by their sum (Mixtral); False weights the
+    # experts by their softmax probabilities as they are (Jamba)
+    renormalize: bool = True
 
 
 @dataclass(frozen=True)
@@ -68,6 +78,9 @@ class MambaConfig:
     d_conv: int = 4
     expand: int = 2
     dt_rank: int = 0          # 0 -> ceil(d_model/16)
+    # Jamba's RMSNorms (learned scales, the model's eps) on the dt_rank
+    # slice, B and C of the x_proj output, before dt_proj and the scan
+    inner_norms: bool = False
 
 
 @dataclass(frozen=True)
@@ -159,6 +172,8 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     mamba: Optional[MambaConfig] = None
     mamba_attn_period: int = 0    # jamba: 1 attn per k layers
+    attn_layer_offset: int = 0    # jamba: the attn layer's index in a period
+    use_rope: bool = True         # False: attention without positions
     rwkv: Optional[RWKVConfig] = None
     cross_attn_period: int = 0    # vlm: 1 cross-attn layer per k layers
     vision: Optional[VisionStub] = None
@@ -195,7 +210,8 @@ class ModelConfig:
             if self.rwkv is not None:
                 mixer = "rwkv"
             elif self.mamba_attn_period:
-                mixer = "attn" if i % self.mamba_attn_period == 0 else "mamba"
+                mixer = ("attn" if i % self.mamba_attn_period
+                         == self.attn_layer_offset else "mamba")
             elif self.cross_attn_period:
                 # cross-attn layer at the END of each period group
                 mixer = ("cross" if (i % self.cross_attn_period
@@ -255,6 +271,8 @@ class ModelConfig:
                 dtr = mb.dt_rank or -(-d // 16)
                 p = d * di * 2 + di * mb.d_conv + di * (dtr + 2 * mb.d_state) \
                     + dtr * di + di * mb.d_state + di * d
+                if mb.inner_norms:
+                    p += dtr + 2 * mb.d_state
                 total += p; active += p
             elif mixer == "rwkv":
                 H = d // self.rwkv.head_size
@@ -303,7 +321,8 @@ class ModelConfig:
                                        qk_nope_head_dim=32, qk_rope_head_dim=16,
                                        v_head_dim=32)
         if self.mamba is not None:
-            changes["mamba"] = MambaConfig(d_state=8, d_conv=4, expand=2, dt_rank=8)
+            changes["mamba"] = dataclasses.replace(
+                self.mamba, d_state=8, d_conv=4, expand=2, dt_rank=8)
         if self.rwkv is not None:
             changes["rwkv"] = RWKVConfig(head_size=32)
             changes["num_heads"] = 4
@@ -349,7 +368,8 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
 # Registry
 # ---------------------------------------------------------------------------
 
-# every architecture of the JAX package
+# every architecture of the JAX package; ``get_config`` also resolves the
+# port's own (``_MODULES``), which no parity test walks
 ARCH_IDS = [
     "llama-3.2-vision-90b",
     "granite-3-2b",
@@ -374,6 +394,7 @@ _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "musicgen-large": "musicgen_large",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "jamba2-mini": "jamba2_mini",
 }
 
 

@@ -80,7 +80,8 @@ def _moe_shard(cfg, xl, router, wg, wu, wd, shard_id, e_l):
     logits = torch.matmul(xt, router).float()                  # (n,T,E)
     probs = torch.softmax(logits, dim=-1)
     gates, sel = _top_k(probs, K)                               # (n,T,K)
-    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    if mo.renormalize:
+        gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
     me = probs.mean(dim=1)
     ce = F.one_hot(sel, mo.num_experts).float().mean(dim=(1, 2))
     aux = mo.router_aux_coef * mo.num_experts * torch.sum(me * ce, -1) * K
@@ -138,7 +139,8 @@ def _tiny_moe_cfg(experts, top_k, expert_ff):
     ``moe_a2a_st`` passes a real ModelConfig instead."""
     return SimpleNamespace(moe=SimpleNamespace(
         num_experts=experts, top_k=top_k, expert_ff=expert_ff,
-        router_aux_coef=0.01, capacity_factor=1.25, num_shared=0))
+        router_aux_coef=0.01, capacity_factor=1.25, num_shared=0,
+        renormalize=True))
 
 
 def make_moe_a2a_kernels(cfg, n_shards):

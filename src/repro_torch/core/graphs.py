@@ -48,7 +48,7 @@ from typing import Callable, Dict, List, Sequence
 
 import torch
 
-from repro_torch.core.spans import span
+from repro_torch.core.spans import capturing, span
 from repro_torch.kernels import _build
 
 
@@ -102,7 +102,8 @@ class _Captured:
         before = dict(_build.LAUNCHES)
         t0 = time.perf_counter()
         try:
-            self.graph, self.out = BACKEND.capture(fn, inputs, pool)
+            with capturing():
+                self.graph, self.out = BACKEND.capture(fn, inputs, pool)
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of {name} failed: "
                                f"{e}") from e

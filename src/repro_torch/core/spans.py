@@ -40,9 +40,15 @@ The spans, nested as listed (a name can open more than once in a call):
     ``repro_torch.engine.record`` (the new tokens appended, finished
     slots recycled).
 
-Kernel wrappers, model layers and descriptor emission open none: they
-run once a descriptor or a layer, and the profiler's own operator and
-CUDA runtime events already name them.
+In the model's eager forward (a prefill; a decode step's warm-up, not
+its graph's replays), each mixer or FFN call of the kinds that set
+architectures apart opens one: ``repro_torch.model.attn`` (a self
+attention mixer), ``repro_torch.model.mamba`` (a Mamba mixer),
+``repro_torch.model.moe`` (an MoE FFN).
+
+Kernel wrappers, the other layers and descriptor emission open none:
+they run once a descriptor or a layer, and the profiler's own operator
+and CUDA runtime events already name them.
 """
 from __future__ import annotations
 
@@ -53,9 +59,24 @@ import torch
 _OFF = contextlib.nullcontext()
 
 
+class _Capture:
+    """How many graph captures (``core/graphs.py``) are under way."""
+    depth = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around a graph's capture: no span opens inside it."""
+    _Capture.depth += 1
+    try:
+        yield
+    finally:
+        _Capture.depth -= 1
+
+
 def span(name: str):
     """A context manager: ``name``'s profiler range while a profiler
-    runs, else a shared no-op."""
-    if torch._C._autograd._profiler_enabled():
+    runs and no graph is being captured, else a shared no-op."""
+    if torch._C._autograd._profiler_enabled() and not _Capture.depth:
         return torch.profiler.record_function(name)
     return _OFF

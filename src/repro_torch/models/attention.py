@@ -1,6 +1,7 @@
-"""GQA attention with a KV cache and RoPE, and the tanh-gated cross
-attention of the vlm archs, following the JAX package's
-``models/attention.py`` (qk-norm included).
+"""GQA attention with a KV cache and RoPE (none where ``cfg.use_rope``
+is off, as in Jamba), and the tanh-gated cross attention of the vlm
+archs, following the JAX package's ``models/attention.py`` (qk-norm
+included).
 
 The attention core dispatches as the reference's Pallas route does
 (``attention.py`` ``attention_core``): one query token goes to the
@@ -126,10 +127,13 @@ def _update_cache(cache_k, k_new, index):
 def shared_inputs(cfg, positions, rope_dim=None) -> dict:
     """What every attention layer of one forward pass derives from the
     positions alone — the RoPE table (at ``rope_dim``, default the head
-    dim), the cache rows written, the valid KV length — made once per
-    pass instead of once per layer."""
-    return {"rope": rope_table(positions, rope_dim or cfg.head_dim,
-                               cfg.rope_theta),
+    dim; None where ``cfg.use_rope`` is off, but MLA's rope part, whose
+    width ``rope_dim`` names, is always rotated), the cache rows written,
+    the valid KV length — made once per pass instead of once per
+    layer."""
+    rope = (rope_table(positions, rope_dim or cfg.head_dim, cfg.rope_theta)
+            if cfg.use_rope or rope_dim else None)
+    return {"rope": rope,
             "cache_index": cache_index(positions),
             "kv_valid_len": positions[:, -1] + 1}
 
@@ -200,8 +204,9 @@ def attention(cfg, params, x, *, positions, cache=None, shared=None):
     if cfg.qk_norm:
         q = rmsnorm_nl(q, cfg.norm_eps) * params["q_norm"].to(dt)
         k = rmsnorm_nl(k, cfg.norm_eps) * params["k_norm"].to(dt)
-    q = apply_rope(q, shared["rope"])
-    k = apply_rope(k, shared["rope"])
+    if shared["rope"] is not None:
+        q = apply_rope(q, shared["rope"])
+        k = apply_rope(k, shared["rope"])
 
     kv_valid_len = None
     if cache is not None:

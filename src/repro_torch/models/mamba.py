@@ -16,6 +16,12 @@ With a cache, the layer's ``conv`` rows (the last d_conv - 1 inputs of
 the conv, in the cache dtype) and ``ssm`` state (float32) are written IN
 PLACE (the reference returns a new cache); each is read before it is
 written.
+
+``cfg.mamba.inner_norms`` (Jamba's block; the JAX package has no such
+switch) applies an RMSNorm with a learned scale (``dt_norm``,
+``b_norm``, ``c_norm``) and ``cfg.norm_eps`` to the dt_rank slice, B and
+C of the ``x_proj`` output before ``dt_proj`` and the scan, on every
+route: the kernel, the plain version and a decode step.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+from repro_torch.models.layers import rmsnorm
 from repro_torch.models.params import ParamSpec
 
 
@@ -36,7 +43,7 @@ def _dims(cfg):
 def mamba_specs(cfg) -> dict:
     mb, d = cfg.mamba, cfg.d_model
     di, dtr = _dims(cfg)
-    return {
+    s = {
         "in_proj":  ParamSpec((d, 2 * di), ("embed", "mlp")),
         "conv_w":   ParamSpec((mb.d_conv, di), ("conv", "mlp"), scale=0.1),
         "conv_b":   ParamSpec((di,), ("mlp",), init="zeros"),
@@ -48,6 +55,11 @@ def mamba_specs(cfg) -> dict:
         "d_skip":   ParamSpec((di,), ("mlp",), init="ones"),
         "out_proj": ParamSpec((di, d), ("mlp", "embed")),
     }
+    if mb.inner_norms:
+        s["dt_norm"] = ParamSpec((dtr,), (None,), init="ones")
+        s["b_norm"] = ParamSpec((mb.d_state,), ("state",), init="ones")
+        s["c_norm"] = ParamSpec((mb.d_state,), ("state",), init="ones")
+    return s
 
 
 def mamba_cache_specs(cfg, batch: int):
@@ -97,6 +109,10 @@ def mamba(cfg, params, x, *, cache=None):
     dt_low = xdb[..., :dtr]
     b_ssm = xdb[..., dtr:dtr + mb.d_state]             # strided views
     c_ssm = xdb[..., dtr + mb.d_state:]
+    if mb.inner_norms:
+        dt_low = rmsnorm({"scale": params["dt_norm"]}, dt_low, cfg.norm_eps)
+        b_ssm = rmsnorm({"scale": params["b_norm"]}, b_ssm, cfg.norm_eps)
+        c_ssm = rmsnorm({"scale": params["c_norm"]}, c_ssm, cfg.norm_eps)
     dt = F.softplus(torch.matmul(dt_low, params["dt_proj"].to(dt_))
                     + params["dt_bias"].to(dt_))
 

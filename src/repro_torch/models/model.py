@@ -30,6 +30,7 @@ import functools
 import torch
 import torch.utils.checkpoint as ckpt
 
+from repro_torch.core.spans import span
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
@@ -123,9 +124,11 @@ def _apply_block(cfg, spec, params, x, *, positions, cache, shared,
     mixer, ffn_kind = spec
     h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
     if mixer == "attn":
-        out, cache = attn_mod.attention(cfg, params["mixer"], h,
-                                        positions=positions, cache=cache,
-                                        shared=shared[mixer])
+        with span("repro_torch.model.attn"):
+            out, cache = attn_mod.attention(cfg, params["mixer"], h,
+                                            positions=positions,
+                                            cache=cache,
+                                            shared=shared[mixer])
     elif mixer == "cross":
         out, cache = attn_mod.cross_attention(cfg, params["mixer"], h,
                                               positions=positions,
@@ -135,7 +138,9 @@ def _apply_block(cfg, spec, params, x, *, positions, cache, shared,
                                            positions=positions, cache=cache,
                                            shared=shared[mixer])
     elif mixer == "mamba":
-        out, cache = mamba_mod.mamba(cfg, params["mixer"], h, cache=cache)
+        with span("repro_torch.model.mamba"):
+            out, cache = mamba_mod.mamba(cfg, params["mixer"], h,
+                                         cache=cache)
     else:
         out, cache = rwkv_mod.time_mix(cfg, params["mixer"], h, cache=cache)
     x = x + out
@@ -144,7 +149,8 @@ def _apply_block(cfg, spec, params, x, *, positions, cache, shared,
     if ffn_kind == "dense":
         out2 = L.ffn(params["ffn"], h2)
     elif ffn_kind == "moe":
-        out2, aux = moe_mod.moe(cfg, params["ffn"], h2, impl=moe_impl)
+        with span("repro_torch.model.moe"):
+            out2, aux = moe_mod.moe(cfg, params["ffn"], h2, impl=moe_impl)
     else:
         out2, cache = rwkv_mod.channel_mix(cfg, params["ffn"], h2,
                                            cache=cache)

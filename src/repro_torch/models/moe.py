@@ -16,6 +16,10 @@ Implementations (``impl``, chosen by the caller):
     each expert gathers up to ``_capacity`` of its tokens (the whole
     batch is one group), earlier tokens first.
 
+The top-k gates are divided by their sum, as in the reference, unless
+``cfg.moe.renormalize`` is off (Jamba: the softmax probabilities as they
+are), in every implementation.
+
 Plain PyTorch products: the reference has no Pallas kernel for MoE. On
 one device the reference's sharding constraints are no-ops and are left
 out. The load-balance aux loss is returned, as there.
@@ -64,7 +68,8 @@ def _router(cfg, params, x):
     logits = torch.einsum("gtd,de->gte", x, params["router"].to(x.dtype))
     probs = torch.softmax(logits.float(), dim=-1)
     gates, sel = _top_k(probs, mo.top_k)
-    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    if mo.renormalize:
+        gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
     # Switch-style load-balance aux loss
     me = probs.mean(dim=(0, 1))                               # (E,)
     ce = F.one_hot(sel, mo.num_experts).float().mean(dim=(0, 1, 2))
@@ -151,6 +156,25 @@ def _shared(params, x, dt):
     g = torch.matmul(x, p["w_gate"].to(dt))
     u = torch.matmul(x, p["w_up"].to(dt))
     return torch.matmul(F.silu(g) * u, p["w_down"].to(dt))
+
+
+def rows_computed(cfg, impl: str, batch: int, seq: int) -> int:
+    """Expert rows (a token's pass through one expert's FFN) one MoE
+    layer computes for a (batch, seq) input under ``impl``: "dense"
+    every expert on every token; "gshard" every expert's ``_capacity``
+    slots in each group; "a2a" every expert's slots in the one group.
+    The rows a token is routed to are ``top_k`` a token; their ratio is
+    the overcompute of the implementation."""
+    mo = cfg.moe
+    if impl == "dense":
+        return mo.num_experts * batch * seq
+    if impl == "gshard":
+        tg = min(seq, GROUP_TOKENS)
+        return batch * seq // tg * mo.num_experts * _capacity(cfg, tg)
+    if impl == "a2a":
+        return mo.num_experts * _capacity(cfg, max(batch * seq, 4))
+    raise ValueError(f"moe_impl {impl!r}: the port has 'dense', 'gshard' "
+                     "and 'a2a'")
 
 
 def moe(cfg, params, x, impl: str = "gshard"):

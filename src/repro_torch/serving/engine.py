@@ -62,7 +62,12 @@ Requests carry the timestamps: ``submitted_at`` (queue entry),
 prefill and decode dispatches, each ending when its ids reach the host,
 and in ST mode the host seconds of the router's dispatches
 (``st_dispatch_seconds``: payload gather and staging, the program, the
-committed ids back on the host).
+committed ids back on the host) and the bytes it staged by payload
+(``st_payload_bytes``). For a model with MoE layers it counts, on the
+host from each dispatch's shape, the expert rows computed
+(``moe_rows_computed``: under "dense" every expert on every row of the
+batch, idle decode slots included) and the rows routed to
+(``moe_rows_routed``: ``top_k`` a real token), over all MoE layers.
 """
 from __future__ import annotations
 
@@ -153,6 +158,11 @@ class ServingEngine:
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
         self.st_dispatch_seconds = 0.0
+        # expert rows the MoE layers computed and the rows routed to
+        # (top_k a token), added on the host from each dispatch's shape
+        self.moe_impl = moe_impl
+        self._moe_layers = sum(f == "moe" for _, f in cfg.layer_specs())
+        self.moe_rows_computed = self.moe_rows_routed = 0
         self.st_mode = st_mode
         self._router = None
         if st_mode is not None:
@@ -267,6 +277,7 @@ class ServingEngine:
                 ids_np = self._prefill_group(slots, toks)
             self.prefill_seconds += time.perf_counter() - t0
             self.prefill_dispatches += 1
+            self._count_moe_rows(*toks.shape, toks.size)
             now = time.monotonic()
             for row, (slot, req) in enumerate(zip(slots, reqs)):
                 req.out_tokens.append(int(ids_np[row]))
@@ -306,6 +317,7 @@ class ServingEngine:
                     ids_np = ids.cpu().numpy()
                 self.decode_seconds += time.perf_counter() - t0
                 self.decode_steps += 1
+                self._count_moe_rows(self.B, 1, len(active))
             if self._router is not None:
                 with span("repro_torch.router.dispatch"):
                     t0 = time.perf_counter()
@@ -327,6 +339,17 @@ class ServingEngine:
             with span("repro_torch.engine.record"):
                 self._record_decode(active, ids_np)
             return len(active)
+
+    def _count_moe_rows(self, batch: int, seq: int, tokens: int):
+        """Add a dispatch of a (batch, seq) input holding ``tokens`` real
+        tokens (a decode step's idle slots are computed, not routed) to
+        the MoE row counters."""
+        if self._moe_layers:
+            from repro_torch.models.moe import rows_computed
+            self.moe_rows_computed += self._moe_layers * rows_computed(
+                self.cfg, self.moe_impl, batch, seq)
+            self.moe_rows_routed += (self._moe_layers
+                                     * self.cfg.moe.top_k * tokens)
 
     def _decode_batch(self, active):
         """The (B, 1) decode batch: each active slot's last token at its
@@ -372,7 +395,11 @@ class ServingEngine:
              "prefill_seconds": self.prefill_seconds,
              "decode_seconds": self.decode_seconds,
              "st_mode": self.st_mode}
+        if self._moe_layers:
+            d["moe_rows_computed"] = self.moe_rows_computed
+            d["moe_rows_routed"] = self.moe_rows_routed
         if self._router is not None:
             d["st_dispatch_seconds"] = self.st_dispatch_seconds
             d["st"] = self._router.stats()
+            d["st_payload_bytes"] = self._router.payload_bytes()
         return d

@@ -37,7 +37,8 @@ Differences from the JAX package's router, none visible in the tokens:
 
 ``stats()`` exposes the scheduled program meta per bucket (descriptor
 counts, puts/epoch, segments, config label, dispatch count) — this is
-what surfaces in ``ServingEngine`` serving stats.
+what surfaces in ``ServingEngine`` serving stats, with
+``payload_bytes()``, the bytes staged by payload.
 """
 from __future__ import annotations
 
@@ -64,6 +65,7 @@ class _BucketEntry:
     state: dict
     config: Optional[ScheduleConfig]
     meta: dict
+    staged: dict            # bytes one dispatch stages, by payload
     dispatches: int = 0
 
 
@@ -135,8 +137,14 @@ class STDecodeRouter:
         meta = dict(progs[0].stats(), bucket=bucket, mode=self.mode,
                     ndev=self.ndev, moe=self.moe_on,
                     config=spec.label() if spec is not None else "default")
+        bufs = {"kv": "kv", "ids": "tok"}
+        if self.moe_on:
+            bufs["hid"] = "hid"
+        staged = {k: state[win.qual(b)].numel()
+                  * state[win.qual(b)].element_size()
+                  for k, b in bufs.items()}
         e = _BucketEntry(stream=stream, win=win, state=state, config=spec,
-                         meta=meta)
+                         meta=meta, staged=staged)
         self._entries[bucket] = e
         return e
 
@@ -195,6 +203,15 @@ class STDecodeRouter:
                 "moe": self.moe_on,
                 "buckets": {b: dict(e.meta, dispatches=e.dispatches)
                             for b, e in sorted(self._entries.items())}}
+
+    def payload_bytes(self) -> dict:
+        """The bytes the dispatches staged, by payload ("kv", "ids",
+        "hid"): each dispatch stages every rank's whole bucket of each."""
+        total = {k: 0 for k in ("kv", "ids", "hid")}
+        for e in self._entries.values():
+            for k, n in e.staged.items():
+                total[k] += n * e.dispatches
+        return total
 
 
 __all__ = ["STDecodeRouter"]

@@ -1234,6 +1234,58 @@ def test_jamba_engine_on_the_card_equals_the_cpu_and_launches_the_kernels(
     assert tokens[str(dev)] == tokens["cpu"]
 
 
+def test_jamba2_engine_on_the_card_equals_the_cpu_and_launches_the_kernels(
+        dev):
+    """The reduced jamba2-mini (a whole 8-layer period: attention without
+    RoPE at layer 4, the dt/B/C norms in its 7 Mamba mixers, unrenormalized
+    top-2 gates) served with ST-routed decode and dense MoE on the card
+    gives the CPU's greedy tokens (float32 compute), and its profiled
+    run holds both selective-scan kernels: ``mamba_scan_fwd`` at each
+    prefill, ``mamba_scan_step`` at each decode step."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import Request, ServingEngine
+    from _mamba_draws import redraw_mamba_torch
+    cfg = dataclasses.replace(get_config("jamba2-mini").reduced(),
+                              compute_dtype="float32")
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         "cpu", torch.float32)
+    redraw_mamba_torch(params, torch.Generator().manual_seed(1))
+    n_mamba = sum(m == "mamba" for m, _ in cfg.layer_specs())
+    rng = np.random.RandomState(0)
+    specs = [(rng.randint(1, cfg.vocab_size, L).astype(np.int32), m)
+             for L, m in ((5, 6), (9, 4), (5, 3), (17, 5), (9, 2),
+                          (70, 3))]
+    tokens = {}
+    for device in ("cpu", dev):
+        eng = ServingEngine(cfg, tree_map(lambda t: t.to(device), params),
+                            batch_slots=3, max_len=128, moe_impl="dense",
+                            st_mode="st", st_ranks=4, st_config=None,
+                            device=device)
+        reqs = [Request(prompt=pr, max_new_tokens=m) for pr, m in specs]
+        for r in reqs:
+            eng.submit(r)
+        _build.reset_launches()
+        eng.run_until_drained()
+        tokens[str(device)] = [r.out_tokens for r in reqs]
+        if device != "cpu":
+            assert _build.LAUNCHES["mamba_scan"] == n_mamba * (
+                eng.prefill_dispatches + eng.decode_steps)
+            # again under the profiler, the decode graph captured
+            eng.submit(Request(prompt=specs[0][0], max_new_tokens=4))
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng.run_until_drained()
+                torch.cuda.synchronize()
+            names = " ".join(e.key for e in prof.key_averages())
+            assert "mamba_scan_fwd" in names
+            assert "mamba_scan_step" in names
+    assert tokens[str(dev)] == tokens["cpu"]
+
+
 def test_vlm_engine_on_the_card_equals_the_cpu_and_launches_the_kernels(
         dev):
     """The reduced llama-3.2-vision served on the card with its gates

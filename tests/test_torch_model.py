@@ -317,19 +317,33 @@ FULL = {
 }
 
 
+# the port's switches the reference has not (jamba2-mini turns them on),
+# with the defaults under which every reference architecture runs
+PORT_SWITCHES = {"attn_layer_offset": 0, "use_rope": True,
+                 "renormalize": True, "inner_norms": False}
+
+
 @pytest.mark.parametrize("arch", list(FULL))
 def test_full_width_configs_equal_the_reference(arch):
     """Every field the port keeps equals the reference's (the attention
-    route apart), and the full
+    route apart; the port's own switches at their defaults), and the full
     model's parameter tree counts what the reference's counts (the
     padded vocab included); the reference's own param_counts() gives the
     size quoted in the config's docstring."""
     cfg, jc = get_config(arch), jax_config(arch)
 
     def plain(x):                       # sub-configs by their fields
-        return dataclasses.asdict(x) if dataclasses.is_dataclass(x) else x
+        if not dataclasses.is_dataclass(x):
+            return x
+        d = dataclasses.asdict(x)
+        for k in PORT_SWITCHES:         # the port's own, at their defaults
+            if k in d:
+                assert d.pop(k) == PORT_SWITCHES[k], k
+        return d
     for f in dataclasses.fields(cfg):
-        if f.name != "attn_impl":       # the port names its own routes
+        if f.name in PORT_SWITCHES:
+            assert getattr(cfg, f.name) == PORT_SWITCHES[f.name], f.name
+        elif f.name != "attn_impl":     # the port names its own routes
             assert plain(getattr(cfg, f.name)) == \
                 plain(getattr(jc, f.name)), f.name
     dims, billions = FULL[arch]

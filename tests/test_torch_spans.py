@@ -128,6 +128,7 @@ def _serve_spans(eng):
 def test_engine_step_spans(monkeypatch, tiny):
     stand_in = StandIn()
     monkeypatch.setattr(graphs, "BACKEND", stand_in)
+    cfg, _ = tiny
     eng = _engine(tiny)
     spans, steps = _serve_spans(eng)
     assert len(steps) == eng.decode_steps
@@ -153,7 +154,8 @@ def test_engine_step_spans(monkeypatch, tiny):
             _within(spans, admit, "engine.prefill"))
         dec, = _within(spans, step, "engine.decode")
         assert _children(spans, dec) in (
-            ["engine.upload", "engine.readback"],            # the warm-up
+            ["engine.upload"] + ["model.attn"] * cfg.num_layers
+            + ["engine.readback"],                            # the warm-up
             ["engine.upload", "graph.copy_in", "graph.replay",
              "graph.copy_out", "engine.readback"]), _children(spans, dec)
         rd, = _within(spans, step, "router.dispatch")
