@@ -60,19 +60,14 @@ class _Op:
     fn: Optional[Callable] = None
     # monotonic per-stream identity of fn, assigned at launch(): id(fn)
     # can be reused by a fresh closure after the old one is collected,
-    # which would silently hit a stale _sched_cache entry
+    # which would silently hit a stale program graph (the graph caches
+    # key on TriggeredProgram.key(), which carries the token)
     fn_token: int = -1
     reads: Tuple[str, ...] = ()
     writes: Tuple[str, ...] = ()
     put: Optional[dict] = None
     phase: int = 0            # ping/pong parity (double-buffered windows)
     label: str = ""
-
-    def cache_key(self):
-        put = (tuple(sorted(self.put.items())) if self.put else None)
-        return (self.kind, self.fn_token, self.reads, self.writes, put,
-                self.window.name if self.window else None, self.phase,
-                self.label)
 
 
 class STStream:
@@ -100,13 +95,23 @@ class STStream:
         self.periodic = periodic
         self.pattern = ""          # set by pattern constructors; flows into
         #                            program meta
-        self.program: List[_Op] = []
+        self._ops: List[_Op] = []
+        # bumped by every enqueue (_enqueue); the queue only grows, so a
+        # version names one queue and the schedule cache keys on it
+        # instead of on the queued ops
+        self._version = 0
         self.windows: Dict[str, STWindow] = {}
         self.dispatches = 0        # the simulator's dispatch units the
         #                            executors counted (see backends /
         #                            engine); not device launches
+        # scheduled_programs calls served by the schedule cache, and those
+        # that lowered and scheduled the queue
+        self.schedule_hits = 0
+        self.schedule_builds = 0
         self._perm_cache: Dict[tuple, list] = {}
         self._sched_cache: Dict[tuple, List[TriggeredProgram]] = {}
+        # state_specs()'s keys, until create_window adds a window
+        self._state_keys: Optional[frozenset] = None
         self._device_tables: Dict[tuple, object] = {}
         # the CUDA graphs of st and fused programs (core/graphs.py), by
         # program and state layout; they hold their static inputs and
@@ -135,6 +140,7 @@ class STStream:
                        topology=topology, double_buffer=double_buffer,
                        db_names=tuple(db_names))
         self.windows[name] = win
+        self._state_keys = None
         return win
 
     def state_specs(self) -> Dict[str, Tuple[tuple, str]]:
@@ -175,27 +181,36 @@ class STStream:
         return state
 
     # -- enqueue API (returns immediately: deferred execution) ---------------
+    @property
+    def program(self) -> Tuple[_Op, ...]:
+        """The enqueued ops in order; read-only, since only an enqueue
+        (which bumps the queue's version) may change the queue."""
+        return tuple(self._ops)
+
+    def _enqueue(self, op: _Op) -> None:
+        self._ops.append(op)
+        self._version += 1
+
     def launch(self, fn, reads, writes, label="kernel"):
         tok = self._fn_tokens.get(fn)
         if tok is None:
             tok = self._fn_tokens[fn] = next(self._fn_token_counter)
-        self.program.append(_Op("kernel", fn=fn, fn_token=tok,
-                                reads=tuple(reads), writes=tuple(writes),
-                                label=label))
+        self._enqueue(_Op("kernel", fn=fn, fn_token=tok,
+                          reads=tuple(reads), writes=tuple(writes),
+                          label=label))
 
     def post(self, win: STWindow, phase: int = 0):
-        self.program.append(_Op("post", window=win, phase=phase))
+        self._enqueue(_Op("post", window=win, phase=phase))
 
     def start(self, win: STWindow, mode: str = "MPIX_MODE_STREAM",
               phase: int = 0):
-        self.program.append(_Op("start", window=win, phase=phase,
-                                label=mode))
+        self._enqueue(_Op("start", window=win, phase=phase, label=mode))
 
     def put(self, win: STWindow, src: str, dst: str, direction,
             phase: int = 0):
-        self.program.append(_Op("put", window=win, phase=phase,
-                                put=dict(src=src, dst=dst,
-                                         direction=tuple(direction))))
+        self._enqueue(_Op("put", window=win, phase=phase,
+                          put=dict(src=src, dst=dst,
+                                   direction=tuple(direction))))
 
     def put_multicast(self, win: STWindow, src: str, dsts, directions,
                       phase: int = 0):
@@ -207,20 +222,20 @@ class STStream:
         if len(dsts) != len(directions):
             raise ValueError("put_multicast: dsts and directions must "
                              "pair up per branch")
-        self.program.append(_Op(
+        self._enqueue(_Op(
             "put", window=win, phase=phase,
             put=dict(src=src, dsts=tuple(dsts),
                      directions=tuple(tuple(d) for d in directions))))
 
     def complete(self, win: STWindow, phase: int = 0):
-        self.program.append(_Op("complete", window=win, phase=phase))
+        self._enqueue(_Op("complete", window=win, phase=phase))
 
     def wait(self, win: STWindow, phase: int = 0):
-        self.program.append(_Op("wait", window=win, phase=phase))
+        self._enqueue(_Op("wait", window=win, phase=phase))
 
     def host_sync(self):
         """Application-level throttling point (paper §5.2.1)."""
-        self.program.append(_Op("hostsync"))
+        self._enqueue(_Op("hostsync"))
 
     # -- neighbor permutation -------------------------------------------------
     def rank_strides(self) -> tuple:
@@ -269,7 +284,10 @@ class STStream:
                            config=None) -> List[TriggeredProgram]:
         """Lower the op queue and run the schedule passes; one scheduled
         descriptor DAG per host_sync-delimited segment. Cached per
-        (queue, options) so repeated synchronize calls reuse programs.
+        (queue version, options), so a repeated call returns the same
+        program objects without reading the queue (``schedule_hits``)
+        and an enqueue since the last call lowers the queue anew
+        (``schedule_builds``).
 
         ``config`` (a :class:`repro_torch.core.autotune.ScheduleConfig`
         or its dict form) expands into the schedule-pass knobs above
@@ -293,19 +311,20 @@ class STStream:
             if isinstance(config, dict):
                 config = ScheduleConfig.from_dict(config)
             return self.scheduled_programs(**config.sched_kwargs())
-        key = (tuple(op.cache_key() for op in self.program),
-               throttle, resources, merged, ordered, nstreams,
-               node_aware, coalesce, pack, chunk_bytes, fused)
+        key = (self._version, throttle, resources, merged, ordered,
+               nstreams, node_aware, coalesce, pack, chunk_bytes, fused)
         progs = self._sched_cache.get(key)
-        if progs is None:
-            progs = [
-                schedule(lower_segment(self, seg), throttle=throttle,
-                         resources=resources, merged=merged,
-                         ordered=ordered, nstreams=nstreams,
-                         node_aware=node_aware, coalesce=coalesce,
-                         pack=pack, chunk_bytes=chunk_bytes, fused=fused)
-                for seg in split_segments(self.program)]
-            self._sched_cache[key] = progs
+        if progs is not None:
+            self.schedule_hits += 1
+            return progs
+        self.schedule_builds += 1
+        progs = self._sched_cache[key] = [
+            schedule(lower_segment(self, seg), throttle=throttle,
+                     resources=resources, merged=merged,
+                     ordered=ordered, nstreams=nstreams,
+                     node_aware=node_aware, coalesce=coalesce,
+                     pack=pack, chunk_bytes=chunk_bytes, fused=fused)
+            for seg in split_segments(self._ops)]
         return progs
 
     # -- execution: emit (3) --------------------------------------------------
@@ -359,10 +378,12 @@ class STStream:
         if mode not in ("st", "host", "fused"):
             raise ValueError(f"unknown mode {mode!r}; expected st, host "
                              "or fused")
-        specs = self.state_specs()
-        if set(state) != set(specs):
+        keys = self._state_keys
+        if keys is None:
+            keys = self._state_keys = frozenset(self.state_specs())
+        if state.keys() != keys:
             raise ValueError("state keys differ from the windows': "
-                             f"{sorted(set(state) ^ set(specs))[:6]}")
+                             f"{sorted(set(state) ^ keys)[:6]}")
         for k, v in state.items():
             if v.device != self.device:
                 raise ValueError(f"state[{k!r}] is on {v.device}, the "
