@@ -43,7 +43,6 @@ CPU route stays eager (``applies`` is False there).
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, List, Sequence
 
 import torch
@@ -93,14 +92,12 @@ def applies(device) -> bool:
 # ---------------------------------------------------------------------------
 
 class _Captured:
-    """One graph: ``fn(inputs)`` captured, its outputs (``out``), its
-    launch delta and the host seconds the capture took (instantiation
-    included)."""
+    """One graph: ``fn(inputs)`` captured, its outputs (``out``) and its
+    launch delta."""
 
     def __init__(self, name: str, fn, inputs, pool):
         self.name = name
         before = dict(_build.LAUNCHES)
-        t0 = time.perf_counter()
         try:
             with capturing():
                 self.graph, self.out = BACKEND.capture(fn, inputs, pool)
@@ -112,7 +109,6 @@ class _Captured:
             self.delta = {k: v - before[k] for k, v in _build.LAUNCHES.items()
                           if v != before[k]}
             _build.LAUNCHES.update(before)
-        self.seconds = time.perf_counter() - t0
 
     def replay(self):
         with span("repro_torch.graph.replay"):
@@ -194,9 +190,6 @@ class ProgramGraph:
         self.chain: List[_Captured] = []
         self.out: Dict[str, torch.Tensor] = {}
         self.written: List[str] = []
-        # host seconds of the first call's warm-up (to the device's end)
-        # and of its captures
-        self.warm_up_seconds = self.capture_seconds = 0.0
 
     def __call__(self, state: Dict[str, torch.Tensor]):
         if not self.chain:
@@ -220,7 +213,6 @@ class ProgramGraph:
                 "out": nbytes(self.out[k] for k in self.written)}
 
     def _capture(self, state):
-        t0 = time.perf_counter()
         self.static = {k: _fresh(v) for k, v in state.items()}
         _copy(list(self.static.values()), list(state.values()))
         st = dict(self.static)
@@ -228,7 +220,6 @@ class ProgramGraph:
             st = seg(st)
         del st
         BACKEND.synchronize()
-        self.warm_up_seconds = time.perf_counter() - t0
         pool = BACKEND.pool()
         st = dict(self.static)
         for i, seg in enumerate(self.segments):
@@ -240,7 +231,6 @@ class ProgramGraph:
         self.out = st
         self.written = [k for k, t in st.items()
                         if t is not self.static.get(k)]
-        self.capture_seconds = sum(g.seconds for g in self.chain)
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +254,6 @@ class StepGraph:
         self.copied = tuple(copied)
         self._graphs: Dict[tuple, object] = {}
         self.captures = 0
-        self.capture_seconds = 0.0       # host seconds of the captures
 
     def _key(self, args):
         return tuple(tensor_key(a) if i in self.copied else id(a)
@@ -284,7 +273,6 @@ class StepGraph:
             g = _Captured(self.name, lambda a: self.fn(*a), static,
                           BACKEND.pool())
             self.captures += 1
-            self.capture_seconds += g.seconds
             entry = self._graphs[key] = ("graph", static, g)
         else:
             self._copy_in(entry[1], args)

@@ -27,10 +27,12 @@
 //     are bound by their count, not their bytes: on an H100 SXM (700 W) a
 //     cold 67 MB field read one float per 256-byte row takes 0.0090 ms,
 //     8 or 16 floats per row 0.0094 and 0.0102, both end floats 0.0158
-//     (chip_smoke.py's fetch probe). Staging whole rows to coalesce the
-//     end cells would stream all 67 MB, more than the end reads cost. So
-//     the end reads are issued as densely as they can be. One launch,
-//     blocks of two roles:
+//     (one-off readings of a probe kernel, one thread a row, that this
+//     file carried when the pack was redesigned; its source is in this
+//     file's git history). Staging whole rows to coalesce the end cells
+//     would stream all 67 MB, more than the end reads cost. So the end
+//     reads are issued as densely as they can be. One launch, blocks of
+//     two roles:
 //       - copy blocks, dispatched first: the dz = 0 surfaces are runs that
 //         are contiguous in src and in the surface (the two x-planes, one
 //         ny * nz run each; the y = 0 and y = ny - 1 rows of every
@@ -764,31 +766,6 @@ faces_increment_kernel(const T* __restrict__ src, const T* __restrict__ it,
   }
 }
 
-// The fetch-granularity probe (chip_smoke.py): thread i sums the first k
-// floats (1, or a multiple of 4 up to 16) of 256-byte row i of buf into
-// out[i], its loads issued together; k = 2 sums the row's first and last
-// float, the pack's two end cells. A lone float costs what 8 do if the
-// card fetches 32-byte sectors, what 16 do if it fetches 64 bytes.
-__global__ void fetch_probe_kernel(const float* __restrict__ buf, int rows,
-                                   int k, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
-  const float* row = buf + (long long)i * 64;
-  if (k <= 2) {
-    out[i] = k == 1 ? row[0] : row[0] + row[63];
-    return;
-  }
-  float4 v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    v[j] = 4 * j < k ? reinterpret_cast<const float4*>(row)[j]
-                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  float sum = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) sum += v[j].x + v[j].y + v[j].z + v[j].w;
-  out[i] = sum;
-}
-
 Surfaces make_surfaces(const uint64_t* ptrs, const int64_t* strides) {
   Surfaces s;
   for (int k = 0; k < kNdir; ++k) {
@@ -963,14 +940,4 @@ extern "C" int faces_increment_launch(const void* src, const void* it,
       return (int)increment_typed<double>(src, it, out, it_out, R, cells, st);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// buf: rows contiguous 256-byte rows of 64 floats; out: rows floats.
-extern "C" int fetch_probe_launch(const float* buf, int rows, int k,
-                                  float* out, void* stream) {
-  if (rows <= 0 || k < 1 || (k > 2 && (k % 4 || k > 16)))
-    return (int)cudaErrorInvalidValue;
-  fetch_probe_kernel<<<cdiv(rows, kThreads), kThreads, 0,
-                       (cudaStream_t)stream>>>(buf, rows, k, out);
-  return (int)cudaGetLastError();
 }

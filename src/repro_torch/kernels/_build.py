@@ -45,8 +45,6 @@ LIBRARIES = {
         # (src, it, out, it out, dtype, R, cells of a rank, stream)
         "faces_increment_launch": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _I64,
                                    _PTR),
-        # (buf, rows, floats per row, out, stream): chip_smoke.py's probe
-        "fetch_probe_launch": (_PTR, _INT, _INT, _PTR, _PTR),
     },
     # put_signal: (x, x rank stride in bytes, out, row bytes, R, perm, sig,
     #  upd, sig out or NULL, signal slots, stream); put_multicast: the same
@@ -57,7 +55,6 @@ LIBRARIES = {
                               _PTR, _I64, _PTR),
         "put_multicast_launch": (_PTR, _I64, _PTR, _I64, _INT, _INT, _PTR,
                                  _PTR, _PTR, _PTR, _I64, _PTR),
-        "empty_launch": (_PTR,),
     },
     # (dtype, q, k, v, out, q_offset, kv_len, B, Sq, Skv, H, KV, hd, hdv,
     #  strides[12], causal, stream)

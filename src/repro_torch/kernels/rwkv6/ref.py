@@ -31,9 +31,7 @@ def wkv6_chunked(r, k, v, logw, u, s0, chunk=CHUNK):
     is not written). A CUDA kernel of this form matched the plain version
     to 1e-5 but sums in another order, and the served model's bf16
     replay check in ``chip_smoke.py`` did not pass it; the CUDA kernel
-    keeps the plain order. ``chip_smoke.py`` replays the served model's
-    bf16 plain path with this order of the sums, to show how far the
-    order alone moves its logits, without a kernel.
+    keeps the plain order.
 
     The steps go in chunks of ``chunk``; the state S is carried from one
     chunk to the next. Within a chunk that starts from S, with the

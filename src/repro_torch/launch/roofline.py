@@ -7,7 +7,6 @@ NVIDIA H100 SXM 80GB (NVIDIA's data sheet):
   NVLink bandwidth   : 450 GB/s a direction (NVLink 4, 900 GB/s both)
   memory             : 80 GB
 
-The same compute and memory rates bound every kernel in chip_smoke.py.
 Terms (seconds, per executed step, per device):
 
   compute    = flops_per_device / PEAK_FLOPS

@@ -6,8 +6,7 @@ equal the JAX package's Pallas kernels — in interpret mode, as
 pure-jnp oracles, from the same numpy inputs, at that file's tolerances:
 2e-5 for float32, 2e-2 for bf16 (the kernels accumulate in float32,
 the oracles round scores and weights to bf16). The CUDA kernels are held
-against these plain versions on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``).
+against these plain versions on the card (``tests/test_torch_cuda.py``).
 """
 import dataclasses
 

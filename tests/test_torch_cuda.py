@@ -136,16 +136,17 @@ def _unpack_recv(gen, shape, dtype, dev):
 
 
 @pytest.mark.parametrize("dtype", UNPACK_DTYPES, ids=str)
+@pytest.mark.parametrize("R", [5, 64])
 @pytest.mark.parametrize("n", [(1, 3, 2), (6, 5, 3), (6, 5, 4), (16, 8, 8),
                                (64, 64, 64)])
-def test_halo_unpack_in_each_dtype_equals_the_plain_version(dev, n, dtype):
+def test_halo_unpack_in_each_dtype_equals_the_plain_version(dev, n, R,
+                                                            dtype):
     """The unpack in every dtype it takes, split and flat, bit for bit
     the plain version (each add rounded to the dtype in DIRECTIONS order,
     integers wrapping); with the per-rank max in the accumulator's dtype
     for a float, a NaN propagated to its rank; an integer max refused, as
     the plain norm refuses it."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    R = 5
     total = halo.offsets_of(n)[1]
     flat = _unpack_recv(gen, (R, total), dtype, dev)
     sizes = [halo.surface_size(n, d) for d in halo.DIRECTIONS]
@@ -171,7 +172,8 @@ def test_halo_unpack_in_each_dtype_equals_the_plain_version(dev, n, dtype):
         assert m.dtype == dtype
         torch.testing.assert_close(m, _max_abs(want), rtol=0, atol=0,
                                    equal_nan=True)
-        assert bool(m[2].isnan()) and not m[[0, 1, 3, 4]].isnan().any()
+        assert bool(m[2].isnan())
+        assert not m[torch.arange(R, device=dev) != 2].isnan().any()
 
 
 def test_halo_unpack_takes_rank_strided_surfaces(dev):
@@ -211,8 +213,10 @@ def test_counter_bump_equals_add(dev):
 def _device_kernels(fn, calls=3):
     """Names of the device kernels (not memsets) ``calls`` calls of
     ``fn()`` run, each name once per launch. The profiler sometimes
-    returns no device event at all for a short trace: that says nothing
-    of the kernel, so such a trace is taken again (at most twice)."""
+    drops device events of a short trace, all of them or some: every
+    caller's ``fn`` launches a kernel a call, so a trace with fewer
+    kernels than calls says nothing of the kernel and is taken again
+    (at most twice)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -225,7 +229,7 @@ def _device_kernels(fn, calls=3):
         names = [e.key for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA and "emset" not in e.key
                  for _ in range(e.count)]
-        if names:
+        if len(names) >= calls:
             return names
     return names
 
@@ -319,29 +323,42 @@ def test_put_signal_and_unpack_never_sync(dev):
 
 
 PACK = dict(pack=True, node_aware=True)
+# the throttles that hold puts back (16 descriptors in flight at most)
+STATIC = dict(throttle="static", resources=16)
+NONE = dict(throttle="none", resources=16)
+
+
+def _sched_id(v):
+    """A schedule's options as a test id: a flag's name, or name+value."""
+    if isinstance(v, dict):
+        return "-".join(k if x is True else f"{k}{x}" for k, x in v.items())
+    return None
 
 
 @pytest.mark.parametrize("mode,merged,sched", [
     ("st", True, {}), ("st", False, {}), ("host", True, {}),
-    ("fused", True, {}),
+    ("host", False, {}), ("fused", True, {}),
+    ("st", True, STATIC), ("st", False, STATIC), ("st", True, NONE),
+    ("st", False, NONE),
     # two nodes of four ranks: the off-node puts pack (their recv
     # buffers arrive as views of one staging buffer) and chunk
     ("st", True, PACK), ("host", True, PACK), ("fused", True, PACK),
     ("st", True, dict(PACK, chunk_bytes=32)),
     ("fused", True, dict(PACK, chunk_bytes=32)),
-], ids=lambda v: "-".join(v) if isinstance(v, dict) else None)
+], ids=_sched_id)
 def test_faces_on_the_card_equals_the_cpu(dev, mode, merged, sched):
     src0 = np.random.RandomState(0).rand(8, 4, 3, 5).astype(np.float32)
     outs = {}
+    packed = sched.get("pack", False)
     for device in ("cpu", dev):
         stream = STStream(device, ("x", "y", "z"), grid_shape=(2, 2, 2))
         halo.build_faces_program(stream, (4, 3, 5), 3, merged=merged,
-                                 ranks_per_node=4 if sched else None)
+                                 ranks_per_node=4 if packed else None)
         state = stream.allocate()
         state["faces.src"] = torch.from_numpy(src0).to(device)
         outs[str(device)] = stream.synchronize(state, mode=mode,
                                                merged=merged, **sched)
-        if sched:                                           # not vacuous
+        if packed:                                          # not vacuous
             assert stream.scheduled_programs(
                 merged=merged, fused=mode == "fused",
                 **sched)[0].stats()["packed_puts"]
@@ -352,15 +369,15 @@ def test_faces_on_the_card_equals_the_cpu(dev, mode, merged, sched):
 
 # the parity configurations: st and fused replay CUDA graphs
 GRAPH_CASES = [("st", True, {}), ("st", False, {}), ("fused", True, {}),
+               ("st", True, STATIC), ("st", False, STATIC),
+               ("st", True, NONE), ("st", False, NONE),
                ("st", True, PACK), ("fused", True, PACK),
                ("st", True, dict(PACK, chunk_bytes=32)),
                ("fused", True, dict(PACK, chunk_bytes=32)),
                ("fused", True, dict(nstreams=2))]
 
 
-@pytest.mark.parametrize("mode,merged,sched", GRAPH_CASES,
-                         ids=lambda v: "-".join(map(str, v))
-                         if isinstance(v, dict) else None)
+@pytest.mark.parametrize("mode,merged,sched", GRAPH_CASES, ids=_sched_id)
 def test_faces_graphs_equal_the_eager_emission_and_host_mode(dev, mode,
                                                              merged, sched):
     """st and fused replay their program's CUDA graphs: bit for bit the
@@ -449,9 +466,10 @@ def _increment_inputs(dev, R, n, dtype, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
 @pytest.mark.parametrize("R,n", [(64, (64, 64, 64)), (64, (128, 128, 128)),
-                                 (1, (4, 4, 4)), (8, (5, 6, 7)),
-                                 (64, (5, 6, 7)), (64, (16, 16, 16)),
-                                 (3, (1, 1, 1))])
+                                 (1, (4, 4, 4)), (64, (4, 4, 4)),
+                                 (8, (5, 6, 7)), (64, (5, 6, 7)),
+                                 (64, (16, 16, 16)), (3, (1, 1, 1)),
+                                 (64, (1, 1, 1))])
 def test_faces_increment_equals_the_plain_version(dev, R, n, dtype):
     """One launch, bit for bit the plain closure (both outputs), inputs
     unchanged; blocks whose cell count is no multiple of a 16-byte
@@ -544,6 +562,78 @@ def test_faces_st_programs_hold_to_the_numpy_replay(dev, n):
                           np.abs(acc).reshape(8, -1).max(1))
 
 
+@pytest.mark.parametrize("mode", ["st", "host", "fused"])
+def test_faces_at_64_ranks_holds_the_numpy_replay(dev, mode):
+    """The benchmark's Faces program: 64 ranks of 64^3 float32, 20
+    iterations, 16 descriptors in flight. src, acc, it, the per-rank max
+    and every counter equal the NumPy replay (so the three modes equal
+    each other bit for bit); per iteration one pack, one unpack, one
+    increment and 26 put_signal launches, and one counter_bump (the
+    merged post signal) in st and fused, 27 in host (each completion its
+    own bump); st dispatches one unit per descriptor, fused one per
+    planned segment. st and fused replay one graph per program (fused:
+    one per segment): the counted run is a replay under sync-debug
+    "error", equal to the first run, whose tensors it leaves unchanged,
+    and to the eager emission, and the host launches each graph once."""
+    from repro_torch.core import host_dispatch_count
+    from repro_torch.core.backends import _emit_st
+    from repro_torch.core.engine import _emit_fused
+    grid, n, niter = (4, 4, 4), (64, 64, 64), 20
+    stream = STStream(dev, ("x", "y", "z"), grid_shape=grid)
+    halo.build_faces_program(stream, n, niter)
+    state = stream.allocate()
+    src0 = np.random.RandomState(6).randint(0, 4096, (64,) + n).astype(
+        np.float32)
+    state["faces.src"] = torch.from_numpy(src0).to(dev)
+    graphed = mode != "host"
+
+    def run():
+        return stream.synchronize(state, mode=mode, resources=16)
+    if graphed:
+        first = run()                       # warm-up, capture, replay
+        kept = {k: v.clone() for k, v in first.items()}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    d0 = stream.dispatches
+    torch.cuda.set_sync_debug_mode("error" if graphed else 0)
+    try:
+        out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    progs = stream.scheduled_programs(resources=16, fused=mode == "fused")
+    assert {k: _build.LAUNCHES[k] for k in (
+        "halo_pack", "halo_unpack", "faces_increment", "put_signal",
+        "counter_bump")} == {
+        "halo_pack": niter, "halo_unpack": niter, "faces_increment": niter,
+        "put_signal": 26 * niter,
+        "counter_bump": (27 if mode == "host" else 1) * niter}
+    segments = sum(host_dispatch_count(p) for p in progs)
+    if mode != "host":
+        assert stream.dispatches - d0 == (
+            segments if mode == "fused" else sum(len(p.nodes) for p in progs))
+    src, acc = _faces_replay(src0, grid, n, niter)
+    assert np.array_equal(out["faces.src"].cpu().numpy(), src)
+    assert np.array_equal(out["faces.acc"].cpu().numpy(), acc)
+    assert np.array_equal(out["faces.res"].cpu().numpy()[:, 0],
+                          np.abs(acc).reshape(64, -1).max(1))
+    for k in ("faces.it", "faces.post_sig", "faces.comp_sig"):
+        assert bool((out[k] == niter).all()), k
+    if graphed:
+        g, = (stream._fused_cache if mode == "fused"
+              else stream._compiled_cache).values()
+        assert len(g.chain) == (segments if mode == "fused" else 1)
+        assert _host_launches(run, calls=1, api="cudaGraphLaunch") == len(
+            g.chain)
+        eager = state
+        for prog in progs:
+            eager = (_emit_fused if mode == "fused" else _emit_st)(
+                stream, prog, eager)
+        for k in out:
+            assert torch.equal(out[k], first[k]), k
+            assert torch.equal(first[k], kept[k]), k
+            assert torch.equal(out[k], eager[k]), k
+
+
 # ---------------------------------------------------------------------------
 # attention kernels and the serving path
 # ---------------------------------------------------------------------------
@@ -570,8 +660,10 @@ def _assert_attn_close(out, ref):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,kvl,off,causal", [
     (2, 1000, 4096, 32, 8, 64, (1000, 1000), 0, True),   # granite prefill
+    (2, 1000, 1000, 32, 8, 64, (700, 1000), 0, True),    # kvl < Skv
     (1, 256, 256, 8, 8, 64, None, 0, True),              # G = 1
     (1, 200, 333, 4, 1, 128, (333,), 133, True),         # hd 128, ragged
+    (1, 200, 333, 8, 2, 128, (333,), 133, True),
     (2, 130, 512, 4, 2, 32, (90, 512), 0, True),         # kvl < Sq
     (2, 77, 300, 8, 4, 64, (300, 150), 0, False),        # not causal
     # the edges of the 64-row q-tiles, the 64-key tiles and their
@@ -587,6 +679,9 @@ def _assert_attn_close(out, ref):
     (2, 129, 127, 8, 8, 64, (127, 64), 0, True),
     (1, 1, 1000, 32, 8, 64, (1000,), 999, True),         # one row, last key
     (1, 1000, 1000, 64, 8, 128, (1000,), 0, True),       # jamba prefill
+    (2, 1000, 4096, 64, 8, 128, (1000, 1000), 0, True),  # in its cache
+    # a 1-row q-tile, a 1-key tile, kv_valid_len on a tile boundary
+    (2, 65, 129, 16, 2, 128, (129, 64), 64, True),
     # llama-3.2-vision's cross layers: the prompt against every one of
     # the 1600 vision rows, no valid length; prompts of no multiple of 64
     (8, 1000, 1600, 64, 8, 128, None, 0, False),
@@ -619,16 +714,20 @@ def test_flash_attention_kernel_equals_plain(dev, dtype, B, Sq, Skv, H, KV,
     (8, 4096, 32, 8, 64, (1000, 128, 4095, 0, 600, 257, 3000, 64)),
     (2, 512, 8, 8, 64, (100, 511)),                      # G = 1
     (3, 1024, 4, 1, 128, (5, 700, 1023)),                # hd 128
+    (3, 1024, 8, 2, 128, (5, 700, 1023)),
     (2, 200, 16, 2, 32, (199, 13)),                      # ragged S
     # split edges: one key (only split 0 holds keys), fewer keys than
     # splits (empty splits), as many keys as splits x 4 (equal splits),
     # S = 1000 keys (no multiple of the split width or the 64-key tile)
     (4, 1000, 8, 2, 64, (0, 14, 63, 999)),               # G = 4
     (3, 4096, 64, 8, 128, (1016, 0, 4095)),              # jamba, G = 8
+    (8, 4096, 64, 8, 128, (1016, 144, 528, 1016, 272, 1016, 528, 144)),
     (2, 129, 8, 8, 128, (128, 3)),                       # G = 1, hd 128
     # more than 16 heads per KV head: the bf16 kernel's head groups
     (2, 300, 32, 1, 64, (299, 17)),                      # G = 32
     (1, 200, 20, 1, 32, (150,)),                         # G = 20: 16 + 4
+    # granite-34b's MQA: 48 query heads on one KV head (three groups)
+    (8, 4096, 48, 1, 128, (1016, 144, 528, 1016, 272, 1016, 528, 144)),
     (8, 4096, 32, 32, 64, (1000, 128, 4095, 0, 600, 257, 3000, 64)),
     #                                                      musicgen, MHA
 ])
@@ -925,28 +1024,33 @@ def test_wkv6_staged_kernel_gives_the_sequential_kernels_bits(dev, hd):
         assert torch.equal(s2, sT)
 
 
-def test_wkv6_kernel_carries_state_writes_in_place_reads_views(dev):
+@pytest.mark.parametrize("dtype,B,S,H,cut", [
+    (torch.bfloat16, 2, 300, 4, 123),
+    # rwkv6-1.6b's ragged prefill, carried over two 500-step launches
+    (torch.bfloat16, 3, 1000, 32, 500), (torch.float32, 3, 1000, 32, 500)])
+def test_wkv6_kernel_carries_state_writes_in_place_reads_views(dev, dtype, B,
+                                                               S, H, cut):
     """Two launches with the state carried equal one; ``inplace`` writes
     the final state over s0; r, k, v may be head slices of a wider
     projection, s0 some slots' rows of a cache."""
     from repro_torch.kernels.rwkv6 import wkv6, wkv6_ref
-    r, k, v, logw, u, s0 = _wkv_inputs(dev, torch.bfloat16, 2, 300, 4, 64)
+    r, k, v, logw, u, s0 = _wkv_inputs(dev, dtype, B, S, H, 64)
     y, sT = wkv6(r, k, v, logw, u, s0)
-    y1, s1 = wkv6(r[:, :123], k[:, :123], v[:, :123], logw[:, :123], u, s0)
-    y2, s2 = wkv6(r[:, 123:], k[:, 123:], v[:, 123:], logw[:, 123:], u, s1)
+    y1, s1 = wkv6(r[:, :cut], k[:, :cut], v[:, :cut], logw[:, :cut], u, s0)
+    y2, s2 = wkv6(r[:, cut:], k[:, cut:], v[:, cut:], logw[:, cut:], u, s1)
     torch.testing.assert_close(torch.cat([y1, y2], 1), y, rtol=0,
                                atol=WKV_ATOL)
     torch.testing.assert_close(s2, sT, rtol=0, atol=WKV_ATOL)
-    cache = torch.zeros((5, 4, 64, 64), device=dev)
-    cache[1:3] = s0
-    wide = torch.cat([r, r], dim=2)[:, :, 2:6]          # heads 2..5
+    cache = torch.zeros((B + 3, H, 64, 64), device=dev)
+    cache[1:B + 1] = s0
+    wide = torch.cat([r, r], dim=2)[:, :, 2:2 + H]      # heads 2..H+1
     assert not wide.is_contiguous()
-    _, out = wkv6(wide, k, v, logw, u, cache[1:3], inplace=True)
-    assert out.data_ptr() == cache[1:3].data_ptr()
-    torch.testing.assert_close(cache[1:3],
+    _, out = wkv6(wide, k, v, logw, u, cache[1:B + 1], inplace=True)
+    assert out.data_ptr() == cache[1:B + 1].data_ptr()
+    torch.testing.assert_close(cache[1:B + 1],
                                wkv6_ref(wide, k, v, logw, u, s0)[1],
                                rtol=0, atol=WKV_ATOL)
-    assert not cache[0].any() and not cache[3:].any()
+    assert not cache[0].any() and not cache[B + 1:].any()
 
 
 def test_wkv6_kernel_refuses_what_it_cannot_take(dev):
@@ -1060,16 +1164,25 @@ def test_mamba_scan_kernel_equals_plain(dev, dtype, B, S, di, ds):
     assert _build.LAUNCHES["mamba_scan"] == 1
     assert y.dtype == dtype and hT.dtype == torch.float32
     _assert_scan_close(y, hT, *mamba_scan_ref(*ins))
+    # b and c are strided column slices: contiguous copies give the same
+    yc, hc = mamba_scan(*ins[:2], ins[2].contiguous(), ins[3].contiguous(),
+                        *ins[4:])
+    assert torch.equal(yc, y) and torch.equal(hc, hT)
 
 
-def test_mamba_scan_kernel_carries_state_writes_in_place_reads_views(dev):
+@pytest.mark.parametrize("dtype,B,di", [
+    (torch.bfloat16, 2, 4096),
+    # jamba's prefill at full width
+    (torch.bfloat16, 4, 16384), (torch.float32, 4, 16384)])
+def test_mamba_scan_kernel_carries_state_writes_in_place_reads_views(
+        dev, dtype, B, di):
     """Two launches of 500 steps with the state carried equal one of
     1000; ``inplace`` writes the final state over h0 (some slots' rows of
     a cache); b and c are strided column slices (checked by the
     contiguous copies giving the same result)."""
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
-    a, dt, b, c, x, h0 = _scan_inputs(dev, torch.bfloat16, 2, 1000, 4096,
-                                      16, seed=1, extra=512)
+    a, dt, b, c, x, h0 = _scan_inputs(dev, dtype, B, 1000, di, 16, seed=1,
+                                      extra=512)
     assert not b.is_contiguous() and b.stride(1) == 512 + 32
     y, hT = mamba_scan(a, dt, b, c, x, h0)
     y1, h1 = mamba_scan(a, dt[:, :500], b[:, :500], c[:, :500],
@@ -1079,12 +1192,12 @@ def test_mamba_scan_kernel_carries_state_writes_in_place_reads_views(dev):
     _assert_scan_close(torch.cat([y1, y2], 1), h2, y, hT)
     yc, hc = mamba_scan(a, dt, b.contiguous(), c.contiguous(), x, h0)
     assert torch.equal(yc, y) and torch.equal(hc, hT)
-    cache = torch.zeros((5, 4096, 16), device=dev)
-    cache[1:3] = h0
-    yi, out = mamba_scan(a, dt, b, c, x, cache[1:3], inplace=True)
+    cache = torch.zeros((B + 3, di, 16), device=dev)
+    cache[1:B + 1] = h0
+    yi, out = mamba_scan(a, dt, b, c, x, cache[1:B + 1], inplace=True)
     assert out.data_ptr() == cache[1].data_ptr()
-    assert torch.equal(yi, y) and torch.equal(cache[1:3], hT)
-    assert not cache[0].any() and not cache[3:].any()
+    assert torch.equal(yi, y) and torch.equal(cache[1:B + 1], hT)
+    assert not cache[0].any() and not cache[B + 1:].any()
     _assert_scan_close(y, hT, *mamba_scan_ref(a, dt, b, c, x, h0))
 
 
@@ -1462,18 +1575,22 @@ def test_mla_decode_graph_equals_eager_decode(dev, moe_impl):
 # ST-routed decode on the card
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("kv_dim,d_model", [(512, 2048), (1024, 8192)],
+                         ids=["granite", "jamba"])
 @pytest.mark.parametrize("mode", ["st", "host", "fused"])
-def test_st_router_on_the_card_equals_its_cpu_route(dev, mode):
-    """The router at 4 virtual ranks with MoE dispatch, on the card and on
-    the CPU, the same payloads (bf16 KV rows and hidden blocks on the
-    card, staged as float32): the committed ids, KV rows and combined
-    hidden blocks equal bit for bit; the puts ride put_signal (st and
-    fused: with their completion signal) and every post signal a
-    counter_bump, and st and fused replay their program graphs."""
+def test_st_router_on_the_card_equals_its_cpu_route(dev, mode, kv_dim,
+                                                    d_model):
+    """The router at 4 virtual ranks with MoE dispatch at granite's and
+    jamba's payload widths, on the card and on the CPU, the same payloads
+    (bf16 KV rows and hidden blocks on the card, staged as float32): the
+    committed ids, KV rows and combined hidden blocks equal bit for bit;
+    the puts ride put_signal (st and fused: with their completion signal)
+    and every post signal a counter_bump, and st and fused replay their
+    program graphs."""
     from repro_torch.core.autotune import ScheduleConfig
     from repro_torch.serving import STDecodeRouter
     cfg = ScheduleConfig(nstreams=2, double_buffer=True)
-    routers = {d: STDecodeRouter(kv_dim=512, d_model=2048, moe=True,
+    routers = {d: STDecodeRouter(kv_dim=kv_dim, d_model=d_model, moe=True,
                                  slot_cap=8, mode=mode, config=cfg, ndev=4,
                                  device=d) for d in (dev, "cpu")}
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1482,10 +1599,10 @@ def test_st_router_on_the_card_equals_its_cpu_route(dev, mode):
     for i, A in enumerate((8, 8, 1, 5, 8, 1, 8)):
         if i == 3:
             _build.reset_launches()
-        kv = torch.randn(A, 512, generator=gen, device=dev).bfloat16()
+        kv = torch.randn(A, kv_dim, generator=gen, device=dev).bfloat16()
         ids = torch.randint(0, 49155, (A,), generator=gen, device=dev,
                             dtype=torch.int32)
-        hid = torch.randn(A, 2048, generator=gen, device=dev).bfloat16()
+        hid = torch.randn(A, d_model, generator=gen, device=dev).bfloat16()
         got = routers[dev].dispatch(kv, ids, hid=hid)
         want = routers["cpu"].dispatch(kv.cpu(), ids.cpu(), hid=hid.cpu())
         for g, w in zip(got, want):
@@ -1591,10 +1708,11 @@ def test_granite_st_engine_serves_its_baseline_tokens(dev, mode):
 @pytest.mark.parametrize("periodic", [True, False])
 def test_put_multicast_equals_plain_version(dev, periodic, dtype):
     """The broadcast's three branches on a (2, 4) grid (and, not
-    periodic, branches with -1 entries), rows of 1, 3, 64 and 4096
-    elements, aligned and one element off a 16-byte boundary, with and
-    without the signal; and a hand-made table with repeated sources and
-    an empty branch: bit for bit the plain version, one kernel a call."""
+    periodic, branches with -1 entries), rows of 1, 3, 64, 4096 and 4097
+    elements, aligned and one element off a 16-byte boundary, and the
+    broadcast's own payload (2048 x 2048 tiles), with and without the
+    signal; and a hand-made table with repeated sources and an empty
+    branch: bit for bit the plain version, one kernel a call."""
     from repro_torch.kernels.counter_bump import (put_multicast,
                                                   put_multicast_ref)
     stream = STStream(dev, ("row", "col"), periodic=periodic,
@@ -1609,30 +1727,34 @@ def test_put_multicast_equals_plain_version(dev, periodic, dtype):
                         dtype=torch.int32)
     odd = torch.tensor([[3, -1, 0, 7, 7, -1, 1, 2], [-1] * 8,
                         [0, 1, 2, 3, 4, 5, 6, 7]], device=dev)
+    xs = [torch.randint(0, 100, (R, 2048, 2048), generator=gen,
+                        device=dev).to(dtype)]
+    for s in (1, 3, 64, 4096, 4097):
+        wide = torch.randint(0, 100, (R, s + 1), generator=gen,
+                             device=dev).to(dtype)
+        xs += [wide[:, :s].contiguous(), wide[:, 1:]]
     calls = 0
     _build.reset_launches()
     for table in (perms, odd):
-        for s in (1, 3, 64, 4096):
-            wide = torch.randint(0, 100, (R, s + 1), generator=gen,
-                                 device=dev).to(dtype)
-            for x in (wide[:, :s].contiguous(), wide[:, 1:]):
-                want = put_multicast_ref(x, table)
-                got = put_multicast(x, table)
-                assert all(torch.equal(g, w) for g, w in zip(got, want))
-                got, cnt = put_multicast(x, table, sig, upd)
-                assert all(torch.equal(g, w) and g.dtype == dtype
-                           for g, w in zip(got, want))
-                assert torch.equal(cnt, sig + upd)
-                calls += 2
+        for x in xs:
+            want = put_multicast_ref(x, table)
+            got = put_multicast(x, table)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            got, cnt = put_multicast(x, table, sig, upd)
+            assert all(torch.equal(g, w) and g.dtype == dtype
+                       and g.is_contiguous() for g, w in zip(got, want))
+            assert torch.equal(cnt, sig + upd)
+            calls += 2
     assert _build.LAUNCHES["put_multicast"] == calls
     x = torch.randn((R, 64), generator=gen, device=dev)
     assert _host_launches(lambda: put_multicast(x, perms, sig, upd)) == 3
 
 
-def _host_launches(fn, calls=3):
-    """Kernel launches the host makes in ``calls`` calls of ``fn()``
-    (the profiler's cudaLaunchKernel calls: host events, which a short
-    trace does not drop as it can drop device events)."""
+def _host_launches(fn, calls=3, api="cudaLaunchKernel"):
+    """Launches the host makes in ``calls`` calls of ``fn()``: the
+    profiler's calls of the CUDA runtime's ``api`` (kernel launches by
+    default, or graph launches), host events, which a short trace does
+    not drop as it can drop device events."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1642,7 +1764,7 @@ def _host_launches(fn, calls=3):
             fn()
         torch.cuda.synchronize()
     return sum(e.count for e in prof.key_averages()
-               if e.key.startswith("cudaLaunchKernel"))
+               if e.key.startswith(api))
 
 
 def _transport(dev, name):
@@ -1744,20 +1866,50 @@ def test_program_graph_copies_out_only_what_it_writes(dev):
 # training: the kernels under autograd, a train step, the checkpointer
 # ---------------------------------------------------------------------------
 
-def _function_case(fn, ref, args, grad_idx, g):
+# the autograd Function a kernel's calls with a gradient go through, as
+# the profiler names its forward
+FUNCTIONS = {"flash_attention": "FlashAttention", "wkv6": "WKV6",
+             "mamba_scan": "MambaScan"}
+
+
+def _launches_inside(function, fn, calls=4):
+    """Kernel launches the host makes inside the forward of the autograd
+    Function named ``function`` in ``calls`` calls of ``fn()`` (the
+    profiler's host events and their parents)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    inside = 0
+    for e in prof.events():
+        if "LaunchKernel" in e.name:
+            p = e.cpu_parent
+            while p is not None and p.name != function:
+                p = p.cpu_parent
+            inside += p is not None
+    return inside
+
+
+def _function_case(name, fn, ref, args, grad_idx, g):
     """The Function's forward against the bare kernel (no grad), its
-    gradients against autograd through the plain version; returns the
-    largest gradient difference."""
+    gradients against autograd through the plain version; one launch of
+    kernel ``name`` inside the Function's forward, and one over a forward
+    and its backward (the backward is the plain version's VJP)."""
     leaves = [a.clone().requires_grad_(i in grad_idx)
               for i, a in enumerate(args)]
     with torch.no_grad():
         bare = fn(*args)
+    assert _launches_inside(FUNCTIONS[name], lambda: fn(*leaves)) == 4
+    _build.reset_launches()
     out = fn(*leaves)
     outs = out if isinstance(out, tuple) else (out,)
     bares = bare if isinstance(bare, tuple) else (bare,)
     for a, b in zip(outs, bares):
         assert torch.equal(a, b)
     outs[0].backward(g)
+    assert _build.LAUNCHES[name] == 1
     plain = [a.clone().requires_grad_(i in grad_idx)
              for i, a in enumerate(args)]
     r = ref(*plain)
@@ -1771,27 +1923,32 @@ def _function_case(fn, ref, args, grad_idx, g):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S", [16, 77])
-def test_flash_attention_function_equals_plain_version(dev, dtype, S):
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (2, 16, 4, 2, 64), (2, 77, 4, 2, 64),
+    # granite-3-2b's and jamba's train cells, and an odd length
+    (2, 1024, 32, 8, 64), (2, 1023, 32, 8, 64), (1, 256, 64, 8, 128)])
+def test_flash_attention_function_equals_plain_version(dev, dtype, B, S, H,
+                                                       KV, hd):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     gen = torch.Generator(device=dev).manual_seed(S)
-    B, H, KV, hd = 2, 4, 2, 64
     q, k, v, g = (torch.randn((B, S, h, hd), generator=gen,
                               device=dev).to(dtype)
                   for h in (H, KV, KV, H))
     pos = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(B, S)
     _function_case(
-        lambda *a: flash_attention(*a, q_positions=pos),
+        "flash_attention", lambda *a: flash_attention(*a, q_positions=pos),
         lambda *a: flash_attention_ref(*a, q_offset=pos[:, 0]),
         (q, k, v), (0, 1, 2), g)
 
 
-@pytest.mark.parametrize("S", [1, 40])
-def test_wkv6_function_equals_plain_version(dev, S):
+@pytest.mark.parametrize("B,S,H,hd", [
+    (2, 1, 2, 32), (2, 40, 2, 32),
+    # rwkv6-1.6b's train cell, and an odd length
+    (2, 512, 32, 64), (2, 511, 32, 64)])
+def test_wkv6_function_equals_plain_version(dev, B, S, H, hd):
     from repro_torch.kernels.rwkv6 import wkv6, wkv6_ref
     gen = torch.Generator(device=dev).manual_seed(S)
-    B, H, hd = 2, 2, 32
     r, k, v = (torch.randn((B, S, H, hd), generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
     logw = -torch.exp(torch.randn((B, S, H, hd), generator=gen, device=dev)
@@ -1799,25 +1956,27 @@ def test_wkv6_function_equals_plain_version(dev, S):
     u = 0.5 * torch.randn((H, hd), generator=gen, device=dev)
     s0 = torch.randn((B, H, hd, hd), generator=gen, device=dev)
     g = torch.randn((B, S, H, hd), generator=gen, device=dev)
-    _function_case(wkv6, wkv6_ref, (r, k, v, logw, u, s0),
+    _function_case("wkv6", wkv6, wkv6_ref, (r, k, v, logw, u, s0),
                    (0, 1, 2, 3, 4, 5), g)
 
 
-@pytest.mark.parametrize("S", [1, 33])
-def test_mamba_scan_function_equals_plain_version(dev, S):
+@pytest.mark.parametrize("B,S,di,ds,dtype", [
+    (2, 1, 64, 8, torch.float32), (2, 33, 64, 8, torch.float32),
+    # jamba's train cell (bf16 dt, b, c and x), and an odd length
+    (1, 256, 16384, 16, torch.bfloat16), (1, 255, 16384, 16, torch.bfloat16)])
+def test_mamba_scan_function_equals_plain_version(dev, B, S, di, ds, dtype):
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
     gen = torch.Generator(device=dev).manual_seed(S)
-    B, di, ds = 2, 64, 8
     a_log = 0.5 * torch.randn((di, ds), generator=gen, device=dev)
     dt = torch.nn.functional.softplus(
-        torch.randn((B, S, di), generator=gen, device=dev) - 2.0)
-    b, c = (torch.randn((B, S, ds), generator=gen, device=dev)
+        torch.randn((B, S, di), generator=gen, device=dev) - 2.0).to(dtype)
+    b, c = (torch.randn((B, S, ds), generator=gen, device=dev).to(dtype)
             for _ in range(2))
-    xc = torch.randn((B, S, di), generator=gen, device=dev)
+    xc = torch.randn((B, S, di), generator=gen, device=dev).to(dtype)
     h0 = torch.randn((B, di, ds), generator=gen, device=dev)
-    g = torch.randn((B, S, di), generator=gen, device=dev)
-    _function_case(mamba_scan, mamba_scan_ref, (a_log, dt, b, c, xc, h0),
-                   (0, 1, 2, 3, 4, 5), g)
+    g = torch.randn((B, S, di), generator=gen, device=dev).to(dtype)
+    _function_case("mamba_scan", mamba_scan, mamba_scan_ref,
+                   (a_log, dt, b, c, xc, h0), (0, 1, 2, 3, 4, 5), g)
 
 
 def test_inplace_call_needing_a_gradient_raises(dev):

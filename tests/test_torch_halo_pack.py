@@ -5,7 +5,7 @@ the JAX package's Pallas kernels — run in interpret mode, as
 ``tests/test_kernels.py`` runs them — bit for bit, per rank of a batch,
 and the generic packed/chunked put helpers must equal their jnp
 counterparts. The CUDA kernels themselves are held against these plain
-versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+versions on the card (``tests/test_torch_cuda.py``).
 """
 import types
 

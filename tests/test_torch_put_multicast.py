@@ -15,7 +15,7 @@
     bump per post signal; in host mode the multicast without its signal
     and one more bump per multicast (its completion tree). The kernel
     itself is held against the plain version on the card
-    (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+    (``tests/test_torch_cuda.py``).
 """
 import types
 

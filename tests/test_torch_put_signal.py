@@ -9,7 +9,7 @@ followed by a max|acc| pass. The emission must call the signal-carrying
 put once per put and the standalone bump once per post signal in st and
 fused mode, and the bump once more per put in host mode. The CUDA
 kernels themselves are held against these plain versions on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+(``tests/test_torch_cuda.py``).
 """
 import numpy as np
 import pytest
