@@ -539,6 +539,17 @@ def layers_of(mixers, which):
                (which if isinstance(which, tuple) else (which,)))
 
 
+def norm_launches(cfg):
+    """The rmsnorm kernel's launches in one forward of ``cfg`` on the
+    kernel route: each block's two norms (the residual add before each
+    but the first's riding in it), the final norm, and a Mamba mixer's
+    dt, B and C norms where it has them."""
+    mixers = [m for m, _ in cfg.layer_specs()]
+    inner = cfg.mamba is not None and cfg.mamba.inner_norms
+    return 2 * cfg.num_layers + 1 + (3 * mixers.count("mamba") if inner
+                                     else 0)
+
+
 def serve_requests(Request, cfg, rng):
     """``requests(n, lengths=None, new=SERVE_NEW)``: ``n`` requests of
     prompts drawn from ``rng`` at ``lengths`` (by default drawn from
@@ -563,7 +574,8 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
     submitted at once and drained. ``kernels`` = {"prefill": {kernel:
     mixer or a tuple of mixers}, "decode": {...}}: each kernel must launch
     once per layer of its mixers in every prefill dispatch and decode
-    step of the counted run (and no other kernel of those lists). Then
+    step of the counted run (and no other kernel of those lists), and
+    rmsnorm :func:`norm_launches` times in each. Then
     the decode graph against the eager step. ``redraw`` (params,
     generator) may redraw leaves the init leaves constant; ``moe_impl``
     is the engine's MoE implementation; ``params`` serves weights already
@@ -588,7 +600,8 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
     check(isinstance(graphed, serving["graphs"].StepGraph),
           f"{arch}: the engine's decode step is not a graph")
     requests = serve_requests(eng_mod.Request, cfg, np.random.RandomState(0))
-    names = sorted(set(kernels["prefill"]) | set(kernels["decode"]))
+    names = sorted(set(kernels["prefill"]) | set(kernels["decode"])
+                   | {"rmsnorm"})
     for r in requests(2, (SERVE_LENGTHS[0], SERVE_LENGTHS[-1]), 3):
         eng.submit(r)
     eng.run_until_drained()
@@ -615,6 +628,7 @@ def phase_serve(dev, _build, serving, cfg, dims, kernels, redraw=None,
               f"{len(per[kind])} counted")
         want = {k: layers_of(mixers, kernels[kind][k])
                 if k in kernels[kind] else 0 for k in names}
+        want["rmsnorm"] = norm_launches(cfg)
         for i, got in enumerate(per[kind]):
             check({k: got[k] for k in names} == want,
                   f"{kind} dispatch {i}: launches {got}, want {want}")
@@ -677,7 +691,7 @@ def phase_st_serve(dev, _build, serving, cfg, params, reqs, kernels, modes):
     served tokens must equal the baseline's bit for bit; every put of the
     serve program is one put_signal launch, every post signal one
     counter_bump (host mode: plus one a put), and the model's kernels
-    launch as in phase_serve."""
+    launch as in phase_serve, rmsnorm too."""
     eng_mod = serving["serving"]
     Request = eng_mod.Request
     mixers = [m for m, _ in cfg.layer_specs()]
@@ -719,6 +733,9 @@ def phase_st_serve(dev, _build, serving, cfg, params, reqs, kernels, modes):
                     and k in kernels["decode"] else want_per)
                 check(launches[k] == want, f"{cfg.name} st_mode={mode}: "
                       f"{launches[k]} {k} launches, want {want}")
+        want = norm_launches(cfg) * (pre + steps)
+        check(launches["rmsnorm"] == want, f"{cfg.name} st_mode={mode}: "
+              f"{launches['rmsnorm']} rmsnorm launches, want {want}")
         line = {"phase": "st_serve", "arch": cfg.name, "st_mode": mode,
                 "ranks": ST_RANKS, "requests": len(run),
                 "tokens_equal_baseline": True,
@@ -1359,8 +1376,10 @@ def phase_deepseek(dev, _build, serving, cfgs):
                              num_layers=DEEPSEEK_LAYERS)
     check(ds.layer_specs() == [("mla", "dense")] + [("mla", "moe")] * 3,
           f"deepseek-v2 cut layers {ds.layer_specs()}")
-    mla_kernels = {"prefill": {"flash_attention": "mla"},
-                   "decode": {"decode_attention": "attn"}}   # none
+    mla_kernels = {"prefill": {"flash_attention": "mla",
+                               "rope_cache": "attn"},        # none
+                   "decode": {"decode_attention": "attn",    # none
+                              "rope_cache": "attn"}}         # none
     params, reqs = phase_serve(
         dev, _build, serving, ds,
         dict(num_layers=DEEPSEEK_LAYERS, d_model=5120, num_heads=128,
@@ -1390,8 +1409,8 @@ def phase_deepseek(dev, _build, serving, cfgs):
              first_dense_ff=10944,
              moe=MoE(num_experts=64, top_k=6, expert_ff=1408, num_shared=2,
                      shared_ff=2816)),
-        {"prefill": {"flash_attention": "attn"},
-         "decode": {"decode_attention": "attn"}})
+        {"prefill": {"flash_attention": "attn", "rope_cache": "attn"},
+         "decode": {"decode_attention": "attn", "rope_cache": "attn"}})
     del params, reqs
     torch.cuda.empty_cache()
 
@@ -1625,9 +1644,11 @@ def phase_vision(dev, _build, serving, cfgs):
           f"llama-3.2-vision cut layers {cfg.layer_specs()}")
     both = ("attn", "cross")
     kernels = {"prefill": {"flash_attention": both,
-                           "flash_attention_cross": "cross"},
+                           "flash_attention_cross": "cross",
+                           "rope_cache": "attn"},
                "decode": {"decode_attention": both,
-                          "decode_attention_cross": "cross"}}
+                          "decode_attention_cross": "cross",
+                          "rope_cache": "attn"}}
     for k in CROSS_LAUNCHES:
         _build.LAUNCHES[k] = 0
     try:
@@ -2172,8 +2193,10 @@ def main():
     torch.cuda.empty_cache()
     serving = {"configs": cfgs, "models": models, "serving": serving_mod,
                "graphs": core.graphs}
-    granite_kernels = {"prefill": {"flash_attention": "attn"},
-                       "decode": {"decode_attention": "attn"}}
+    granite_kernels = {"prefill": {"flash_attention": "attn",
+                                   "rope_cache": "attn"},
+                       "decode": {"decode_attention": "attn",
+                                  "rope_cache": "attn"}}
     cfg = cfgs.get_config("granite-3-2b")
     params, reqs = phase_serve(
         dev, _build, serving, cfg,
@@ -2189,7 +2212,8 @@ def main():
         dev, _build, serving, cfg,
         dict(num_layers=24, d_model=2048, num_heads=32, head_dim=64,
              d_ff=7168, vocab_size=65536, rwkv=cfgs.RWKVConfig(64)),
-        {"prefill": {"wkv6": "rwkv"}, "decode": {"wkv6": "rwkv"}},
+        {"prefill": {"wkv6": "rwkv", "rope_cache": "attn"},     # none
+         "decode": {"wkv6": "rwkv", "rope_cache": "attn"}},
         redraw=rwkv_redraw)
     phase_replay(dev, serving, cfg, params, reqs,
                  shadow=(models.rwkv, "wkv6", wkv6, wkv6_ref, "rwkv"),
@@ -2201,8 +2225,10 @@ def main():
     cfg = dataclasses.replace(cfgs.get_config("jamba-1.5-large-398b"),
                               num_layers=JAMBA_LAYERS)
     jamba_kernels = {
-        "prefill": {"flash_attention": "attn", "mamba_scan": "mamba"},
-        "decode": {"decode_attention": "attn", "mamba_scan": "mamba"}}
+        "prefill": {"flash_attention": "attn", "mamba_scan": "mamba",
+                    "rope_cache": "attn"},
+        "decode": {"decode_attention": "attn", "mamba_scan": "mamba",
+                   "rope_cache": "attn"}}
     params, reqs = phase_serve(
         dev, _build, serving, cfg,
         dict(num_layers=JAMBA_LAYERS, d_model=8192, num_heads=64,

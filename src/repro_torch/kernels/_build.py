@@ -82,6 +82,18 @@ LIBRARIES = {
         "mamba_scan_launch": (_INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                               _PTR, _PTR, _INT, _INT, _INT, _STRIDES, _PTR),
     },
+    # rmsnorm: (dtype, scale dtype, x, x row stride, delta or NULL, its row
+    #  stride, sum or NULL, y, scale, rows, D, eps, stream); rope_cache:
+    #  (dtype, cache dtype, q, k, v, q out or NULL, cache k, cache v, cos or
+    #  NULL, sin or NULL, cols, strides[19], B, S, H, KV, hd, max_len,
+    #  stream)
+    "norm_rope": {
+        "rmsnorm_launch": (_INT, _INT, _PTR, _I64, _PTR, _I64, _PTR, _PTR,
+                           _PTR, _I64, _INT, ctypes.c_float, _PTR),
+        "rope_cache_launch": (_INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+                              _PTR, _PTR, _PTR, _STRIDES, _INT, _INT, _INT,
+                              _INT, _INT, _I64, _PTR),
+    },
 }
 
 # launches per kernel since the last reset_launches(); a wrapper adds
@@ -91,7 +103,7 @@ LAUNCHES: Dict[str, int] = {"halo_pack": 0, "halo_unpack": 0,
                             "put_signal": 0, "put_multicast": 0,
                             "flash_attention": 0,
                             "decode_attention": 0, "wkv6": 0,
-                            "mamba_scan": 0}
+                            "mamba_scan": 0, "rmsnorm": 0, "rope_cache": 0}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -27,7 +27,9 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
-from repro_torch.models.layers import apply_rope, rmsnorm_nl, rope_table
+from repro_torch.kernels.norm_rope import rope_cache
+from repro_torch.models.layers import (apply_rope, kernel_route, rmsnorm_nl,
+                                       rope_table)
 from repro_torch.models.params import ParamSpec
 
 
@@ -191,7 +193,10 @@ def attention(cfg, params, x, *, positions, cache=None, shared=None):
     layer's {"k", "v"} (B, max_len, KV, hd) buffers, updated in place
     (the returned cache is the same dict), or None (no cache: attend
     within x only). shared: :func:`shared_inputs` of the positions, if
-    the caller made it once for all layers.
+    the caller made it once for all layers. With a cache, the rotation
+    of q and k and the two cache writes are one launch of the rope_cache
+    kernel where ``layers.kernel_route`` allows (bit for bit
+    :func:`apply_rope` and :func:`_update_cache`).
     """
     if shared is None:
         shared = shared_inputs(cfg, positions)
@@ -204,14 +209,20 @@ def attention(cfg, params, x, *, positions, cache=None, shared=None):
     if cfg.qk_norm:
         q = rmsnorm_nl(q, cfg.norm_eps) * params["q_norm"].to(dt)
         k = rmsnorm_nl(k, cfg.norm_eps) * params["k_norm"].to(dt)
-    if shared["rope"] is not None:
-        q = apply_rope(q, shared["rope"])
-        k = apply_rope(k, shared["rope"])
+    if cache is not None and kernel_route(cfg, q, k, v, cache["k"],
+                                          cache["v"]):
+        q = rope_cache(q, k, v, shared["rope"], cache["k"], cache["v"],
+                       shared["cache_index"])
+    else:
+        if shared["rope"] is not None:
+            q = apply_rope(q, shared["rope"])
+            k = apply_rope(k, shared["rope"])
+        if cache is not None:
+            _update_cache(cache["k"], k, shared["cache_index"])
+            _update_cache(cache["v"], v, shared["cache_index"])
 
     kv_valid_len = None
     if cache is not None:
-        _update_cache(cache["k"], k, shared["cache_index"])
-        _update_cache(cache["v"], v, shared["cache_index"])
         k, v = cache["k"].to(dt), cache["v"].to(dt)
         kv_valid_len = shared["kv_valid_len"]
 

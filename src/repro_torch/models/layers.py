@@ -6,13 +6,31 @@ compute dtype (cast at load, :mod:`.params`); ``.to(dt)`` below is then a
 no-op, and casts float32 weights per use as the reference does. Plain
 large products are ``torch.matmul``/``einsum``, as the reference leaves
 them to XLA.
+
+The model's norms (:func:`add_norm`) and its attention layers' RoPE and
+cache writes run as the hand-written kernels of ``kernels/norm_rope``
+where :func:`kernel_route` says so, and elsewhere as the plain
+composition, which lives once, in ``kernels/norm_rope/ref.py``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import norm_rope
 from repro_torch.models.params import ParamSpec
+
+
+def kernel_route(cfg, *tensors) -> bool:
+    """Whether the norm and RoPE kernels (``kernels/norm_rope``) take a
+    call on ``tensors``: each on CUDA in a dtype they take, no gradient
+    needed of any (grad mode off, or none requiring one), and
+    ``cfg.attn_impl`` not "plain". Otherwise the plain composition runs:
+    on the CPU, in training, and on the card's plain route."""
+    if cfg.attn_impl == "plain" or (torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors)):
+        return False
+    return all(t.is_cuda and t.dtype in norm_rope.DTYPES for t in tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -23,13 +41,18 @@ def rmsnorm_specs(dim: int) -> dict:
     return {"scale": ParamSpec((dim,), (None,), init="ones")}
 
 
-def rmsnorm(params, x, eps: float = 1e-5):
-    """Normalized in float32, scaled by the float32 scale, cast back."""
-    dt = x.dtype
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(dt)
+def add_norm(cfg, params, x, delta=None):
+    """(s, RMSNorm of s with ``cfg.norm_eps``), s = x + delta in x's dtype
+    (x itself where delta is None): a block's residual add and the norm
+    after it, one launch of the rmsnorm kernel where :func:`kernel_route`
+    allows, else ``norm_rope.rmsnorm_ref`` (normalized in float32, scaled
+    by the float32 scale, cast back)."""
+    scale = params["scale"]
+    tensors = (x, scale) if delta is None else (x, delta, scale)
+    if kernel_route(cfg, *tensors) and scale.dtype in (torch.float32,
+                                                       x.dtype):
+        return norm_rope.rmsnorm(x, scale, cfg.norm_eps, delta)
+    return norm_rope.rmsnorm_ref(x, scale, cfg.norm_eps, delta)
 
 
 def rmsnorm_nl(x, eps: float = 1e-5):
@@ -59,14 +82,9 @@ def rope_table(positions, head_dim: int, theta: float):
     return torch.cos(ang), torch.sin(ang)
 
 
-def apply_rope(x, table):
-    """x: (B, S, H, hd) rotated by the angles of ``table`` (its
-    :func:`rope_table`): the two halves of the head dim are rotated
-    together (not interleaved pairs), in float32, and cast back."""
-    cos, sin = table
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+# x: (B, S, H, hd) rotated by the angles of a :func:`rope_table`: the two
+# halves of the head dim rotated together, in float32, cast back
+apply_rope = norm_rope.rope_ref
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,9 @@ written.
 switch) applies an RMSNorm with a learned scale (``dt_norm``,
 ``b_norm``, ``c_norm``) and ``cfg.norm_eps`` to the dt_rank slice, B and
 C of the ``x_proj`` output before ``dt_proj`` and the scan, on every
-route: the kernel, the plain version and a decode step.
+route: the kernel, the plain version and a decode step. Each norm is
+:func:`.layers.add_norm` without a residual: the rmsnorm kernel, reading
+its slice in place, where ``layers.kernel_route`` allows.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import add_norm
 from repro_torch.models.params import ParamSpec
 
 
@@ -110,9 +112,9 @@ def mamba(cfg, params, x, *, cache=None):
     b_ssm = xdb[..., dtr:dtr + mb.d_state]             # strided views
     c_ssm = xdb[..., dtr + mb.d_state:]
     if mb.inner_norms:
-        dt_low = rmsnorm({"scale": params["dt_norm"]}, dt_low, cfg.norm_eps)
-        b_ssm = rmsnorm({"scale": params["b_norm"]}, b_ssm, cfg.norm_eps)
-        c_ssm = rmsnorm({"scale": params["c_norm"]}, c_ssm, cfg.norm_eps)
+        _, dt_low = add_norm(cfg, {"scale": params["dt_norm"]}, dt_low)
+        _, b_ssm = add_norm(cfg, {"scale": params["b_norm"]}, b_ssm)
+        _, c_ssm = add_norm(cfg, {"scale": params["c_norm"]}, c_ssm)
     dt = F.softplus(torch.matmul(dt_low, params["dt_proj"].to(dt_))
                     + params["dt_bias"].to(dt_))
 

@@ -14,6 +14,12 @@ A config with a ``vision`` stub has the modality frontend
 of ``batch["vision"]``, an audio model's input is its projection of
 ``batch["frames"]``.
 
+Where no gradient is needed and ``layers.kernel_route`` takes the
+tensors (the card, ``attn_impl`` "kernel"), each norm and the residual
+add before it are one launch of the rmsnorm kernel (``layers.add_norm``):
+a block hands its FFN output to the next block's first norm, the last
+block to the final norm.
+
 Training: ``forward`` is differentiable, and each block runs under the
 config's activation checkpointing (:func:`_maybe_remat`); the loss is
 :func:`lm_loss_fused`. The reference's ``cast_big_params`` casts the
@@ -119,10 +125,13 @@ def cache_specs(cfg, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _apply_block(cfg, spec, params, x, *, positions, cache, shared,
-                 vision, moe_impl):
-    """One block; returns (x, cache, MoE aux loss or None)."""
+                 vision, moe_impl, delta=None):
+    """One block; returns (x after the mixer's residual, the FFN's output,
+    MoE aux loss or None): the block's output is their sum, which the
+    caller adds, or hands the next block (or the final norm) as its
+    ``delta``, to be added with the norm after it in one launch."""
     mixer, ffn_kind = spec
-    h = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    x, h = L.add_norm(cfg, params["norm1"], x, delta)
     if mixer == "attn":
         with span("repro_torch.model.attn"):
             out, cache = attn_mod.attention(cfg, params["mixer"], h,
@@ -143,8 +152,7 @@ def _apply_block(cfg, spec, params, x, *, positions, cache, shared,
                                          cache=cache)
     else:
         out, cache = rwkv_mod.time_mix(cfg, params["mixer"], h, cache=cache)
-    x = x + out
-    h2 = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
+    x, h2 = L.add_norm(cfg, params["norm2"], x, out)
     aux = None
     if ffn_kind == "dense":
         out2 = L.ffn(params["ffn"], h2)
@@ -154,7 +162,13 @@ def _apply_block(cfg, spec, params, x, *, positions, cache, shared,
     else:
         out2, cache = rwkv_mod.channel_mix(cfg, params["ffn"], h2,
                                            cache=cache)
-    return x + out2, cache, aux
+    return x, out2, aux
+
+
+def _block(cfg, spec, params, x, **kw):
+    """One block's output, x + the FFN's output, and its aux loss."""
+    x, out2, aux = _apply_block(cfg, spec, params, x, **kw)
+    return x + out2, aux
 
 
 # the products whose outputs remat "dots" keeps: matrix products with no
@@ -246,15 +260,22 @@ def forward(cfg, params, batch, *, cache=None, moe_impl: str = "gshard"):
     if "mla" in mixers:
         shared["mla"] = mla_mod.shared_inputs(cfg, positions)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    # on the kernels' route a block's closing residual add rides in the
+    # next norm's launch; elsewhere each block adds it, under its remat
+    fused = L.kernel_route(cfg, x) and not _needs_grad(params, x)
+    delta = None
     for i, (sp, p) in enumerate(zip(specs, params["layers"])):
         c = cache["layers"][i] if cache is not None else None
-        block = functools.partial(_apply_block, cfg, sp, positions=positions,
-                                  cache=c, shared=shared, vision=vision,
-                                  moe_impl=moe_impl)
-        x, _, aux = _maybe_remat(cfg, block)(p, x)
+        kw = dict(positions=positions, cache=c, shared=shared, vision=vision,
+                  moe_impl=moe_impl)
+        if fused:
+            x, delta, aux = _apply_block(cfg, sp, p, x, delta=delta, **kw)
+        else:
+            x, aux = _maybe_remat(cfg, functools.partial(_block, cfg, sp,
+                                                         **kw))(p, x)
         if aux is not None:
             aux_total = aux_total + aux
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    _, x = L.add_norm(cfg, params["final_norm"], x, delta)
     return x, cache, aux_total
 
 

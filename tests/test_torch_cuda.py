@@ -2082,3 +2082,164 @@ def test_accounting_bytes_equal_the_live_tensors_on_the_card(dev):
     eng.run_until_drained()
     st = state_bytes(cfg, "decode", 4, 1, rules, cache_len=64)
     assert (st["params"], st["cache"]) == (nbytes(served), nbytes(eng.cache))
+
+
+# ---------------------------------------------------------------------------
+# the norm and RoPE kernels (csrc/norm_rope.cu)
+# ---------------------------------------------------------------------------
+
+# the units in the last place the rmsnorm kernel's y may differ by, by its
+# dtype: one for a bf16 y; for a float32 y, 16 float32 units (the sum of
+# squares taken in another order moves var, and so rsqrt(var + eps), by a
+# few units; a y rounded through bf16 would be off by ~2^15 of them)
+_Y_ULPS = {torch.bfloat16: (8, 1), torch.float32: (24, 16)}
+
+
+def _within_ulps(got, want, dtype):
+    """|got - want| at most ``_Y_ULPS[dtype]`` units in the last place of
+    want in ``dtype`` (mantissa bits, units), in every element."""
+    bits, units = _Y_ULPS[dtype]
+    g, w = got.double(), want.double()
+    _, e = torch.frexp(w)
+    return bool(((g - w).abs() <= units * torch.ldexp(torch.ones_like(w),
+                                                      e - bits)).all())
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "slice", "odd_slice"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("rows,D", [(32, 2048), (32, 4096), (32, 256),
+                                    (32, 16), (4000, 2048)])
+def test_rmsnorm_kernel_equals_plain(dev, rows, D, dtype, layout):
+    """The rmsnorm kernel against its plain version: y within one ulp of a
+    bf16 y and 16 of a float32 one in every element (only the sum of
+    squares is taken in another order), the residual sum bit for bit
+    x + delta; rows contiguous, a
+    column slice of a wider tensor at a 16-byte offset (jamba's Mamba
+    norms) and one off it (the scalar path)."""
+    from repro_torch.kernels.norm_rope import rmsnorm, rmsnorm_ref
+    gen = torch.Generator(device=dev).manual_seed(D)
+    off = {"contiguous": 0, "slice": 16, "odd_slice": 3}[layout]
+    wide = (torch.randn((rows, D + 32), generator=gen, device=dev) * 3
+            ).to(dtype)
+    x = wide[:, off:off + D] if off else wide[:, :D].contiguous()
+    delta = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
+    scale = (1 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+             ).to(dtype)
+    _build.reset_launches()
+    s0, y0 = rmsnorm(x, scale, 1e-5)
+    s1, y1 = rmsnorm(x, scale, 1e-5, delta)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["rmsnorm"] == 2
+    _, w0 = rmsnorm_ref(x, scale, 1e-5)
+    t1, w1 = rmsnorm_ref(x, scale, 1e-5, delta)
+    assert s0 is x and torch.equal(s1, t1) and torch.equal(s1, x + delta)
+    assert y0.dtype == y1.dtype == dtype
+    assert _within_ulps(y0, w0, dtype) and _within_ulps(y1, w1, dtype)
+    if dtype == torch.float32:            # float32 scale on a bf16 row too
+        xb, sb = x.bfloat16(), scale
+        assert _within_ulps(rmsnorm(xb, sb, 1e-5)[1],
+                            rmsnorm_ref(xb, sb, 1e-5)[1], torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("case", ["decode", "prefill", "prefill_view",
+                                  "no_rope_hd128"])
+def test_rope_cache_kernel_equals_plain(dev, case, dtype):
+    """rope_cache against apply_rope + _update_cache (its plain version)
+    bit for bit: the rotated q, and both caches whole, so every row it
+    should not write is unchanged. Granite's decode (32 slots, 32 / 8
+    heads, hd 64, ragged positions), its prefill (4 x 1000 from ragged
+    starts; into the cache whole and into a view of 4 of 6 slots), and
+    jamba's attention without RoPE at hd 128. The caches are bf16 (a
+    float32 compute rounds k and v into them)."""
+    from repro_torch.kernels.norm_rope import rope_cache, rope_cache_ref
+    from repro_torch.models.attention import cache_index
+    from repro_torch.models.layers import rope_table
+    B, S, H, KV, hd, L = {"decode": (32, 1, 32, 8, 64, 2560),
+                          "prefill": (4, 1000, 32, 8, 64, 4096),
+                          "prefill_view": (4, 1000, 32, 8, 64, 4096),
+                          "no_rope_hd128": (32, 1, 32, 8, 128, 512)}[case]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((B, S, n, hd), generator=gen, device=dev)
+               .to(dtype) for n in (H, KV, KV))
+    start = torch.randint(0, L - S, (B,), generator=gen, device=dev)
+    positions = start[:, None] + torch.arange(S, device=dev)
+    table = None if case == "no_rope_hd128" else rope_table(positions, hd,
+                                                            1e4)
+    index = cache_index(positions)
+    slots = 6 if case == "prefill_view" else B
+    caches = [torch.randn((slots, L, KV, hd), generator=gen, device=dev)
+              .bfloat16() for _ in range(2)]
+    want = [c.clone() for c in caches]
+    pick = slice(1, 1 + B) if case == "prefill_view" else slice(0, B)
+    _build.reset_launches()
+    got_q = rope_cache(q, k, v, table, caches[0][pick], caches[1][pick],
+                       index)
+    want_q = rope_cache_ref(q, k, v, table, want[0][pick], want[1][pick],
+                            index)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["rope_cache"] == 1
+    assert torch.equal(got_q, want_q) and got_q.dtype == dtype
+    assert torch.equal(caches[0], want[0]) and torch.equal(caches[1],
+                                                           want[1])
+    if table is None:
+        assert got_q is q
+
+
+def _device_ops(fn):
+    """Device operations (kernels, copies, memsets) one call of ``fn()``
+    runs, by the profiler; the most of three traces (a trace may drop
+    device records)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    best = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        best = max(best, sum(e.count for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA))
+    return best
+
+
+def test_granite_decode_graph_launches_and_device_ops(dev):
+    """granite-3-2b at its published widths, cut to 2 and to 4 layers,
+    served with 32 slots: one replay of the captured decode step launches
+    rmsnorm 2 L + 1 times (each block's two norms with their residual
+    adds, the final norm with the last), rope_cache L times and decode
+    attention L times. Its profiled device operations grow by at most 16
+    a layer, and put the whole 40 layers at no more than 650."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.serving import Request, ServingEngine
+    ops = {}
+    for layers in (2, 4):
+        cfg = dataclasses.replace(get_config("granite-3-2b"),
+                                  num_layers=layers)
+        params = init_params(model_specs(cfg), torch.Generator(
+            device=dev).manual_seed(0), dev, torch.bfloat16)
+        eng = ServingEngine(cfg, params, batch_slots=32, max_len=128,
+                            device=dev)
+        rng = np.random.RandomState(3)
+        for L in rng.randint(4, 40, 32):
+            eng.submit(Request(prompt=rng.randint(1, cfg.vocab_size, L)
+                               .astype(np.int32), max_new_tokens=16))
+        eng.step()                      # admission + the eager warm-up
+        eng.step()                      # capture + replay
+        g = eng._decode_sample
+        assert g.captures == 1 and len(eng._active()) == 32
+        batch = eng._decode_batch(eng._active())
+        _build.reset_launches()
+        g(eng.params, batch, eng.cache)
+        torch.cuda.synchronize()
+        assert g.captures == 1
+        assert (_build.LAUNCHES["rmsnorm"], _build.LAUNCHES["rope_cache"],
+                _build.LAUNCHES["decode_attention"]) == (2 * layers + 1,
+                                                         layers, layers)
+        ops[layers] = _device_ops(lambda: g(eng.params, batch, eng.cache))
+        del eng, g, params
+        torch.cuda.empty_cache()
+    per_layer = (ops[4] - ops[2]) / 2
+    assert per_layer <= 16, ops
+    assert ops[2] + 38 * per_layer <= 650, ops

@@ -356,7 +356,7 @@ def test_other_archs_are_unchanged_at_the_defaults(arch, monkeypatch):
     def no_norm(*a, **k):
         raise AssertionError("a Mamba norm applied at the defaults")
 
-    monkeypatch.setattr(mamba_mod, "rmsnorm", no_norm)
+    monkeypatch.setattr(mamba_mod, "add_norm", no_norm)
     impls = ["dense", "gshard"] if cfg.moe is not None else ["gshard"]
     for impl in impls:
         now = run(impl)
