@@ -10,6 +10,7 @@ from repro_torch.configs.base import (
     SHAPES,
     ShapeConfig,
     VisionStub,
+    YaRNConfig,
     get_config,
     group_layers,
     shape_applicable,
@@ -18,5 +19,5 @@ from repro_torch.configs.base import (
 __all__ = [
     "ARCH_IDS", "LayerGroups", "MLAConfig", "MambaConfig", "ModelConfig",
     "MoEConfig", "RWKVConfig", "SHAPES", "ShapeConfig", "VisionStub",
-    "get_config", "group_layers", "shape_applicable",
+    "YaRNConfig", "get_config", "group_layers", "shape_applicable",
 ]

@@ -40,6 +40,7 @@ Differences from the copy's original:
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -64,12 +65,55 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class MLAConfig:
-    """DeepSeek-V2 multi-head latent attention."""
+    """DeepSeek-V2 multi-head latent attention. ``q_lora_rank`` 0: the
+    query is one projection of the input (DeepSeek-V2-Lite's null
+    ``q_lora_rank``), not compressed through a normed latent."""
     kv_lora_rank: int = 512
     q_lora_rank: int = 1536
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class YaRNConfig:
+    """YaRN's RoPE scaling (arXiv:2309.00071) as DeepSeek-V2 publishes it
+    (``rope_scaling`` with ``"type": "yarn"`` in its config.json, and its
+    modelling code): the rotary frequencies at indices below the ramp's
+    ``low`` kept, those above its ``high`` divided by ``factor``, a
+    linear blend between; cos and sin multiplied by
+    :attr:`cos_sin_factor`; the attention's softmax scale multiplied by
+    :attr:`softmax_factor`."""
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+    def _mscale(self, m: float) -> float:
+        return 1.0 if self.factor <= 1 else 0.1 * m * math.log(self.factor) \
+            + 1.0
+
+    def ramp(self, dim: int, base: float) -> tuple:
+        """(low, high): the frequency indices at which the blend leaves
+        the original frequencies and reaches the interpolated ones, for a
+        rotary part ``dim`` wide at RoPE base ``base``."""
+        def at(rotations):
+            return dim * math.log(self.original_max_position_embeddings
+                                  / (rotations * 2 * math.pi)) \
+                / (2 * math.log(base))
+        return (max(math.floor(at(self.beta_fast)), 0),
+                min(math.ceil(at(self.beta_slow)), dim - 1))
+
+    @property
+    def cos_sin_factor(self) -> float:
+        return self._mscale(self.mscale) / self._mscale(self.mscale_all_dim)
+
+    @property
+    def softmax_factor(self) -> float:
+        return (self._mscale(self.mscale_all_dim) ** 2
+                if self.mscale_all_dim else 1.0)
 
 
 @dataclass(frozen=True)
@@ -162,6 +206,7 @@ class ModelConfig:
     head_dim: int = 0         # 0 -> d_model // num_heads
     qk_norm: bool = False
     rope_theta: float = 500_000.0
+    rope_scaling: Optional[YaRNConfig] = None   # deepseek-v2-lite: YaRN
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
 
@@ -259,8 +304,9 @@ class ModelConfig:
             elif mixer == "mla":
                 m = self.mla
                 qh = self.num_heads
-                p = (d * m.q_lora_rank
-                     + m.q_lora_rank * qh * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+                p = ((d * m.q_lora_rank + m.q_lora_rank * qh * qk
+                      if m.q_lora_rank else d * qh * qk)
                      + d * (m.kv_lora_rank + m.qk_rope_head_dim)
                      + m.kv_lora_rank * qh * (m.qk_nope_head_dim + m.v_head_dim)
                      + qh * m.v_head_dim * d)
@@ -317,7 +363,9 @@ class ModelConfig:
                 top_k=min(self.moe.top_k, 2), expert_ff=64,
                 shared_ff=64 if self.moe.num_shared else 0)
         if self.mla is not None:
-            changes["mla"] = MLAConfig(kv_lora_rank=32, q_lora_rank=48,
+            changes["mla"] = MLAConfig(kv_lora_rank=32,
+                                       q_lora_rank=48 if self.mla.q_lora_rank
+                                       else 0,
                                        qk_nope_head_dim=32, qk_rope_head_dim=16,
                                        v_head_dim=32)
         if self.mamba is not None:
@@ -395,6 +443,7 @@ _MODULES = {
     "musicgen-large": "musicgen_large",
     "rwkv6-1.6b": "rwkv6_1_6b",
     "jamba2-mini": "jamba2_mini",
+    "deepseek-v2-lite": "deepseek_v2_lite",
 }
 
 

@@ -9,6 +9,10 @@ v_head_dim 128, so a prefill's attention runs at (hd, hdv) = (192, 128).
 235.7 B params: no single card holds it. A caller that serves it on one
 card cuts depth, never width, with ``dataclasses.replace(CONFIG,
 num_layers=4)``: (mla, dense), then 3 x (mla, moe), 13.30 B params.
+
+It runs without the published YaRN RoPE scaling: the JAX package, which
+the port's tests hold this config to, has none. ``rope_scaling``, the
+YaRN record, is for the port's own configurations (``deepseek-v2-lite``).
 """
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 

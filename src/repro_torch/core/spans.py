@@ -44,6 +44,7 @@ In the model's eager forward (a prefill; a decode step's warm-up, not
 its graph's replays), each mixer or FFN call of the kinds that set
 architectures apart opens one: ``repro_torch.model.attn`` (a self
 attention mixer), ``repro_torch.model.mamba`` (a Mamba mixer),
+``repro_torch.model.mla`` (a multi-head latent attention mixer),
 ``repro_torch.model.moe`` (an MoE FFN).
 
 Kernel wrappers, the other layers and descriptor emission open none:

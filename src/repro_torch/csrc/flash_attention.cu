@@ -4,7 +4,8 @@
 // Replaces the TPU kernel flash_attention_fwd (_fa_kernel) in
 // src/repro/kernels/flash_attention/kernel.py: the same function — mask
 // k < kv_valid_len and, when causal, k <= q_offset + i; query head h
-// reads KV head h / G; scores scaled by 1/sqrt(hd); online softmax in
+// reads KV head h / G; scores scaled by 1/sqrt(hd), or by the scale the
+// caller gives (MLA under YaRN); online softmax in
 // float32 starting from m = NEG_INF = -1e30; output acc / max(l, 1e-30)
 // cast to the input dtype. Inputs are bf16 or float32, read in the
 // reference's public layout (B, S, heads, hd) through their strides (no
@@ -339,7 +340,7 @@ template <int HD, int HDV>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                const int* q_offset, const int* kv_len, int B, int Sq,
                int Skv, int H, int G, const long long* st, int causal,
-               cudaStream_t stream) {
+               float scale, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) *
                       (BQ * (HD + PAD) + 2 * BK * (HD + PAD) +
                        2 * BK * (HDV + PAD));
@@ -353,7 +354,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)out, q_offset, kv_len, Sq,
       Skv, G, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
-      kLog2e / sqrtf((float)HD));
+      scale > 0.f ? kLog2e * scale : kLog2e / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
@@ -510,7 +511,7 @@ template <int HD, int HDV>
 int launch_fma(const void* q, const void* k, const void* v, void* out,
                const int* q_offset, const int* kv_len, int B, int Sq,
                int Skv, int H, int G, const long long* st, int causal,
-               cudaStream_t stream) {
+               float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (HD * BQ + BK * (HD + 1) + BK * HDV + BK * PP);
   auto kern = flash_fwd_fma<HD, HDV>;
@@ -522,20 +523,22 @@ int launch_fma(const void* q, const void* k, const void* v, void* out,
       (const float*)q, (const float*)k, (const float*)v, (float*)out,
       q_offset, kv_len, Sq, Skv, G, Strides{st[0], st[1], st[2]},
       Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
-      Strides{st[9], st[10], st[11]}, causal, 1.0f / sqrtf((float)HD));
+      Strides{st[9], st[10], st[11]}, causal,
+      scale > 0.f ? scale : 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
 template <int HD, int HDV>
 int launch(int dtype, const void* q, const void* k, const void* v,
            void* out, const int* qo, const int* kl, int B, int Sq, int Skv,
-           int H, int G, const long long* st, int causal, cudaStream_t s) {
+           int H, int G, const long long* st, int causal, float scale,
+           cudaStream_t s) {
   if (dtype == 0)
     return launch_fma<HD, HDV>(q, k, v, out, qo, kl, B, Sq, Skv, H, G, st,
-                               causal, s);
+                               causal, scale, s);
   if (dtype == 1)
     return launch_mma<HD, HDV>(q, k, v, out, qo, kl, B, Sq, Skv, H, G, st,
-                               causal, s);
+                               causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -547,28 +550,30 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 // {q b,s,h, k b,s,h, v b,s,h, out b,s,h}; every row start 16-byte
 // aligned. q_offset, kv_len: (B,) int32. (hd, hdv) in {(32,32),
 // (64,64), (128,128), (192,128)}; the wrapper checks all of it and
-// raises before calling.
+// raises before calling. scale: the scores' scale, or 0 for 1/sqrt(hd)
+// (computed here, as before the argument existed).
 extern "C" int flash_attention_launch(int dtype, const void* q,
                                       const void* k, const void* v,
                                       void* out, const int* q_offset,
                                       const int* kv_len, int B, int Sq,
                                       int Skv, int H, int KV, int hd,
                                       int hdv, const long long* strides,
-                                      int causal, void* stream) {
+                                      int causal, float scale,
+                                      void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
   const int G = H / KV;
   cudaStream_t s = (cudaStream_t)stream;
   if (hd == 64 && hdv == 64)
     return launch<64, 64>(dtype, q, k, v, out, q_offset, kv_len, B, Sq, Skv,
-                          H, G, strides, causal, s);
+                          H, G, strides, causal, scale, s);
   if (hd == 128 && hdv == 128)
     return launch<128, 128>(dtype, q, k, v, out, q_offset, kv_len, B, Sq,
-                            Skv, H, G, strides, causal, s);
+                            Skv, H, G, strides, causal, scale, s);
   if (hd == 32 && hdv == 32)
     return launch<32, 32>(dtype, q, k, v, out, q_offset, kv_len, B, Sq, Skv,
-                          H, G, strides, causal, s);
+                          H, G, strides, causal, scale, s);
   if (hd == 192 && hdv == 128)
     return launch<192, 128>(dtype, q, k, v, out, q_offset, kv_len, B, Sq,
-                            Skv, H, G, strides, causal, s);
+                            Skv, H, G, strides, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -57,11 +57,11 @@ LIBRARIES = {
                                  _PTR, _PTR, _PTR, _I64, _PTR),
     },
     # (dtype, q, k, v, out, q_offset, kv_len, B, Sq, Skv, H, KV, hd, hdv,
-    #  strides[12], causal, stream)
+    #  strides[12], causal, scale (0: hd^-1/2), stream)
     "flash_attention": {
         "flash_attention_launch": (_INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                                    _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                                   _STRIDES, _INT, _PTR),
+                                   _STRIDES, _INT, ctypes.c_float, _PTR),
     },
     # (dtype, q, k, v, out, workspace, positions, kv_len, B, S, H, KV, hd,
     #  hdv, nsplit, strides[12], stream)

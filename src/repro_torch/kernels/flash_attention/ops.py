@@ -20,13 +20,18 @@ from repro_torch.kernels import _attn, _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 
-def _forward(q, k, v, q_offset, kvl, causal):
+def _forward(q, k, v, q_offset, kvl, causal, scale=None):
     """The kernel (CUDA) or the plain version (CPU), no autograd;
-    ``q_offset`` and ``kvl``: (B,) int32 (:func:`_norm_inputs`)."""
+    ``q_offset`` and ``kvl``: (B,) int32 (:func:`_norm_inputs`);
+    ``scale`` None for the default, which the kernel computes itself
+    (bit for bit the launches before the argument existed)."""
     B = q.shape[0]
+    if scale is not None and not scale > 0:
+        raise ValueError(f"flash attention: scale {scale} is not positive")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_offset=q_offset,
-                                   kv_valid_len=kvl, causal=causal)
+                                   kv_valid_len=kvl, causal=causal,
+                                   scale=scale)
     _attn.check_inputs("flash attention", q, k, v, q_offset, kvl)
     _, Sq, H, hd = q.shape
     _, Skv, KV, hdv = v.shape
@@ -36,6 +41,7 @@ def _forward(q, k, v, q_offset, kvl, causal):
         _attn.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), q_offset.data_ptr(), kvl.data_ptr(), B, Sq, Skv, H,
         KV, hd, hdv, strides, int(bool(causal)),
+        0.0 if scale is None else float(scale),
         torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "flash_attention")
     return out
@@ -44,13 +50,14 @@ def _forward(q, k, v, q_offset, kvl, causal):
 class FlashAttention(torch.autograd.Function):
     """Forward: the kernel (the plain version on the CPU). Backward: the
     gradient of :func:`.ref.flash_attention_ref` at the saved q, k, v,
-    as the reference's ``_fa_bwd``; none for the offsets and lengths."""
+    as the reference's ``_fa_bwd``; none for the offsets, lengths and
+    scale."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_offset, kvl, causal):
-        ctx.causal = causal
+    def forward(ctx, q, k, v, q_offset, kvl, causal, scale):
+        ctx.causal, ctx.scale = causal, scale
         ctx.save_for_backward(q, k, v, q_offset, kvl)
-        return _forward(q, k, v, q_offset, kvl, causal)
+        return _forward(q, k, v, q_offset, kvl, causal, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -59,9 +66,9 @@ class FlashAttention(torch.autograd.Function):
             ins = [t.detach().requires_grad_() for t in (q, k, v)]
             out = flash_attention_ref(*ins, q_offset=q_offset,
                                       kv_valid_len=kv_valid_len,
-                                      causal=ctx.causal)
+                                      causal=ctx.causal, scale=ctx.scale)
             dq, dk, dv = torch.autograd.grad(out, ins, g)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def _norm_inputs(q, q_positions, kv_valid_len):
@@ -81,14 +88,15 @@ def _norm_inputs(q, q_positions, kv_valid_len):
 
 
 def flash_attention(q, k, v, *, q_positions=None, kv_valid_len=None,
-                    causal=True):
+                    causal=True, scale=None):
     """q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd[v]) -> (B,Sq,H,hdv) in q's
     dtype. ``q_positions`` (B,Sq): absolute positions, of which the
     first gives each sequence's query offset (default 0);
-    ``kv_valid_len`` (B,): keys at or past it are masked (default none).
-    Differentiable in q, k and v (:class:`FlashAttention`)."""
+    ``kv_valid_len`` (B,): keys at or past it are masked (default none);
+    ``scale``: the scores' scale (default hd^-1/2; MLA with YaRN gives
+    its own). Differentiable in q, k and v (:class:`FlashAttention`)."""
     q_offset, kvl = _norm_inputs(q, q_positions, kv_valid_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, q_offset, kvl, causal)
-    return _forward(q, k, v, q_offset, kvl, causal)
+        return FlashAttention.apply(q, k, v, q_offset, kvl, causal, scale)
+    return _forward(q, k, v, q_offset, kvl, causal, scale)

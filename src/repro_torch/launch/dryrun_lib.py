@@ -208,9 +208,9 @@ def kernel_standins(tally: dict):
     import repro_torch.kernels.rwkv6.ops as rw
     import repro_torch.models.attention as attn
 
-    def flash(q, k, v, q_offset, kvl, causal):
+    def flash(q, k, v, q_offset, kvl, causal, scale=None):
         # queries from position 0 (a train step's, a prefill's): the
-        # causal pairs alone; not causal, every key
+        # causal pairs alone; not causal, every key (at any scale)
         B, Sq, H, hd = q.shape
         Skv, hdv = k.shape[1], v.shape[-1]
         pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv

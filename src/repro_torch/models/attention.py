@@ -59,15 +59,20 @@ def attn_specs(cfg, cross: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 
 def attention_core(cfg, q, k, v, *, q_positions, kv_valid_len=None,
-                   causal=True):
+                   causal=True, scale=None):
     """q (B,Sq,H,hd), k/v (B,Skv,KV,hd[v]), q_positions (B,Sq) absolute
     -> (B,Sq,H,hdv). ``causal=False`` masks no key by position, at
-    decode as at prefill."""
+    decode as at prefill. ``scale``: the scores' scale (default
+    hd^-1/2), taken by the flash attention route only; the decode
+    kernels have the default alone."""
     plain = cfg.attn_impl == "plain"
     if cfg.attn_impl not in ("kernel", "plain"):
         raise ValueError(f"attn_impl {cfg.attn_impl!r}: the port has "
                          "'kernel' and 'plain'")
     if q.shape[1] == 1:
+        if scale is not None:
+            raise ValueError("attention_core: the decode route takes no "
+                             "scale")
         pos = q_positions if causal else None
         if plain:
             return decode_attention_ref(q, k, v, q_positions=pos,
@@ -76,9 +81,11 @@ def attention_core(cfg, q, k, v, *, q_positions, kv_valid_len=None,
                                 kv_valid_len=kv_valid_len)
     if plain:
         return flash_attention_ref(q, k, v, q_offset=q_positions[:, 0],
-                                   kv_valid_len=kv_valid_len, causal=causal)
+                                   kv_valid_len=kv_valid_len, causal=causal,
+                                   scale=scale)
     return flash_attention(q, k, v, q_positions=q_positions,
-                           kv_valid_len=kv_valid_len, causal=causal)
+                           kv_valid_len=kv_valid_len, causal=causal,
+                           scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -129,11 +136,13 @@ def _update_cache(cache_k, k_new, index):
 def shared_inputs(cfg, positions, rope_dim=None) -> dict:
     """What every attention layer of one forward pass derives from the
     positions alone — the RoPE table (at ``rope_dim``, default the head
-    dim; None where ``cfg.use_rope`` is off, but MLA's rope part, whose
-    width ``rope_dim`` names, is always rotated), the cache rows written,
+    dim, YaRN's where ``cfg.rope_scaling`` gives it; None where
+    ``cfg.use_rope`` is off, but MLA's rope part, whose width
+    ``rope_dim`` names, is always rotated), the cache rows written,
     the valid KV length — made once per pass instead of once per
     layer."""
-    rope = (rope_table(positions, rope_dim or cfg.head_dim, cfg.rope_theta)
+    rope = (rope_table(positions, rope_dim or cfg.head_dim, cfg.rope_theta,
+                       cfg.rope_scaling)
             if cfg.use_rope or rope_dim else None)
     return {"rope": rope,
             "cache_index": cache_index(positions),

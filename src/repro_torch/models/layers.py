@@ -67,19 +67,34 @@ def rmsnorm_nl(x, eps: float = 1e-5):
 # RoPE
 # ---------------------------------------------------------------------------
 
-def rope_freqs(head_dim: int, theta: float, device=None):
+def rope_freqs(head_dim: int, theta: float, device=None, scaling=None):
+    """The rotary frequencies of the ``head_dim / 2`` pairs; with
+    ``scaling`` (a ``configs.YaRNConfig``) YaRN's: the original ones
+    below its ramp, divided by its factor above it, blended linearly in
+    between, as DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding``."""
     half = head_dim // 2
-    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
-                                         device=device) / half))
+    inv = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                        device=device) / half))
+    if scaling is None:
+        return inv
+    low, high = scaling.ramp(head_dim, theta)
+    ramp = ((torch.arange(half, dtype=torch.float32, device=device) - low)
+            / ((high - low) or 0.001)).clamp(0, 1)
+    return inv / scaling.factor * ramp + inv * (1 - ramp)
 
 
-def rope_table(positions, head_dim: int, theta: float):
+def rope_table(positions, head_dim: int, theta: float, scaling=None):
     """(cos, sin) of the rotation angles for ``positions`` (B, S), each
     (B, S, 1, hd/2) float32 — the same for every layer of a forward
-    pass, which makes it once."""
-    inv = rope_freqs(head_dim, theta, positions.device)     # (hd/2,)
+    pass, which makes it once. ``scaling``: YaRN's (:func:`rope_freqs`),
+    whose cos and sin are multiplied by its ``cos_sin_factor`` unless
+    that is 1."""
+    inv = rope_freqs(head_dim, theta, positions.device, scaling)
     ang = (positions.float()[..., None] * inv)[..., None, :]
-    return torch.cos(ang), torch.sin(ang)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if scaling is not None and scaling.cos_sin_factor != 1.0:
+        cos, sin = cos * scaling.cos_sin_factor, sin * scaling.cos_sin_factor
+    return cos, sin
 
 
 # x: (B, S, H, hd) rotated by the angles of a :func:`rope_table`: the two

@@ -19,6 +19,13 @@ Two execution paths, as there:
 
 The cache is {"ckv": (B, max_len, kv_lora), "krope": (B, max_len,
 rope_dim)}, written in place at the step's rows.
+
+Beyond the JAX package's layer (DeepSeek-V2-Lite, each off by default):
+``cfg.mla.q_lora_rank`` 0 makes the query one projection ``wq`` (d, H,
+nope + rope) in place of ``wq_a``, ``q_norm`` and ``wq_b``; and
+``cfg.rope_scaling`` (YaRN) rotates the rope part at YaRN's frequencies
+(:func:`.attention.shared_inputs`) and multiplies the softmax scale of
+both paths by its ``softmax_factor`` (:func:`softmax_scale`).
 """
 from __future__ import annotations
 
@@ -37,11 +44,15 @@ NEG_INF = -1e30
 def mla_specs(cfg) -> dict:
     m, d, H = cfg.mla, cfg.d_model, cfg.num_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if m.q_lora_rank:
+        q = {"wq_a":   ParamSpec((d, m.q_lora_rank), ("embed", "lora")),
+             "q_norm": ParamSpec((m.q_lora_rank,), (None,), init="ones"),
+             "wq_b":   ParamSpec((m.q_lora_rank, H, qk),
+                                 ("lora", "heads", "head_dim"))}
+    else:
+        q = {"wq": ParamSpec((d, H, qk), ("embed", "heads", "head_dim"))}
     return {
-        "wq_a":   ParamSpec((d, m.q_lora_rank), ("embed", "lora")),
-        "q_norm": ParamSpec((m.q_lora_rank,), (None,), init="ones"),
-        "wq_b":   ParamSpec((m.q_lora_rank, H, qk),
-                            ("lora", "heads", "head_dim")),
+        **q,
         "wkv_a":  ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim),
                             ("embed", "lora")),
         "kv_norm": ParamSpec((m.kv_lora_rank,), (None,), init="ones"),
@@ -77,11 +88,24 @@ def _proj(x, w, dt):
         *x.shape[:-1], *w.shape[1:])
 
 
+def softmax_scale(cfg) -> float:
+    """The scores' scale: (nope + rope)^-1/2, times YaRN's
+    ``softmax_factor`` where ``cfg.rope_scaling`` gives it."""
+    m = cfg.mla
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    if cfg.rope_scaling is not None:
+        scale *= cfg.rope_scaling.softmax_factor
+    return scale
+
+
 def _latents(cfg, params, x, rope, dt):
     m = cfg.mla
-    cq = _proj(x, params["wq_a"], dt)
-    cq = rmsnorm_nl(cq, cfg.norm_eps) * params["q_norm"].to(dt)
-    q = _proj(cq, params["wq_b"], dt)                    # (B, S, H, qk)
+    if m.q_lora_rank:
+        cq = _proj(x, params["wq_a"], dt)
+        cq = rmsnorm_nl(cq, cfg.norm_eps) * params["q_norm"].to(dt)
+        q = _proj(cq, params["wq_b"], dt)                # (B, S, H, qk)
+    else:
+        q = _proj(x, params["wq"], dt)
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], rope)
 
@@ -123,8 +147,14 @@ def mla_attention(cfg, params, x, *, positions, cache=None, shared=None):
     k_rope = krope[:, :, None, :].expand(B, Skv, H, m.qk_rope_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope], dim=-1)
+    # a scale of its own only under YaRN (the kernel's default is the
+    # same float otherwise); a lone query without a cache attends to its
+    # own key alone, whose weight is 1 at any scale
+    scale = (softmax_scale(cfg) if cfg.rope_scaling is not None and S > 1
+             else None)
     out = attention_core(cfg, q, k, v, q_positions=positions,
-                         kv_valid_len=kv_valid_len, causal=True)
+                         kv_valid_len=kv_valid_len, causal=True,
+                         scale=scale)
     out = torch.matmul(out.reshape(B, S, H * m.v_head_dim),
                        params["wo"].to(dt).reshape(H * m.v_head_dim, -1))
     return out, cache
@@ -135,8 +165,7 @@ def _absorbed_decode(cfg, params, q_nope, q_rope, ckv, krope, positions,
     """Decode without decompressing: score against the latent directly.
     ckv (B, Skv, kv_lora), krope (B, Skv, rope) in the compute dtype;
     keys past positions[:, -1] are masked."""
-    m = cfg.mla
-    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    scale = softmax_scale(cfg)
     # fold W_k^b into q: (B,1,H,nope) x (lora,H,nope) -> (B,1,H,lora)
     q_abs = torch.einsum("bqhn,lhn->bqhl", q_nope, params["wk_b"].to(dt))
     s_l = torch.einsum("bqhl,bsl->bhqs", q_abs, ckv)

@@ -143,9 +143,11 @@ def _apply_block(cfg, spec, params, x, *, positions, cache, shared,
                                               positions=positions,
                                               cache=cache, vision=vision)
     elif mixer == "mla":
-        out, cache = mla_mod.mla_attention(cfg, params["mixer"], h,
-                                           positions=positions, cache=cache,
-                                           shared=shared[mixer])
+        with span("repro_torch.model.mla"):
+            out, cache = mla_mod.mla_attention(cfg, params["mixer"], h,
+                                               positions=positions,
+                                               cache=cache,
+                                               shared=shared[mixer])
     elif mixer == "mamba":
         with span("repro_torch.model.mamba"):
             out, cache = mamba_mod.mamba(cfg, params["mixer"], h,

@@ -68,6 +68,12 @@ host from each dispatch's shape, the expert rows computed
 (``moe_rows_computed``: under "dense" every expert on every row of the
 batch, idle decode slots included) and the rows routed to
 (``moe_rows_routed``: ``top_k`` a real token), over all MoE layers.
+For a model with MLA layers it counts, on the host from each decode
+step's slots, ``max_len`` and positions, the latent cache rows the
+absorbed decode scored (``mla_rows_scored``: every slot's ``max_len``
+rows, idle slots included, the mask made on the device) and the valid
+ones among them (``mla_rows_valid``: position + 1 an active slot), over
+all MLA layers.
 """
 from __future__ import annotations
 
@@ -163,6 +169,9 @@ class ServingEngine:
         self.moe_impl = moe_impl
         self._moe_layers = sum(f == "moe" for _, f in cfg.layer_specs())
         self.moe_rows_computed = self.moe_rows_routed = 0
+        # latent rows the absorbed MLA decode scored, and the valid ones
+        self._mla_layers = sum(m == "mla" for m, _ in cfg.layer_specs())
+        self.mla_rows_scored = self.mla_rows_valid = 0
         self.st_mode = st_mode
         self._router = None
         if st_mode is not None:
@@ -318,6 +327,11 @@ class ServingEngine:
                 self.decode_seconds += time.perf_counter() - t0
                 self.decode_steps += 1
                 self._count_moe_rows(self.B, 1, len(active))
+                if self._mla_layers:
+                    self.mla_rows_scored += (self._mla_layers * self.B
+                                             * self.max_len)
+                    self.mla_rows_valid += self._mla_layers * int(
+                        (self.slot_pos[active].astype(np.int64) + 1).sum())
             if self._router is not None:
                 with span("repro_torch.router.dispatch"):
                     t0 = time.perf_counter()
@@ -398,6 +412,9 @@ class ServingEngine:
         if self._moe_layers:
             d["moe_rows_computed"] = self.moe_rows_computed
             d["moe_rows_routed"] = self.moe_rows_routed
+        if self._mla_layers:
+            d["mla_rows_scored"] = self.mla_rows_scored
+            d["mla_rows_valid"] = self.mla_rows_valid
         if self._router is not None:
             d["st_dispatch_seconds"] = self.st_dispatch_seconds
             d["st"] = self._router.stats()

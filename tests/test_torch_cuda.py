@@ -1571,6 +1571,113 @@ def test_mla_decode_graph_equals_eager_decode(dev, moe_impl):
                                  .astype(np.int32) for L in (5, 9, 5, 12)])
 
 
+def _dsv2lite_cut(layers=2):
+    """deepseek-v2-lite at every published width, cut to its first
+    ``layers`` layers (the dense one, then MoE)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek-v2-lite"),
+                               num_layers=layers)
+
+
+def test_dsv2lite_decode_graph_equals_eager_decode(dev):
+    """deepseek-v2-lite cut to 2 layers (the dense one and one MoE of 64
+    experts top-6 beside 2 shared) at full width, served with dense MoE
+    at 8 slots: its decode step (one query projection, YaRN's rope table
+    and softmax scale, the absorbed products over the latent cache)
+    replayed from its CUDA graph gives the eager step's ids and latent
+    cache bit for bit, in bf16."""
+    from repro_torch.models import init_params, model_specs
+    from repro_torch.serving import ServingEngine
+    cfg = _dsv2lite_cut()
+    assert cfg.mla.q_lora_rank == 0 and cfg.rope_scaling is not None
+    params = init_params(model_specs(cfg), torch.Generator(
+        device=dev).manual_seed(0), dev, torch.bfloat16)
+    eng = ServingEngine(cfg, params, batch_slots=8, max_len=512,
+                        moe_impl="dense", device=dev)
+    rng = np.random.RandomState(2)
+    _graph_vs_eager_decode(eng, [rng.randint(1, cfg.vocab_size, L)
+                                 .astype(np.int32)
+                                 for L in (5, 90, 300, 17, 64, 9)])
+
+
+def test_dsv2lite_absorbed_decode_equals_the_expand_path(dev):
+    """One MLA layer of deepseek-v2-lite at full width, 32 slots at
+    positions up to 2,559 in a 4,096-row latent cache: the absorbed
+    decode (the served step) and the expand path (the latent expanded to
+    each head's k_nope and v, the flash kernel at (192, 128) with YaRN's
+    scale) in bf16, each within the bf16 tolerance of the expand path in
+    float32 (plain products); so within twice it of each other."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.models import init_params
+    from repro_torch.models import mla
+    cfg = _dsv2lite_cut(1)
+    m, B, S = cfg.mla, 32, 4096
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = init_params(mla.mla_specs(cfg), gen, dev, torch.bfloat16)
+    pos = torch.randint(64, 2560, (B, 1), generator=gen, device=dev)
+    x = torch.randn((B, 1, cfg.d_model), generator=gen, device=dev)
+    cache = {"ckv": torch.randn((B, S, m.kv_lora_rank), generator=gen,
+                                device=dev).bfloat16(),
+             "krope": torch.randn((B, S, m.qk_rope_head_dim), generator=gen,
+                                  device=dev).bfloat16()}
+    got, _ = mla.mla_attention(cfg, params, x.bfloat16(), positions=pos,
+                               cache=cache)
+
+    def expand(dt, attend):
+        p = {k: v.to(dt) for k, v in params.items()}
+        shared = mla.shared_inputs(cfg, pos)
+        q_nope, q_rope, _, _ = mla._latents(cfg, p, x.to(dt),
+                                            shared["rope"], dt)
+        ckv, krope = cache["ckv"].to(dt), cache["krope"].to(dt)
+        k = torch.cat([mla._proj(ckv, p["wk_b"], dt), krope[:, :, None]
+                       .expand(B, S, cfg.num_heads, m.qk_rope_head_dim)],
+                      dim=-1)
+        out = attend(torch.cat([q_nope, q_rope], dim=-1), k,
+                     mla._proj(ckv, p["wv_b"], dt), pos[:, 0],
+                     mla.softmax_scale(cfg))
+        return torch.matmul(out.reshape(B, 1, -1),
+                            p["wo"].reshape(-1, cfg.d_model))
+
+    want = expand(torch.float32, lambda q, k, v, off, sc: flash_attention_ref(
+        q, k, v, q_offset=off, kv_valid_len=off + 1, scale=sc))
+    kernel = expand(torch.bfloat16, lambda q, k, v, off, sc: flash_attention(
+        q, k, v, q_positions=off[:, None], kv_valid_len=off + 1, scale=sc))
+    tol = RTOL_BF16 * want.abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+    torch.testing.assert_close(kernel.float(), want, rtol=0, atol=tol)
+    torch.testing.assert_close(got.float(), kernel.float(), rtol=0,
+                               atol=2 * tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,hdv,off", [
+    (4, 300, 4096, 16, 16, 192, 128, 0),     # deepseek-v2-lite's prefill
+    (2, 129, 333, 8, 2, 64, 64, 100),
+])
+def test_flash_attention_kernel_takes_a_scale(dev, dtype, B, Sq, Skv, H,
+                                              KV, hd, hdv, off):
+    """The kernel with YaRN's scale (1.58963 hd^-1/2) equals its plain
+    version with it, and without one, the plain version's default."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+    q, k, v = mk(B, Sq, H, hd), mk(B, Skv, KV, hd), mk(B, Skv, KV, hdv)
+    pos = (off + torch.arange(Sq, device=dev, dtype=torch.int32)).expand(
+        B, Sq)
+    kvl = torch.full((B,), off + Sq, device=dev, dtype=torch.int32)
+    for scale in (1.58963 * hd ** -0.5, None):
+        out = flash_attention(q, k, v, q_positions=pos, kv_valid_len=kvl,
+                              scale=scale)
+        ref = flash_attention_ref(q, k, v, q_offset=pos[:, 0],
+                                  kv_valid_len=kvl, scale=scale)
+        _assert_attn_close(out, ref)
+    with pytest.raises(ValueError, match="not positive"):
+        flash_attention(q, k, v, scale=0.0)
+
+
 # ---------------------------------------------------------------------------
 # ST-routed decode on the card
 # ---------------------------------------------------------------------------

@@ -317,10 +317,12 @@ FULL = {
 }
 
 
-# the port's switches the reference has not (jamba2-mini turns them on),
+# the port's switches the reference has not (jamba2-mini and
+# deepseek-v2-lite turn them on),
 # with the defaults under which every reference architecture runs
 PORT_SWITCHES = {"attn_layer_offset": 0, "use_rope": True,
-                 "renormalize": True, "inner_norms": False}
+                 "renormalize": True, "inner_norms": False,
+                 "rope_scaling": None}
 
 
 @pytest.mark.parametrize("arch", list(FULL))

@@ -445,3 +445,37 @@ def test_jamba_engine_moe_impl(moe_impl):
         tokens[impl] = eng.completed[0].out_tokens
     assert len(tokens["dense"]) == 4
     assert tokens["dense"] == tokens[moe_impl]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite", "deepseek-v2-236b"])
+def test_engine_counts_mla_rows(arch):
+    """``stats()``: the latent rows the absorbed MLA decode scored (every
+    slot's ``max_len`` rows a step, idle slots included) and the valid
+    ones (position + 1 an active slot), over the MLA layers; both with
+    and without query compression. A model without MLA has neither."""
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              compute_dtype="float32")
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         "cpu")
+    eng = ServingEngine(cfg, params, batch_slots=3, max_len=32,
+                        device="cpu")
+    valid = []
+    real = eng._decode_batch
+
+    def decode_batch(active):
+        valid.append(sum(int(eng.slot_pos[i]) + 1 for i in active))
+        return real(active)
+    eng._decode_batch = decode_batch
+    for n, k in ((5, 6), (9, 4), (5, 3), (7, 2)):
+        eng.submit(Request(prompt=np.arange(1, n + 1, dtype=np.int32),
+                           max_new_tokens=k))
+    eng.run_until_drained()
+    st = eng.stats()
+    n_mla = cfg.num_layers
+    assert st["mla_rows_scored"] == n_mla * 3 * 32 * len(valid)
+    assert st["mla_rows_valid"] == n_mla * sum(valid)
+    assert len(valid) == eng.decode_steps > 0
+    granite = ServingEngine(_tiny_cfg(), init_params(
+        model_specs(_tiny_cfg()), torch.Generator().manual_seed(0), "cpu"),
+        batch_slots=2, max_len=16, device="cpu")
+    assert "mla_rows_scored" not in granite.stats()

@@ -197,3 +197,31 @@ def test_no_span_without_a_profiler_engine(monkeypatch, raising, tiny):
     eng.run_until_drained()
     assert eng.decode_steps > 2
     assert span("repro_torch.a") is span("repro_torch.b")
+
+
+def test_mla_forward_opens_a_span_per_mla_mixer():
+    """Under the profiler, the eager forward of the reduced
+    deepseek-v2-lite (an MLA mixer in each layer, the dense FFN first,
+    then MoE) opens ``repro_torch.model.mla`` once a layer and ``.moe``
+    once an MoE layer; with no profiler, none."""
+    from repro_torch.models import forward
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite").reduced(),
+                              num_layers=3, compute_dtype="float32")
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         "cpu")
+    batch = {"tokens": torch.zeros((1, 5), dtype=torch.long),
+             "positions": torch.arange(5)[None]}
+    names = [s.name for s in _spans(lambda: forward(cfg, params, batch,
+                                                    moe_impl="dense"))]
+    assert sorted(names) == ["model.mla"] * 3 + ["model.moe"] * 2
+
+
+def test_no_span_without_a_profiler_mla_forward(raising):
+    from repro_torch.models import forward
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite").reduced(),
+                              compute_dtype="float32")
+    params = init_params(model_specs(cfg), torch.Generator().manual_seed(0),
+                         "cpu")
+    forward(cfg, params, {"tokens": torch.zeros((1, 5), dtype=torch.long),
+                          "positions": torch.arange(5)[None]},
+            moe_impl="dense")
